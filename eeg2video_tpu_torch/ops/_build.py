@@ -1,0 +1,125 @@
+"""Build and load the port's CUDA kernels.
+
+All ``csrc/*.cu`` sources compile with ``nvcc`` for ``sm_90a`` into one
+shared library with a plain C interface, loaded through ``ctypes``. The
+build happens at first use, never at import, into
+``eeg2video_tpu_torch/_build/<hash>/`` (listed in ``.gitignore``), keyed by a
+hash of the sources and flags, so a changed source rebuilds and an
+unchanged one loads the existing library.
+
+Each C entry point returns the CUDA launch status; ``check`` raises on any
+non-zero value. ``launches`` counts, per kernel, the launches its wrapper
+made; a wrapper adds one only where it launches its kernel.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import glob
+import hashlib
+import os
+import shutil
+import subprocess
+
+import torch
+
+_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CSRC = os.path.join(_PKG, "csrc")
+BUILD_ROOT = os.path.join(_PKG, "_build")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+P = ctypes.c_void_p
+I = ctypes.c_int
+LL = ctypes.c_longlong
+F = ctypes.c_float
+# C signatures of the entry points (argtypes; every restype is int)
+SIGNATURES = {
+    "e2v_flash_attention_fwd": [P, LL, LL, P, LL, P, LL, P, LL, LL, P, LL, LL,
+                                P, P, LL, LL, I, I, I, I, I, I, I, F, P],
+    "e2v_ff_ln": [P, P, P, P, P, P, P, P, I, I, I, F, P],
+    "e2v_geglu_out": [P, P, P, P, I, I, I, P],
+    "e2v_conv3x3": [P, P, P, P, P, P, P, P, I, I, I, I, I, P],
+}
+
+launches = {"flash_attention_fwd": 0, "ff_ln": 0, "geglu_out": 0,
+            "conv3x3_gn_silu": 0}
+
+_lib = None
+
+
+def reset_launches():
+    for k in launches:
+        launches[k] = 0
+
+
+def _sources():
+    return sorted(glob.glob(os.path.join(CSRC, "*.cu"))
+                  + glob.glob(os.path.join(CSRC, "*.cuh")))
+
+
+def _nvcc():
+    for cand in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
+        if cand and os.path.exists(os.path.join(cand, "bin", "nvcc")):
+            return os.path.join(cand, "bin", "nvcc")
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found: the port's kernels build only "
+                           "where the CUDA toolkit is installed")
+    return found
+
+
+def _digest():
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in _sources():
+        h.update(os.path.basename(path).encode())
+        with open(path, "rb") as f:
+            h.update(f.read())
+    return h.hexdigest()[:16]
+
+
+def library():
+    """The loaded kernel library, building it first if needed."""
+    global _lib
+    if _lib is not None:
+        return _lib
+    out_dir = os.path.join(BUILD_ROOT, _digest())
+    so = os.path.join(out_dir, "libe2v_kernels.so")
+    if not os.path.exists(so):
+        os.makedirs(out_dir, exist_ok=True)
+        tmp = f"{so}.{os.getpid()}.tmp"
+        cus = [p for p in _sources() if p.endswith(".cu")]
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *cus]
+        res = subprocess.run(cmd, capture_output=True, text=True)
+        build_log = res.stdout + res.stderr  # -Xptxas -v: registers, spills
+        with open(os.path.join(out_dir, "build.log"), "w") as f:
+            f.write(" ".join(cmd) + "\n" + build_log)
+        if res.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({res.returncode}):\n{build_log}")
+        os.replace(tmp, so)  # atomic: a concurrent build never loads half a file
+    lib = ctypes.CDLL(so)
+    for name, argtypes in SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    _lib = lib
+    return _lib
+
+
+def check(rc: int, kernel: str):
+    if rc != 0:
+        raise RuntimeError(f"{kernel}: CUDA launch failed with error {rc}")
+
+
+def ptr(t):
+    """Device address of a tensor, or NULL for an absent operand."""
+    return None if t is None else t.data_ptr()
+
+
+def stream_of(t):
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def require(cond: bool, kernel: str, what: str):
+    if not cond:
+        raise ValueError(f"{kernel}: {what}")
