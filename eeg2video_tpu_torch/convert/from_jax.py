@@ -1,10 +1,10 @@
 """JAX parameter trees -> the port's state dicts.
 
 The port's modules carry the diffusers / reference key names, so the
-numpy-only exporters of the JAX package (``eeg2video_tpu.convert.
-export_diffusion.unet3d_to_torch`` :99 and ``vae_to_torch`` :155, which
-import no jax) give the mapping; this module turns their arrays into
-tensors. Flax trees may be nested dicts of numpy arrays.
+numpy-only exporters in ``convert.export_diffusion`` give the mapping; this
+module turns their arrays into tensors. Flax trees arrive as nested dicts of
+numpy arrays (``jax.device_get`` of the parameters, or a restored orbax
+checkpoint converted by the caller): nothing here imports jax.
 """
 
 from __future__ import annotations
@@ -12,10 +12,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from eeg2video_tpu.convert.export_diffusion import unet3d_to_torch, vae_to_torch
-
-# keys of the VAE's encoding half, which the port does not have yet
-_VAE_ENCODER_PREFIXES = ("encoder.", "quant_conv.")
+from .export_diffusion import VAE_ENCODER_PREFIXES, unet3d_to_torch, vae_to_torch
 
 
 def _tensors(sd, dtype):
@@ -36,4 +33,17 @@ def vae_state_dict_from_jax(params, config, dtype=torch.float32):
     sd = vae_to_torch(params, n_blocks=len(config.block_out_channels),
                       enc_layers=config.layers_per_block)
     return _tensors({k: v for k, v in sd.items()
-                     if not k.startswith(_VAE_ENCODER_PREFIXES)}, dtype)
+                     if not k.startswith(VAE_ENCODER_PREFIXES)}, dtype)
+
+
+def semantic_state_dict_from_jax(params, dtype=torch.float32):
+    """Flax SemanticPredictor params (``{fcN: {kernel, bias}, out: {...}}``,
+    with or without the ``params`` wrapper) -> ``SemanticPredictor`` state
+    dict: kernels (I, O) transpose to ``nn.Linear``'s (O, I)."""
+    if "params" in params:
+        params = params["params"]
+    sd = {}
+    for name, leaf in params.items():
+        sd[f"{name}.weight"] = np.transpose(np.asarray(leaf["kernel"]))
+        sd[f"{name}.bias"] = np.asarray(leaf["bias"])
+    return _tensors(sd, dtype)

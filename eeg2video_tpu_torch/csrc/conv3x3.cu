@@ -13,9 +13,10 @@
 // Optional stats: (sum, sum of squares) over pixels of the STORED bf16 output
 // per (image, channel), the partials the following GroupNorm needs
 // (ops/conv2d.py:115-121). Output tiles of different blocks share an image,
-// so the reduction is f32 atomicAdd into an (N, 2, Cout) buffer the wrapper
-// zeroes: the summation order varies from run to run, which changes the
-// result only at f32 rounding level (relative ~1e-6 at these pixel counts).
+// so each block writes its own partial into a (pixel blocks, 2, Cout) buffer
+// and the wrapper adds an image's partials in a fixed order: no atomics, the
+// same bits every run (a served clip must not depend on what ran beside it).
+// This needs H*W % 64 == 0, so that a block's pixels are of one image.
 //
 // What bounds it on the H100: 2*N*H*W*9*Cin*Cout FLOPs (12 x 36 x 64 pixels,
 // Cin = Cout = 320: 32 GFLOP), compute-bound; the prologue's expf per input
@@ -144,28 +145,14 @@ __global__ void __launch_bounds__(kThreads)
   if (threadIdx.x < kBN) {
     const int c = threadIdx.x, co = co0 + c;
     if (co < Cout) {
-      int cur = -1;
       float s = 0.0f, s2 = 0.0f;
-      for (int r = 0; r < kBM; ++r) {
-        const long long p = p0 + r;
-        if (p >= M) break;
-        const int n = (int)(p / HW);
-        if (n != cur) {
-          if (cur >= 0) {
-            atomicAdd(stats + ((long long)cur * 2) * Cout + co, s);
-            atomicAdd(stats + ((long long)cur * 2 + 1) * Cout + co, s2);
-          }
-          cur = n;
-          s = s2 = 0.0f;
-        }
+      for (int r = 0; r < kBM && p0 + r < M; ++r) {
         const float v = Cs[r * kLDC + c];
         s += v;
         s2 += v * v;
       }
-      if (cur >= 0) {
-        atomicAdd(stats + ((long long)cur * 2) * Cout + co, s);
-        atomicAdd(stats + ((long long)cur * 2 + 1) * Cout + co, s2);
-      }
+      stats[((long long)blockIdx.y * 2) * Cout + co] = s;
+      stats[((long long)blockIdx.y * 2 + 1) * Cout + co] = s2;
     }
   }
 }
@@ -175,13 +162,14 @@ __global__ void __launch_bounds__(kThreads)
 
 // x (N, H, W, Cin) bf16; scale, shift (N, Cin) f32; w (Cout, 3, 3, Cin) bf16;
 // bias (Cout) f32; temb (N, Cout) f32 or null; out (N, H, W, Cout) bf16;
-// stats (N, 2, Cout) f32, zeroed, or null.
-// Cin % 8 == 0. Returns the CUDA launch status.
+// stats (N * H * W / 64, 2, Cout) f32 per-block partials, or null (then
+// H * W % 64 == 0). Cin % 8 == 0. Returns the CUDA launch status.
 extern "C" int e2v_conv3x3(const void* x, const void* scale, const void* shift, const void* w,
                            const void* bias, const void* temb, void* out, void* stats, int N,
                            int H, int W, int Cin, int Cout, void* stream) {
   using namespace e2v;
-  if (Cin % 8 != 0) return (int)cudaErrorInvalidValue;
+  if (Cin % 8 != 0 || (stats != nullptr && (H * W) % kBM != 0))
+    return (int)cudaErrorInvalidValue;
   const long long M = (long long)N * H * W;
   const dim3 grid((Cout + kBN - 1) / kBN, (unsigned)((M + kBM - 1) / kBM));
   conv3x3_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(

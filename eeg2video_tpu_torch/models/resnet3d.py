@@ -27,6 +27,19 @@ def conv2d_nhwc(x, weight, bias, stride=1, padding=1):
     return y.permute(0, 2, 3, 1).contiguous()
 
 
+def conv2d_frames(x, weight, bias, stride=1, padding=1):
+    """Per-frame conv of (B, F, H, W, Cin) -> (B, F, H', W', Cout), one
+    library call per batch element. Within one call cuDNN may sum an image's
+    reduction in an order that depends on the image's place in the batch
+    (seen on the H100 at the 1280-channel 3x3 convs on 9x16 and 5x8 frames:
+    equal inputs at two batch positions, outputs one bf16 ulp apart), and a
+    served clip must not depend on what shares its dispatch. Equal calls on
+    equal frames give equal bits, wherever the clip stands."""
+    if weight.shape[-2:] == (1, 1) and stride == 1:
+        return conv2d_nhwc(x, weight, bias)  # a channel matmul: row-wise already
+    return torch.stack([conv2d_nhwc(xi, weight, bias, stride, padding) for xi in x])
+
+
 def group_norm(x, groups, weight, bias, eps):
     """GroupNorm of channels-last x (N, ..., C): statistics pooled over every
     axis but N within each channel group, in f32 (flax nn.GroupNorm
@@ -95,9 +108,7 @@ class PseudoConv3d(nn.Conv2d):
     """Per-frame 2-D convolution (InflatedConv3d) on (B, F, H, W, C)."""
 
     def forward(self, x):
-        y = conv2d_nhwc(x.flatten(0, 1), self.weight, self.bias,
-                        self.stride[0], self.padding[0])
-        return y.unflatten(0, x.shape[:2])
+        return conv2d_frames(x, self.weight, self.bias, self.stride[0], self.padding[0])
 
 
 class Upsample3D(nn.Module):
@@ -185,7 +196,7 @@ class ResnetBlock3D(nn.Module):
                 def half(tens, sc, sh, w_half):
                     a = F.silu(tens.float() * sc[:, None, None, None, :]
                                + sh[:, None, None, None, :]).to(x.dtype)
-                    return conv2d_nhwc(a.flatten(0, 1), w_half, None)
+                    return conv2d_frames(a, w_half, None).flatten(0, 1)
 
                 h = half(x, s1x, sh1x, w1[:, :cx]) + half(skip, s1s, sh1s, w1[:, cx:])
                 h = (h.float() + b1.float()).to(x.dtype).unflatten(0, (b, f))

@@ -1,8 +1,9 @@
 """Build and load the port's CUDA kernels.
 
-All ``csrc/*.cu`` sources compile with ``nvcc`` for ``sm_90a`` into one
-shared library with a plain C interface, loaded through ``ctypes``. The
-build happens at first use, never at import, into
+All ``csrc/*.cu`` sources compile with ``nvcc`` for ``sm_90a`` (one ``nvcc``
+for each source, all started together) and link into one shared library
+with a plain C interface, loaded through ``ctypes``. The build happens at
+first use, never at import, into
 ``eeg2video_tpu_torch/_build/<hash>/`` (listed in ``.gitignore``), keyed by a
 hash of the sources and flags, so a changed source rebuilds and an
 unchanged one loads the existing library.
@@ -27,7 +28,7 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_ROOT = os.path.join(_PKG, "_build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 P = ctypes.c_void_p
 I = ctypes.c_int
@@ -40,10 +41,11 @@ SIGNATURES = {
     "e2v_ff_ln": [P, P, P, P, P, P, P, P, I, I, I, F, P],
     "e2v_geglu_out": [P, P, P, P, I, I, I, P],
     "e2v_conv3x3": [P, P, P, P, P, P, P, P, I, I, I, I, I, P],
+    "e2v_int8_dense": [P, P, P, P, P, P, P, I, I, I, I, I, I, P],
 }
 
 launches = {"flash_attention_fwd": 0, "ff_ln": 0, "geglu_out": 0,
-            "conv3x3_gn_silu": 0}
+            "conv3x3_gn_silu": 0, "int8_dense": 0}
 
 _lib = None
 
@@ -88,14 +90,28 @@ def library():
     if not os.path.exists(so):
         os.makedirs(out_dir, exist_ok=True)
         tmp = f"{so}.{os.getpid()}.tmp"
+        nvcc = _nvcc()
         cus = [p for p in _sources() if p.endswith(".cu")]
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *cus]
-        res = subprocess.run(cmd, capture_output=True, text=True)
-        build_log = res.stdout + res.stderr  # -Xptxas -v: registers, spills
+        objs = [os.path.join(out_dir, f"{os.path.basename(p)}.{os.getpid()}.o") for p in cus]
+        cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", obj, cu] for cu, obj in zip(cus, objs)]
+        procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                  text=True) for cmd in cmds]
+        results = [(cmd, proc.communicate()[0], proc.returncode)
+                   for cmd, proc in zip(cmds, procs)]
+        if all(rc == 0 for _, _, rc in results):
+            link = [nvcc, "-shared", "-o", tmp, *objs]
+            res = subprocess.run(link, capture_output=True, text=True)
+            results.append((link, res.stdout + res.stderr, res.returncode))
+        # -Xptxas -v: each kernel's registers, shared memory and spills
+        build_log = "".join(" ".join(cmd) + "\n" + out for cmd, out, _ in results)
         with open(os.path.join(out_dir, "build.log"), "w") as f:
-            f.write(" ".join(cmd) + "\n" + build_log)
-        if res.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({res.returncode}):\n{build_log}")
+            f.write(build_log)
+        for obj in objs:
+            if os.path.exists(obj):
+                os.remove(obj)
+        failed = [rc for _, _, rc in results if rc != 0]
+        if failed:
+            raise RuntimeError(f"nvcc failed ({failed[0]}):\n{build_log}")
         os.replace(tmp, so)  # atomic: a concurrent build never loads half a file
     lib = ctypes.CDLL(so)
     for name, argtypes in SIGNATURES.items():

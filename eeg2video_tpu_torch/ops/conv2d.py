@@ -14,6 +14,7 @@ import torch.nn.functional as F
 from . import _build
 
 KERNEL = "conv3x3_gn_silu"
+PIXEL_TILE = 64  # pixels one block covers (csrc/conv3x3.cu kBM)
 
 
 def eligible(h, w, cin, cout):
@@ -46,8 +47,11 @@ def conv3x3_gn_silu_plain(x, w, b, scale, shift, temb=None, with_stats=False):
 def conv3x3_gn_silu(x, w, b, scale, shift, temb=None, with_stats=False):
     """Implicit-GEMM 3x3 SAME conv with the silu(x*scale + shift) prologue
     (zero padding applied after it), bias/temb epilogue and optional output
-    stats. A CUDA tensor launches the kernel (bf16 x and w, Cin % 8 == 0);
-    a CPU tensor takes ``conv3x3_gn_silu_plain``."""
+    stats. A CUDA tensor launches the kernel (bf16 x and w, Cin % 8 == 0; with
+    stats H*W % 64 == 0: the kernel writes one partial per 64-pixel block and
+    the partials of an image are added here in a fixed order, so the stats
+    are the same bits every run); a CPU tensor takes
+    ``conv3x3_gn_silu_plain``."""
     if not x.is_cuda:
         return conv3x3_gn_silu_plain(x, w, b, scale, shift, temb, with_stats)
     n, h, wd, cin = x.shape
@@ -57,6 +61,8 @@ def conv3x3_gn_silu(x, w, b, scale, shift, temb=None, with_stats=False):
     req(cin % 8 == 0, KERNEL, f"Cin={cin} must be a multiple of 8")
     req(x.dtype == torch.bfloat16 and w.dtype == torch.bfloat16, KERNEL,
         "x and w must be bf16")
+    req(not with_stats or (h * wd) % PIXEL_TILE == 0, KERNEL,
+        f"with_stats needs H*W={h * wd} to be a multiple of {PIXEL_TILE}")
     x = x.contiguous()
     wk = w.permute(0, 2, 3, 1).contiguous()  # (Cout, 3, 3, Cin): tap-major K
     bf = b.float().contiguous()
@@ -66,12 +72,14 @@ def conv3x3_gn_silu(x, w, b, scale, shift, temb=None, with_stats=False):
         req(t is None or tuple(t.shape) == shape, KERNEL,
             f"per-image operand must be {shape}")
     out = torch.empty((n, h, wd, cout), dtype=x.dtype, device=x.device)
-    stats = (torch.zeros((n, 2, cout), dtype=torch.float32, device=x.device)
-             if with_stats else None)
+    stats = (torch.empty((n * h * wd // PIXEL_TILE, 2, cout), dtype=torch.float32,
+                         device=x.device) if with_stats else None)
     ptr = _build.ptr
     rc = _build.library().e2v_conv3x3(
         x.data_ptr(), sc.data_ptr(), sh.data_ptr(), wk.data_ptr(), bf.data_ptr(), ptr(tb),
         out.data_ptr(), ptr(stats), n, h, wd, cin, cout, _build.stream_of(x))
     _build.check(rc, KERNEL)
     _build.launches[KERNEL] += 1
-    return (out, stats) if with_stats else out
+    if not with_stats:
+        return out
+    return out, stats.view(n, -1, 2, cout).sum(dim=1)

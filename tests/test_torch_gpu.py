@@ -17,7 +17,7 @@ bf16 intermediates).
 import pytest
 import torch
 
-from eeg2video_tpu_torch.ops import attention, conv2d, geglu
+from eeg2video_tpu_torch.ops import attention, conv2d, geglu, int8_dense
 
 BOUND = 1e-2
 
@@ -84,8 +84,10 @@ def test_geglu_out_matches_plain(gen, t, i, c):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("n,h,w,cin,cout,stats,temb", [
-    (2, 5, 6, 8, 16, True, True),       # Cin and Cout below one tile, ragged M
-    (3, 10, 10, 128, 64, True, False),  # 64-pixel tiles spanning two images
+    (2, 5, 6, 8, 16, False, True),      # Cin and Cout below one tile, ragged M
+    (3, 10, 10, 128, 64, False, False),  # 64-pixel tiles spanning two images
+    (2, 8, 8, 8, 16, True, True),       # stats: one 64-pixel block per image
+    (3, 8, 16, 128, 64, True, False),   # stats: two blocks per image, added in order
     (1, 7, 9, 40, 72, False, True),     # Cout tail past one 64-wide tile
 ])
 def test_conv3x3_matches_plain(gen, n, h, w, cin, cout, stats, temb):
@@ -98,3 +100,38 @@ def test_conv3x3_matches_plain(gen, n, h, w, cin, cout, stats, temb):
     want = conv2d.conv3x3_gn_silu_plain(*_f32(args), with_stats=stats)
     for g, wnt in zip(got if stats else [got], want if stats else [want]):
         assert _err(g, wnt) < BOUND
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m,k,n", [
+    (1, 310, 700),      # one row, K and N padded (320, 1024), one K split per step
+    (100, 1000, 3000),  # the serving chunk; split K, second pass
+    (113, 96, 130),     # two row blocks, the second with one row
+    (7, 4100, 33000),   # many column blocks: one split, epilogue in the kernel
+])
+def test_int8_dense_matches_plain(gen, m, k, n):
+    w = _rand(gen, k, n, scale=k ** -0.5, dtype=torch.float32)
+    w[:, 3] = 0.0  # an all-zero column: scale 0
+    w_q, scale = int8_dense.quantize_int8(w)
+    bias = _rand(gen, n, scale=0.1, dtype=torch.float32)
+    x = _rand(gen, m, k, dtype=torch.float32)
+    got = int8_dense.int8_dense(x, w_q, scale, bias, n)
+    want = int8_dense.int8_dense_plain(x, w_q, scale, bias, n)
+    assert got.shape == (m, n) and got.dtype == torch.float32
+    # same bf16 operands and f32 accumulation: only the summation order differs
+    assert _err(got, want) < 1e-4
+    again = int8_dense.int8_dense(x, w_q, scale, bias, n)
+    assert torch.equal(got, again)  # fixed-order split-K sum: same bits every run
+
+
+@pytest.mark.gpu
+def test_int8_dense_rejects_what_the_kernel_does_not_take(gen):
+    w_q, scale = int8_dense.quantize_int8(_rand(gen, 64, 256, dtype=torch.float32))
+    bias = torch.zeros(256, device="cuda")
+    x = _rand(gen, 4, 64, dtype=torch.float32)
+    with pytest.raises(ValueError, match="float32"):
+        int8_dense.int8_dense(x.bfloat16(), w_q, scale, bias, 256)
+    with pytest.raises(ValueError, match="Kp"):
+        int8_dense.int8_dense(_rand(gen, 4, 65, dtype=torch.float32), w_q, scale, bias, 256)
+    with pytest.raises(ValueError, match="device"):
+        int8_dense.int8_dense(x, w_q, scale.cpu(), bias, 256)

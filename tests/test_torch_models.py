@@ -2,7 +2,7 @@
 
 Each test builds the JAX module in float32, fills its parameters with random
 values made with numpy from a seed, carries them into the port through the
-diffusers key space (eeg2video_tpu.convert.export_diffusion, the mapping
+diffusers key space (the port's convert.export_diffusion, the mapping
 convert.from_jax uses) with ``load_state_dict(strict=True)``, feeds both the
 same numpy inputs and compares. Tolerances: 2e-5 for single blocks
 (float32 summation-order noise); rtol 1e-3 / atol 1e-4 for whole models,
@@ -22,7 +22,6 @@ import torch
 import jax
 import jax.numpy as jnp
 
-from eeg2video_tpu.convert import export_diffusion as ed
 from eeg2video_tpu.diffusion.pipeline import EEG2VideoPipeline as JPipeline
 from eeg2video_tpu.diffusion.schedulers import DDIMSchedule as JDDIM
 from eeg2video_tpu.models import attention3d as ja
@@ -30,10 +29,11 @@ from eeg2video_tpu.models import resnet3d as jr
 from eeg2video_tpu.models.unet3d import (UNet3DConditionModel as JUNet,
                                          UNet3DConfig as JUNetConfig)
 from eeg2video_tpu.models.vae import AutoencoderKL as JVAE, VAEConfig as JVAEConfig
+from eeg2video_tpu_torch.convert import export_diffusion as ed
 from eeg2video_tpu_torch.convert.from_jax import (unet_state_dict_from_jax,
                                                   vae_state_dict_from_jax)
 from eeg2video_tpu_torch.diffusion.pipeline import EEG2VideoPipeline
-from eeg2video_tpu_torch.diffusion.schedulers import DDIMSchedule
+from eeg2video_tpu_torch.diffusion.schedulers import DDIMSchedule, DPMSolverPPSchedule
 from eeg2video_tpu_torch.models import attention3d, resnet3d
 from eeg2video_tpu_torch.models.unet3d import UNet3DConditionModel, UNet3DConfig
 from eeg2video_tpu_torch.models.vae import AutoencoderKL, VAEConfig
@@ -233,6 +233,16 @@ def test_ddim_rejects_out_of_range_steps(steps):
         DDIMSchedule.create(steps)
 
 
+@pytest.mark.parametrize("schedule", [DDIMSchedule, DPMSolverPPSchedule])
+def test_schedules_reject_1000_steps_by_name(schedule):
+    """With steps_offset 1 a 1000-step grid starts at timestep 1000, one past
+    the table: the port says so when the schedule is made (the JAX package
+    returns NaN there) instead of failing with an IndexError in ``step``."""
+    with pytest.raises(ValueError, match="first timestep is 1000"):
+        schedule.create(1000)
+    assert schedule.create(999).timesteps[0] == 999
+
+
 def test_pipeline_parity(tiny_vae):
     """Tiny end to end: CFG pair, 3 DDIM steps, per-frame decode, latents
     injected (jax.random and torch generators differ)."""
@@ -250,7 +260,7 @@ def test_pipeline_parity(tiny_vae):
     pipe = EEG2VideoPipeline.create(
         unet_state_dict_from_jax(uparams, cfg),
         vae_state_dict_from_jax(tiny_vae, VAEConfig.tiny()), cfg, VAEConfig.tiny(),
-        dtype=torch.float32)
+        dtype=torch.float32, device="cpu")
     out = pipe(emb, neg, **kw)
     assert out.shape == (2, 2, 32, 32, 3)
     assert float(out.min()) >= 0.0 and float(out.max()) <= 1.0
@@ -259,7 +269,8 @@ def test_pipeline_parity(tiny_vae):
 
 def test_pipeline_draws_noise_from_generator():
     cfg = dataclasses.replace(UNet3DConfig.tiny(), cross_attention_dim=768)
-    pipe = EEG2VideoPipeline.create(None, None, cfg, VAEConfig.tiny(), dtype=torch.float32)
+    pipe = EEG2VideoPipeline.create(None, None, cfg, VAEConfig.tiny(), dtype=torch.float32,
+                                    device="cpu")
     from eeg2video_tpu_torch.models.init import random_init_
 
     g = torch.Generator().manual_seed(0)
@@ -274,7 +285,7 @@ def test_pipeline_draws_noise_from_generator():
     torch.testing.assert_close(a, b, rtol=0, atol=0)
     assert not torch.equal(a, c)
     with pytest.raises(ValueError, match="sampler"):
-        pipe(emb, neg, sampler="dpm++", **kw)
+        pipe(emb, neg, sampler="euler", **kw)
 
 
 def _zero_stride(tree):
