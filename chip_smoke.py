@@ -10,8 +10,9 @@ printed on its own line; any failure prints ``FAIL ...`` and exits 1:
 1. device: the card's name and power limit (``nvidia-smi``);
 2. build: compile every kernel from ``eeg2video_tpu_torch/csrc`` (and the
    host-side GIF encoder, so that no request pays for its build);
-3. kernels: each kernel against its plain PyTorch version in f32 on the
-   same inputs at the main paths' shapes, with its time, the plain version's
+3. kernels: each kernel (forward and backward) against its plain PyTorch
+   version in f32 on the same inputs at the main paths' shapes (generation
+   at batch 1 with guidance, the train step at batch 10), with its time, the plain version's
    time, the least time the card could take for the same work (``bound_ms``:
    the larger of operations / 989 TFLOP/s and bytes / 3.35 TB/s, each input
    read once and each output written once) and, where one PyTorch call
@@ -51,21 +52,49 @@ PEAK_FLOPS = 989e12            # H100 SXM, bf16 dense (NVIDIA data sheet)
 PEAK_BYTES = 3.35e12           # H100 SXM, HBM3 bytes/s
 KERNEL_BOUND = 1e-2            # max|kernel - plain_f32| / max|plain_f32|
 UNET_BOUND = 5e-2              # ||bf16 card - f32 cpu|| / ||f32 cpu||
+TRAIN_BOUND = 5e-2             # ||grad via kernels - grad via plain|| / ||grad via plain||
+TRAIN_BATCH, TRAIN_STEPS = 10, 3
 # per UNet forward at UNet3DConfig(), 6 frames of 36x64 latents (JAX trace):
 # 16 transformers x (frames 0-1 + frames 2-5 + cross) attention calls;
 # ff_ln at the 320/640 levels, geglu_out at 1280; 13 level-0 convs
 EXPECTED_PER_FORWARD = {"flash_attention_fwd": 48, "ff_ln": 10,
                         "geglu_out": 6, "conv3x3_gn_silu": 13}
 EXPECTED_CONV_STATS = 2
-INT8_LAYERS = 5                # int8_dense launches per 100-row chunk: fc0..fc3, out
+# per train step: 16 transformer blocks, each attn1 = 2 attention calls
+# (frames 0-1, frames 2-5), attn2 = 1, one feed-forward, one temporal
+# attention. The 10 blocks of levels 0 and 1 (C = 320, 640: ff_ln) are
+# recomputed in the backward, so their forward kernels launch twice; the 6 of
+# level 2 and mid (C = 1280: geglu_out) once. Every block launches each
+# backward kernel once. Training takes the library convolution.
+_FWD_PASSES = 2 * 10 + 6
+EXPECTED_PER_TRAIN_STEP = {
+    "flash_attention_fwd": 3 * _FWD_PASSES, "flash_attention_bwd": 3 * 16,
+    "temporal_attention_fwd": _FWD_PASSES, "temporal_attention_bwd": 16,
+    "ff_ln": 2 * 10, "ff_ln_bwd": 10, "geglu_out": 6, "geglu_out_bwd": 6,
+    "conv3x3_gn_silu": 0, "int8_dense": 0}
+TRAIN_ONLY_KERNELS = ("flash_attention_bwd", "temporal_attention_fwd", "temporal_attention_bwd",
+                      "ff_ln_bwd", "geglu_out_bwd")
+INT8_LAYERS = 5               # int8_dense launches per 100-row chunk: fc0..fc3, out
 KERNEL_SOURCES = {
     "flash_attention_fwd": ("eeg2video_tpu_torch/csrc/flash_attention.cu",
                             "eeg2video_tpu/ops/attention.py:415 _packed_single_kernel, "
                             ":566 _packed_dual_kernel"),
+    "flash_attention_bwd": ("eeg2video_tpu_torch/csrc/flash_attention_bwd.cu",
+                            "eeg2video_tpu/ops/attention.py:1021 _packed_dqkv_kernel, "
+                            ":902 _packed_dq_kernel, :957 _packed_dkv_kernel, "
+                            ":789 _flash_attention_dual_bwd"),
+    "temporal_attention_fwd": ("eeg2video_tpu_torch/csrc/temporal_attention.cu",
+                               "eeg2video_tpu/ops/temporal.py:81 _temporal_fwd_kernel"),
+    "temporal_attention_bwd": ("eeg2video_tpu_torch/csrc/temporal_attention.cu",
+                               "eeg2video_tpu/ops/temporal.py:95 _temporal_bwd_kernel"),
     "ff_ln": ("eeg2video_tpu_torch/csrc/ff_ln.cu",
               "eeg2video_tpu/ops/geglu.py:213 _ff_kernel"),
+    "ff_ln_bwd": ("eeg2video_tpu_torch/csrc/ff_ln_bwd.cu",
+                  "eeg2video_tpu/ops/geglu.py:280 _ff_bwd_kernel"),
     "geglu_out": ("eeg2video_tpu_torch/csrc/geglu_out.cu",
                   "eeg2video_tpu/ops/geglu.py:59 _geglu_kernel"),
+    "geglu_out_bwd": ("eeg2video_tpu_torch/csrc/geglu_out_bwd.cu",
+                      "eeg2video_tpu/ops/geglu.py:113 _geglu_bwd_kernel"),
     "conv3x3_gn_silu": ("eeg2video_tpu_torch/csrc/conv3x3.cu",
                         "eeg2video_tpu/ops/conv2d.py:48 _conv3x3_t_kernel"),
     "int8_dense": ("eeg2video_tpu_torch/csrc/int8_dense.cu",
@@ -130,7 +159,7 @@ def kernel_cases(torch, dev):
     f32 copies of ``args``, operations, an optional library call, primary?"""
     import torch.nn.functional as F
 
-    from eeg2video_tpu_torch.ops import attention, conv2d, geglu, int8_dense
+    from eeg2video_tpu_torch.ops import attention, conv2d, geglu, int8_dense, temporal
 
     g = torch.Generator(device=dev).manual_seed(0)
 
@@ -217,6 +246,120 @@ def kernel_cases(torch, dev):
     conv("Cin=320 (12,36,64)", 320, False, False)
     conv("Cin=640 (12,36,64) +temb", 640, False, True)
 
+    # --- the train step's shapes: batch 10, 6 frames, bf16 ---------------------
+    # The plain attention versions hold (N, H, Lq, Lkv) f32 tensors, several
+    # at once in the backward: they run over the batch in chunks of 2 and the
+    # chunks are concatenated (a query group only sees its own batch element).
+    def chunked(fn, ts, like_b, step=2):
+        """fn over batch chunks; ts entries with leading dim like_b are cut."""
+        outs = []
+        for s0 in range(0, like_b, step):
+            part = [t[s0:s0 + step] if t is not None and t.shape[0] == like_b else t
+                    for t in ts]
+            outs.append(_outputs(fn(part)))
+        return tuple(torch.cat([o[i] for o in outs]) if outs[0][i] is not None else None
+                     for i in range(len(outs[0])))
+
+    def sdpa_operands(q, k0, v0, k1, v1):
+        hd = q.shape[-1]
+        m = q.shape[1] if q.dim() == 4 else 1
+        q3 = q.flatten(0, 1) if q.dim() == 4 else q
+        kk, vv = k0.repeat_interleave(m, dim=0), v0.repeat_interleave(m, dim=0)
+        if k1 is not None:
+            kk = torch.cat([kk, k1.flatten(0, 1)], dim=1)
+            vv = torch.cat([vv, v1.flatten(0, 1)], dim=1)
+        split = lambda t: t.unflatten(-1, (heads, hd // heads)).transpose(1, 2)
+        return split(q3), split(kk), split(vv)
+
+    def attn_train(label, q, k0, v0, k1=None, v1=None, step=2, primary_bwd=False):
+        """Forward with lse (kernel A) and backward (kernel B) of one call."""
+        b, hd = k0.shape[0], q.shape[-1]
+        n_rows = q.numel() // hd
+        lkv = k0.shape[1] + (0 if k1 is None else k1.shape[-2])
+        dout = r(*q.shape)
+        out, lse = attention.flash_attention_fwd(q, k0, v0, heads, k1=k1, v1=v1,
+                                                 return_lse=True)
+        qh, kh, vh = sdpa_operands(q, k0, v0, k1, v1)
+        add("flash_attention_fwd", f"{label} +lse",
+            lambda: attention.flash_attention_fwd(q, k0, v0, heads, k1=k1, v1=v1,
+                                                  return_lse=True),
+            lambda ts: chunked(lambda p: attention.flash_attention_plain(
+                p[0], p[1], p[2], heads, k1=p[3], v1=p[4], return_lse=True), ts, b, step),
+            [q, k0, v0, k1, v1], flops=4 * n_rows * lkv * hd,
+            library=lambda: F.scaled_dot_product_attention(qh, kh, vh))
+        # the yardstick of the backward: autograd through one
+        # scaled_dot_product_attention call (its own backward kernel) on the
+        # same operands, the forward outside the timed region
+        leaves = [t.detach().requires_grad_() for t in (qh, kh, vh)]
+        sd_out = F.scaled_dot_product_attention(*leaves)
+        doh = dout.reshape(-1, dout.shape[-2], hd).unflatten(-1, (heads, hd // heads)).transpose(1, 2)
+        add("flash_attention_bwd", label,
+            lambda: attention.flash_attention_bwd(q, k0, v0, heads, dout, out, lse, k1=k1,
+                                                  v1=v1),
+            lambda ts: chunked(lambda p: attention.flash_attention_bwd_plain(
+                p[0], p[1], p[2], heads, p[5], p[6],
+                p[7].flatten(0, 1) if q.dim() == 4 else p[7], k1=p[3], v1=p[4]), ts, b, step),
+            [q, k0, v0, k1, v1, dout, out,
+             lse.unflatten(0, (b, -1)) if q.dim() == 4 else lse],
+            flops=10 * n_rows * lkv * hd,
+            library=lambda: torch.autograd.grad(sd_out, leaves, doh, retain_graph=True),
+            primary=primary_bwd)
+
+    tb = TRAIN_BATCH
+    attn_train(f"train self f0-1 ({tb},2,2304,320)x2304", r(tb, 2, 2304, 320),
+               r(tb, 2304, 320), r(tb, 2304, 320))
+    attn_train(f"train cross ({6 * tb},2304,320)x77", r(6 * tb, 2304, 320), r(6 * tb, 77, 320),
+               r(6 * tb, 77, 320), step=12)
+    attn_train(f"train dual f2-5 ({tb},4,2304,320)x[2304|2304]", r(tb, 4, 2304, 320),
+               r(tb, 2304, 320), r(tb, 2304, 320), k1=r(tb, 4, 2304, 320),
+               v1=r(tb, 4, 2304, 320), primary_bwd=True)
+    attn_train(f"train dual f2-5 D=80 ({tb},4,576,640)x[576|576]", r(tb, 4, 576, 640),
+               r(tb, 576, 640), r(tb, 576, 640), k1=r(tb, 4, 576, 640), v1=r(tb, 4, 576, 640))
+    attn_train(f"train dual f2-5 D=160 ({tb},4,40,1280)x[40|40]", r(tb, 4, 40, 1280),
+               r(tb, 40, 1280), r(tb, 40, 1280), k1=r(tb, 4, 40, 1280), v1=r(tb, 4, 40, 1280))
+    attn_train(f"train dual f2-5 D=160 ({tb},4,144,1280)x[144|144]", r(tb, 4, 144, 1280),
+               r(tb, 144, 1280), r(tb, 144, 1280), k1=r(tb, 4, 144, 1280),
+               v1=r(tb, 4, 144, 1280))
+
+    # temporal attention: bound by memory, 4 tensors forward and 7 backward;
+    # operations: the F*F dot products and weighted sums per token and head.
+    # The yardstick: one scaled_dot_product_attention call over the frames on
+    # (B, L*H, F, D) views of the same tensors (no copy: frame stride L*H*D),
+    # and autograd through it for the backward, the forward outside the
+    # timed region.
+    for l, hd, primary in ((2304, 320, True), (144, 1280, False)):
+        q, k, v, dout = (r(tb, 6, l, hd) for _ in range(4))
+        frames_last = lambda t, l=l, hd=hd: t.view(tb, 6, l * heads, hd // heads).transpose(1, 2)
+        qf, kf, vf = frames_last(q), frames_last(k), frames_last(v)
+        add("temporal_attention_fwd", f"({tb},6,{l},{hd}) D={hd // heads}",
+            lambda q=q, k=k, v=v: temporal.temporal_attention_fwd(q, k, v, heads),
+            lambda ts: temporal.temporal_attention_plain(*ts, heads), [q, k, v],
+            flops=4 * tb * l * 6 * 6 * hd, primary=primary,
+            library=lambda qf=qf, kf=kf, vf=vf: F.scaled_dot_product_attention(qf, kf, vf))
+        leaves = [t.detach().requires_grad_() for t in (qf, kf, vf)]
+        sd_out = F.scaled_dot_product_attention(*leaves)
+        add("temporal_attention_bwd", f"({tb},6,{l},{hd}) D={hd // heads}",
+            lambda q=q, k=k, v=v, d=dout: temporal.temporal_attention_bwd(q, k, v, d, heads),
+            lambda ts: temporal.temporal_attention_bwd_plain(*ts, heads), [q, k, v, dout],
+            flops=10 * tb * l * 6 * 6 * hd, primary=primary,
+            library=lambda o=sd_out, ls=leaves, d=frames_last(dout): torch.autograd.grad(
+                o, ls, d, retain_graph=True))
+
+    # ff_ln_bwd: 10*T*C*I operations (h2, dgated, dh2 Wp); geglu_out_bwd: one
+    # 2*T*C*I product. As their forwards, no single PyTorch call computes them.
+    for t, c, primary in ((tb * 6 * 2304, 320, True), (tb * 6 * 576, 640, False)):
+        i = 4 * c
+        args = [r(t, c), r(t, c), 1.0 + 0.05 * r(c).float(), 0.02 * r(c).float(),
+                r(2 * i, c, scale=c ** -0.5), 0.02 * r(2 * i).float(),
+                r(c, i, scale=i ** -0.5)]
+        add("ff_ln_bwd", f"T={t} C={c}", lambda a=args: geglu.ff_ln_bwd(*a),
+            lambda ts: geglu.ff_ln_bwd_plain(*ts), args, flops=10 * t * c * i, primary=primary)
+    for t, primary in ((tb * 6 * 144, True), (tb * 6 * 40, False)):
+        args = [r(t, 10240), r(t, 1280), r(1280, 5120, scale=5120 ** -0.5)]
+        add("geglu_out_bwd", f"T={t} I=5120 C=1280", lambda a=args: geglu.geglu_out_bwd(*a),
+            lambda ts: geglu.geglu_out_bwd_plain(*ts), args, flops=2 * t * 5120 * 1280,
+            primary=primary)
+
     # int8_dense at the five layer shapes of the hidden=10000 semantic MLP,
     # one 100-row chunk, f32 activations; the yardstick is a dequantize to
     # bf16 and one F.linear (cuBLAS), with the same scale and bias epilogue
@@ -246,7 +389,7 @@ def kernel_cases(torch, dev):
 
 
 def _outputs(res):
-    return list(res) if isinstance(res, tuple) else [res]
+    return list(res) if isinstance(res, (tuple, list)) else [res]
 
 
 def _nbytes(tensors):
@@ -259,15 +402,19 @@ def phase_kernels(torch):
     for case in kernel_cases(torch, dev):
         kernel, label, kern, plain, args = (case[k] for k in
                                             ("kernel", "label", "kern", "plain", "args"))
-        got = _outputs(kern())
+        got = [t for t in _outputs(kern()) if t is not None]
         torch.cuda.synchronize()
         # the plain version on f32 copies of the bf16 operands (int8_dense
         # takes f32 activations and int8 weights as they are)
-        want = _outputs(plain(args if case["plain_takes_args"] else
-                              [a.float() if a is not None else None for a in args]))
+        want = [t for t in _outputs(plain(
+            args if case["plain_takes_args"] else
+            [a.float() if a is not None else None for a in args])) if t is not None]
+        if len(got) != len(want) or any(a.shape != b.shape for a, b in zip(got, want)):
+            fail(f"kernels: {kernel} {label}: outputs differ in number or shape")
         abs_err = (got[0].float() - want[0]).abs().max().item()  # main output
         rel_err = max(((a.float() - b).abs().max() / b.abs().max()).item()
                       for a, b in zip(got, want))
+        del want
         if not all(torch.isfinite(a).all().item() for a in got):
             fail(f"kernels: {kernel} {label}: non-finite output")
         # least time for the same work: every input read once, every output
@@ -586,7 +733,8 @@ def phase_serve(torch, build, pipe):
 
     dispatches, chunks = 3, 3  # [a0 a1] [b b] [c b2]; one 100-row chunk per features request
     forwards = len(step_ms)
-    expected = {k: n * SERVE_STEPS * dispatches for k, n in EXPECTED_PER_FORWARD.items()}
+    expected = dict.fromkeys(launches, 0)  # no training kernel on the serving path
+    expected.update({k: n * SERVE_STEPS * dispatches for k, n in EXPECTED_PER_FORWARD.items()})
     expected["int8_dense"] = INT8_LAYERS * chunks
     ok = forwards == SERVE_STEPS * dispatches and launches == expected and len(chunk_ms) == chunks
     say(f"serve: {forwards} UNet forwards in {dispatches} dispatches of {SERVE_STEPS} DPM++ steps, "
@@ -602,6 +750,252 @@ def phase_serve(torch, build, pipe):
         f"--coalesce_wait) {({k: round(v[1], 3) for k, v in replies.items()})} s; "
         f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     return launches
+
+
+def _rel(a, b):
+    return ((a.float() - b.float()).norm() / b.float().norm()).item()
+
+
+def phase_train_parity(torch):
+    """A narrow UNet in bf16 on the card: the fine-tune loss and its
+    trainable gradients through the kernels, against the same model with the
+    plain versions (f32 inside, autograd through them) in the kernels' place."""
+    import copy
+
+    from eeg2video_tpu_torch.models import attention3d
+    from eeg2video_tpu_torch.models.init import random_init_
+    from eeg2video_tpu_torch.models.unet3d import UNet3DConditionModel, UNet3DConfig
+    from eeg2video_tpu_torch.ops import attention, geglu, temporal
+    from eeg2video_tpu_torch.train import videodiffusion as vd
+
+    dev = torch.device("cuda")
+    cfg = UNet3DConfig(block_out_channels=(64, 128, 128, 128), attention_heads=8)
+    tcfg = vd.VideoDiffusionTrainConfig(remat=True, remat_min_hw=64)
+    g = torch.Generator(device=dev).manual_seed(5)
+    unet = random_init_(UNet3DConditionModel(cfg).to(dev), g)
+    twin = copy.deepcopy(unet)
+    post = torch.cat([torch.randn(2, 6, 16, 16, 4, generator=g, device=dev),
+                      0.3 * torch.randn(2, 6, 16, 16, 4, generator=g, device=dev)], dim=-1)
+    ctx = torch.randn(2, 77, 768, generator=g, device=dev)
+    draws = dict(t=torch.tensor([10, 900], device=dev),
+                 noise=torch.randn(2, 6, 16, 16, 4, generator=g, device=dev),
+                 eps=torch.randn(12, 16, 16, 4, generator=g, device=dev))
+
+    def loss_and_grads(model):
+        state = vd.init_video_train_state(model, tcfg, dev)
+        loss = vd.video_loss(state.unet, None, post, ctx, tcfg, **draws)
+        loss.backward()
+        return loss.item(), {n: p.grad for n, p in state.working.items()}
+
+    loss_k, grads_k = loss_and_grads(unet)
+    patched = {"flash_attention": lambda q, k0, v0, heads, **kw:
+               attention.flash_attention_plain(q, k0, v0, heads, **kw),
+               "temporal_attention": temporal.temporal_attention_plain,
+               "feed_forward": geglu.ff_ln_plain}
+    real = {name: getattr(attention3d, name) for name in patched}
+    try:
+        for name, fn in patched.items():
+            setattr(attention3d, name, fn)
+        loss_p, grads_p = loss_and_grads(twin)
+    finally:
+        for name, fn in real.items():
+            setattr(attention3d, name, fn)
+    worst = max((_rel(grads_k[n], grads_p[n]), n) for n in grads_p)
+    total = _rel(torch.cat([grads_k[n].flatten() for n in grads_p]),
+                 torch.cat([grads_p[n].flatten() for n in grads_p]))
+    ok = (abs(loss_k - loss_p) <= TRAIN_BOUND * abs(loss_p) and total < TRAIN_BOUND
+          and all(bool(torch.isfinite(v).all()) for v in grads_k.values()))
+    say(f"train parity (64,128,128,128) 8 heads, batch 2, 6 frames of 16x16, bf16, levels 0-1 "
+        f"recomputed: loss {loss_k:.5f} via kernels vs {loss_p:.5f} via plain; {len(grads_p)} "
+        f"trainable gradients, rel_err of all {total:.3e} (bound {TRAIN_BOUND:.0e}), worst "
+        f"tensor {worst[0]:.3e} ({worst[1]}) {'ok' if ok else 'FAILED'}")
+    if not ok:
+        fail("train parity")
+
+
+def phase_train(torch, build, vae):
+    """The fine-tune path at full width through cli.train_tuneavideo.train."""
+    from eeg2video_tpu_torch.cli import train_tuneavideo
+    from eeg2video_tpu_torch.data.video import load_gif
+    from eeg2video_tpu_torch.models.init import random_init_
+    from eeg2video_tpu_torch.models.unet3d import UNet3DConditionModel, UNet3DConfig
+    from eeg2video_tpu_torch.train import checkpoint as ckpt
+    from eeg2video_tpu_torch.train import videodiffusion as vd
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(6)
+    with torch.device("meta"):
+        unet = UNet3DConditionModel(UNet3DConfig())
+    unet = random_init_(unet.to_empty(device=dev), g)  # f32: the stored truth
+    n_clips = TRAIN_BATCH * TRAIN_STEPS
+    # synthetic clips: smooth random fields (8x upsampled noise) in [-1, 1]
+    coarse = torch.randn(n_clips * 6, 3, 36, 64, generator=g, device=dev)
+    pixels = torch.tanh(torch.nn.functional.interpolate(coarse, scale_factor=8, mode="bilinear"))
+    pixels = pixels.permute(0, 2, 3, 1).reshape(n_clips, 6, 288, 512, 3)
+    del coarse
+    contexts = torch.randn(n_clips, 77, 768, generator=g, device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    post = vd.encode_posteriors(vae, pixels)
+    torch.cuda.synchronize()
+    enc_s = time.perf_counter() - t0
+    del pixels
+    ok = tuple(post.shape) == (n_clips, 6, 36, 64, 8) and bool(torch.isfinite(post).all())
+    say(f"train: {n_clips} synthetic clips of 6 x 288 x 512 -> posteriors {tuple(post.shape)} in "
+        f"{enc_s:.2f} s ({enc_s / (n_clips * 6) * 1e3:.1f} ms a frame), mean std "
+        f"{float(post[..., :4].std()):.3f} {'ok' if ok else 'FAILED'}")
+    if not ok:
+        fail("train: encode_posteriors gave a wrong shape or non-finite values")
+
+    steps = []  # (seconds since the previous step ended, loss, launches)
+
+    def on_step(state, loss):
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        steps.append((now - clock[0], float(loss), dict(build.launches)))
+        build.reset_launches()
+        clock[0] = time.perf_counter()
+
+    with tempfile.TemporaryDirectory(prefix="e2v_train_") as tmp:
+        args = train_tuneavideo.build_parser().parse_args([
+            "--device", "cuda", "--epochs", "1", "--train_batch_size", str(TRAIN_BATCH),
+            "--validation_epochs", "1", "--validation_steps", "2", "--output_dir", tmp])
+        # what was loaded: the trainable tensors in f32, the frozen ones as
+        # the bf16 working copy will hold them
+        loaded = {n: p.detach().clone() if vd.trainable(n) else p.detach().to(torch.bfloat16)
+                  for n, p in unet.named_parameters()}
+        torch.cuda.reset_peak_memory_stats()
+        build.reset_launches()
+        clock = [time.perf_counter()]
+        t_run = clock[0]
+        state, losses = train_tuneavideo.train(unet, vae, post, contexts, args, on_step=on_step)
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t_run
+        after_steps = dict(build.launches)  # the validation sample's launches
+        peak = torch.cuda.max_memory_allocated() / 2**30
+
+        n_train = sum(p.numel() for p in state.masters.values())
+        say(f"train: UNet3DConfig() {sum(p.numel() for p in state.unet.parameters())} params, "
+            f"{n_train} trainable in {len(state.masters)} tensors (f32 masters, bf16 working copy), "
+            f"batch {TRAIN_BATCH}, levels 0-1 recomputed")
+        step_s = [round(s[0], 3) for s in steps]
+        step_loss = [round(s[1], 4) for s in steps]
+        ok = (len(steps) == TRAIN_STEPS and state.step == TRAIN_STEPS
+              and all(0.2 < l < 10.0 for l in step_loss))
+        say(f"train: {len(steps)} optimizer steps, loss per step {step_loss} (random weights: "
+            f"near 1 expected), seconds per step {step_s} (the first includes building the train "
+            f"state), "
+            f"whole run with the validation sample and the checkpoint {run_s:.1f} s, peak memory "
+            f"{peak:.2f} GiB {'ok' if ok else 'FAILED'}")
+        if not ok:
+            fail("train: wrong number of steps or a loss that is not finite and near 1")
+        for i, (_, _, launched) in enumerate(steps):
+            ok = launched == EXPECTED_PER_TRAIN_STEP
+            say(f"train: step {i} launches {launched} {'ok' if ok else 'FAILED'}")
+            if not ok:
+                fail(f"train: step {i} did not launch the expected kernels "
+                     f"{EXPECTED_PER_TRAIN_STEP}")
+
+        # the freeze rule, the optimizer's state and the working copy
+        working = dict(state.unet.named_parameters())
+        moved = [n for n, p in state.masters.items() if not torch.equal(p.detach(), loaded[n])
+                 and torch.equal(working[n].detach(), p.detach().to(torch.bfloat16))]
+        frozen_changed = [n for n, p in working.items()
+                          if n not in state.masters and not torch.equal(p, loaded[n])]
+        with_state = {id(p) for p in state.optimizer.state}
+        held = {id(p) for grp in state.optimizer.param_groups for p in grp["params"]}
+        stray = [n for n, p in working.items() if n not in state.masters
+                 and (p.grad is not None or p.requires_grad or id(p) in held)]
+        ok = (len(moved) == len(state.masters) and not frozen_changed and not stray
+              and with_state == held == {id(p) for p in state.masters.values()}
+              and all(vd.trainable(n) for n in state.masters))
+        say(f"train: {len(moved)} of {len(state.masters)} trainable tensors changed and have Adam "
+            f"moments; {len(frozen_changed)} of {len(working) - len(state.masters)} frozen tensors "
+            f"changed, {len(stray)} of them hold a gradient or optimizer state "
+            f"{'ok' if ok else 'FAILED'}")
+        if not ok:
+            fail("train: the freeze rule or the optimizer's state is wrong")
+        del loaded
+
+        gif = os.path.join(tmp, "samples", "sample-1.gif")
+        frames = load_gif(gif)
+        file = ckpt.latest_checkpoint(os.path.join(tmp, "ckpt"))
+        sizes = {name: os.path.getsize(os.path.join(tmp, name, "diffusion_pytorch_model.bin"))
+                 for name in ("unet", "vae")}
+        ok = frames.shape == (6, 288, 2 * 512, 3) and frames.std() > 0 and file is not None
+        say(f"train: validation sample {frames.shape} (2 clips, 2 DDIM steps, launches "
+            f"{ {k: v for k, v in after_steps.items() if v} }), train state "
+            f"{os.path.getsize(file) / 2**30:.2f} GiB, diffusers layout unet "
+            f"{sizes['unet'] / 2**30:.2f} GiB vae {sizes['vae'] / 2**30:.2f} GiB "
+            f"{'ok' if ok else 'FAILED'}")
+        if not ok:
+            fail("train: the validation GIF or the checkpoint is missing or malformed")
+
+        # one more step from the live state; then restore the checkpoint
+        # (written after step 3) and take the same step again
+        batch, bctx = post[:TRAIN_BATCH], contexts[:TRAIN_BATCH]
+        vd.train_step(state, vae, batch, bctx, args.seed)
+        straight = {n: p.detach().clone() for n, p in state.masters.items()}
+        t0 = time.perf_counter()
+        restored = ckpt.restore_train_state(file, state)
+        load_s = time.perf_counter() - t0
+        vd.train_step(state, vae, batch, bctx, args.seed)
+        torch.cuda.synchronize()
+        same = [torch.equal(p.detach(), straight[n]) for n, p in state.masters.items()]
+        ok = restored == TRAIN_STEPS and state.step == TRAIN_STEPS + 1 and all(same)
+        say(f"train: restore (step {restored}, {load_s:.1f} s) + one step vs that step without "
+            f"the interruption: {sum(same)} of {len(same)} trainable tensors bit-equal "
+            f"{'ok' if ok else 'FAILED'}")
+        if not ok:
+            fail("train: a resumed step differs from the uninterrupted one")
+
+        _profile_step(torch, lambda: vd.train_step(state, vae, batch, bctx, args.seed))
+
+    return {k: sum(s[2][k] for s in steps) for k in EXPECTED_PER_TRAIN_STEP}
+
+
+# device kernels of a train step, grouped by what launched them (substrings
+# of the kernel names; the port's own kernels first)
+_KERNEL_GROUPS = (
+    ("flash_attention_bwd", ("flash_bwd_",)), ("flash_attention_fwd", ("flash_fwd_",)),
+    ("temporal_attention", ("temporal_",)), ("ff_ln_bwd", ("ff_ln_bwd_",)), ("ff_ln", ("ff_ln_",)),
+    ("geglu_out_bwd", ("geglu_out_bwd_",)), ("geglu_out", ("geglu_out_",)),
+    ("library conv / GEMM", ("cudnn", "cutlass", "gemm", "nvjet", "xmma", "wgrad", "dgrad",
+                             "conv", "cublas", "gemv")),
+    ("optimizer", ("multi_tensor", "adam", "foreach")),
+)
+
+
+def _profile_step(torch, step):
+    """One more train step under torch.profiler: where the device time goes."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        step()
+        torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    groups, n_kernels = {}, 0
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        name = e.name.lower()
+        if name.startswith("memcpy") or name.startswith("memset"):
+            group = "memcpy / memset"
+        else:
+            group = next((g for g, keys in _KERNEL_GROUPS if any(k in name for k in keys)),
+                         "PyTorch elementwise / reduce / other")
+        groups[group] = groups.get(group, 0.0) + e.time_range.elapsed_us() / 1e3
+        n_kernels += 1
+    if not groups:
+        say("train: profile: the profiler recorded no device activity (not measured)")
+        return
+    busy = sum(groups.values())
+    table = ", ".join(f"{g} {ms:.1f}" for g, ms in sorted(groups.items(), key=lambda kv: -kv[1]))
+    say(f"train: one step under torch.profiler: {wall_ms:.0f} ms on the host clock, device busy "
+        f"{busy:.0f} ms in {n_kernels} kernels and copies (ms by group: {table})")
 
 
 def main():
@@ -622,6 +1016,10 @@ def main():
     phase_unet_parity(torch)
     pipe, ddim_launches = phase_slice(torch, build)
     launches = phase_serve(torch, build, pipe)
+    pipe.unet = None  # the train phase builds its own, with f32 masters
+    torch.cuda.empty_cache()
+    phase_train_parity(torch)
+    train_launches = phase_train(torch, build, pipe.vae)
     leaked = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "jaxlib", "flax", "eeg2video_tpu"))
     if leaked:
@@ -630,11 +1028,22 @@ def main():
     kernels = []
     for name, (source, replaces) in KERNEL_SOURCES.items():
         rep = report[name]
-        # launches: of the serve phase's run (all five kernels);
-        # launches_ddim_path: of the slice phase's run (the UNet's four)
-        kernels.append({"name": name, "route": "cuda", "source": source,
-                        "replaces": replaces, "launches": launches[name],
-                        "launches_ddim_path": ddim_launches[name],
+        # each main path was driven with the counts set to 0 just before it
+        # and read just after: the serve phase (20-step dispatches), the slice
+        # phase (4-step DDIM requests), the train phase (three optimizer
+        # steps). launches: the count on the path the kernel was ported for,
+        # the serve path for the forward kernels (as this line always gave
+        # it), the train path for the kernels only training runs; a kernel
+        # its path did not launch fails the run.
+        per_path = {"launches_serve_path": launches[name],
+                    "launches_ddim_path": ddim_launches[name],
+                    "launches_train_path": train_launches[name]}
+        path = "train" if name in TRAIN_ONLY_KERNELS else "serve"
+        if per_path[f"launches_{path}_path"] == 0:
+            fail(f"launches: the {path} path did not launch {name}")
+        kernels.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
+                        "launches": per_path[f"launches_{path}_path"], "launches_path": path,
+                        **per_path,
                         "max_abs_err": rep["max_abs_err"], "max_rel_err": rep["max_rel_err"],
                         "ms": rep["ms"], "plain_ms": rep["plain_ms"],
                         "bound_ms": rep["bound_ms"], "bound_by": rep["bound_by"],

@@ -9,8 +9,8 @@ import os
 
 import torch
 
-from ..convert.export_diffusion import (VAE_ENCODER_PREFIXES, load_diffusers_unet,
-                                        load_diffusers_vae, load_torch_state_dict)
+from ..convert.export_diffusion import (load_diffusers_unet, load_diffusers_vae,
+                                        load_torch_state_dict)
 from ..diffusion.pipeline import EEG2VideoPipeline
 from ..models.unet3d import UNet3DConfig
 from ..models.vae import VAEConfig
@@ -42,6 +42,12 @@ def _load_component(path, sub, default_config, load_dir):
     raise FileNotFoundError(f"{sub} checkpoint not found: {path}")
 
 
+def load_vae_state(vae_ckpt):
+    """(VAEConfig, state dict) of a VAE checkpoint: a diffusers directory or
+    a state-dict file of the port's ``AutoencoderKL``."""
+    return _load_component(vae_ckpt, "vae", VAEConfig(), load_diffusers_vae)
+
+
 def load_pipeline(unet_dir, vae_ckpt, dtype="bfloat16", device="cuda"):
     """Build the pipeline on ``device`` (the card unless the caller names the
     CPU) from checkpoints. Each of ``unet_dir`` and ``vae_ckpt`` may be a
@@ -50,8 +56,6 @@ def load_pipeline(unet_dir, vae_ckpt, dtype="bfloat16", device="cuda"):
     a ``.pt`` state dict written from the port's own modules."""
     device = resolve_device(device)  # fail before reading anything
     ucfg, unet_sd = _load_component(unet_dir, "unet", UNet3DConfig(), load_diffusers_unet)
-    vcfg, vae_sd = _load_component(vae_ckpt, "vae", VAEConfig(), load_diffusers_vae)
-    # the port has the decoding half only
-    vae_sd = {k: v for k, v in vae_sd.items() if not k.startswith(VAE_ENCODER_PREFIXES)}
+    vcfg, vae_sd = load_vae_state(vae_ckpt)
     return EEG2VideoPipeline.create(unet_sd, vae_sd, ucfg, vcfg,
                                     dtype=_DTYPES.get(dtype, dtype), device=device)

@@ -13,6 +13,12 @@ that package):
   sub-folder (``config.json`` + ``diffusion_pytorch_model.bin``) -> the
   port's config and a state dict of tensors, for ``cli.inference_eeg2video.
   load_pipeline``.
+- ``save_diffusers_pipeline``: the ``pipeline.save_pretrained(output_dir)``
+  layout the reference fine-tune emits
+  (train_finetune_videodiffusion.py:376-382) from the port's state dicts,
+  which are in that key space already.
+- ``unet3d_from_torch_2d``: the reference's ``from_pretrained_2d`` inflation
+  (models/unet.py:415-449) in the port's key space.
 """
 
 from __future__ import annotations
@@ -24,8 +30,6 @@ from typing import Dict
 import numpy as np
 
 WEIGHTS_NAME = "diffusion_pytorch_model.bin"
-# keys of the VAE's encoding half, which the port does not have yet
-VAE_ENCODER_PREFIXES = ("encoder.", "quant_conv.")
 
 
 def _t(x):
@@ -246,3 +250,153 @@ def load_diffusers_vae(path):
         sample_channels=c.get("in_channels", 3),
     )
     return cfg, load_torch_state_dict(os.path.join(sub, WEIGHTS_NAME))
+
+
+# --- writing a diffusers directory ---------------------------------------------
+
+_DIFFUSERS_VERSION = "0.11.1"
+
+
+def unet_config_dict(cfg, sample_size=None) -> dict:
+    """diffusers ``unet/config.json`` for a UNet3DConfig; keys follow the
+    reference ``__init__`` signature (unet.py:40-78). ``attention_head_dim``
+    is the head count in diffusers 0.11.1."""
+    n = len(cfg.block_out_channels)
+    return {
+        "_class_name": "UNet3DConditionModel",
+        "_diffusers_version": _DIFFUSERS_VERSION,
+        "act_fn": "silu",
+        "attention_head_dim": cfg.attention_heads,
+        "block_out_channels": list(cfg.block_out_channels),
+        "center_input_sample": False,
+        "cross_attention_dim": cfg.cross_attention_dim,
+        "down_block_types": ["CrossAttnDownBlock3D"] * (n - 1) + ["DownBlock3D"],
+        "downsample_padding": 1,
+        "dual_cross_attention": False,
+        "flip_sin_to_cos": cfg.flip_sin_to_cos,
+        "freq_shift": cfg.freq_shift,
+        "in_channels": cfg.in_channels,
+        "layers_per_block": cfg.layers_per_block,
+        "mid_block_scale_factor": 1,
+        "mid_block_type": "UNetMidBlock3DCrossAttn",
+        "norm_eps": cfg.norm_eps,
+        "norm_num_groups": cfg.norm_num_groups,
+        "num_class_embeds": None,
+        "only_cross_attention": False,
+        "out_channels": cfg.out_channels,
+        "sample_size": sample_size,
+        "up_block_types": ["UpBlock3D"] + ["CrossAttnUpBlock3D"] * (n - 1),
+        "use_linear_projection": False,
+    }
+
+
+def vae_config_dict(cfg, sample_size: int = 512) -> dict:
+    """diffusers ``vae/config.json`` for a VAEConfig (AutoencoderKL schema)."""
+    n = len(cfg.block_out_channels)
+    return {
+        "_class_name": "AutoencoderKL",
+        "_diffusers_version": _DIFFUSERS_VERSION,
+        "act_fn": "silu",
+        "block_out_channels": list(cfg.block_out_channels),
+        "down_block_types": ["DownEncoderBlock2D"] * n,
+        "in_channels": cfg.sample_channels,
+        "latent_channels": cfg.latent_channels,
+        "layers_per_block": cfg.layers_per_block,
+        "norm_num_groups": cfg.norm_num_groups,
+        "out_channels": cfg.sample_channels,
+        "sample_size": sample_size,
+        "up_block_types": ["UpDecoderBlock2D"] * n,
+    }
+
+
+def scheduler_config_dict() -> dict:
+    """``scheduler/scheduler_config.json`` with the SD-1.4 schedule the
+    reference trains and samples with
+    (train_finetune_videodiffusion.py:132, 222-228)."""
+    return {
+        "_class_name": "DDIMScheduler",
+        "_diffusers_version": _DIFFUSERS_VERSION,
+        "beta_end": 0.012,
+        "beta_schedule": "scaled_linear",
+        "beta_start": 0.00085,
+        "clip_sample": False,
+        "num_train_timesteps": 1000,
+        "prediction_type": "epsilon",
+        "set_alpha_to_one": False,
+        "steps_offset": 1,
+    }
+
+
+def _save_component(out_dir, name, config, sd):
+    import torch
+
+    sub = os.path.join(out_dir, name)
+    os.makedirs(sub, exist_ok=True)
+    with open(os.path.join(sub, "config.json"), "w") as f:
+        json.dump(config, f, indent=2, sort_keys=True)
+    torch.save({k: torch.as_tensor(v).detach().float().cpu().contiguous()
+                for k, v in sd.items()}, os.path.join(sub, WEIGHTS_NAME))
+
+
+def save_diffusers_pipeline(out_dir, unet_sd, unet_cfg, vae_sd=None, vae_cfg=None,
+                            sample_size=None):
+    """Write the reference fine-tune's checkpoint directory:
+    ``model_index.json`` + ``unet/`` (+ ``vae/`` when given) + ``scheduler/``,
+    weights in f32. ``unet_sd`` / ``vae_sd`` are state dicts of the port's
+    modules. The reference inference reloads only the ``unet`` sub-folder
+    from it (inference_eeg2video.py:50); the CLIP components are named by the
+    index only."""
+    os.makedirs(out_dir, exist_ok=True)
+    index = {
+        "_class_name": "TuneAVideoPipeline",
+        "_diffusers_version": _DIFFUSERS_VERSION,
+        "scheduler": ["diffusers", "DDIMScheduler"],
+        "text_encoder": ["transformers", "CLIPTextModel"],
+        "tokenizer": ["transformers", "CLIPTokenizer"],
+        "unet": ["models.unet", "UNet3DConditionModel"],
+        "vae": ["diffusers", "AutoencoderKL"],
+    }
+    with open(os.path.join(out_dir, "model_index.json"), "w") as f:
+        json.dump(index, f, indent=2, sort_keys=True)
+    _save_component(out_dir, "unet", unet_config_dict(unet_cfg, sample_size), unet_sd)
+    if vae_sd is not None:
+        _save_component(out_dir, "vae", vae_config_dict(vae_cfg), vae_sd)
+    sub = os.path.join(out_dir, "scheduler")
+    os.makedirs(sub, exist_ok=True)
+    with open(os.path.join(sub, "scheduler_config.json"), "w") as f:
+        json.dump(scheduler_config_dict(), f, indent=2, sort_keys=True)
+
+
+# --- inflating a 2-D checkpoint ---------------------------------------------------
+
+def unet3d_from_torch_2d(sd_2d, model, generator=None):
+    """diffusers UNet2DConditionModel state dict -> state dict of ``model``
+    (a ``UNet3DConditionModel``): every 2-D weight lands on the key of the
+    same name, and what a 2-D checkpoint lacks (``attn_temp``, ``norm_temp``)
+    gets the initial values the JAX package's
+    ``unet3d_params_from_torch_2d`` takes from a fresh Flax init: LayerNorm
+    scale 1 and bias 0, ``to_q/k/v`` lecun-normal (N(0, 1/fan_in) truncated
+    at two standard deviations, drawn here from ``generator``), ``to_out``
+    zero, so that the inflated model reproduces the 2-D UNet on each frame."""
+    import torch
+
+    out = {}
+    for name, p in model.state_dict().items():
+        if name in sd_2d:
+            w = torch.as_tensor(sd_2d[name]).float()
+            if w.shape != p.shape:
+                raise ValueError(f"{name}: checkpoint {tuple(w.shape)} != model {tuple(p.shape)}")
+        elif ".attn_temp." not in name and ".norm_temp." not in name:
+            raise KeyError(f"the 2-D checkpoint lacks {name}")
+        elif ".norm_temp." in name:
+            w = torch.ones(p.shape) if name.endswith("weight") else torch.zeros(p.shape)
+        elif ".to_out." in name:
+            w = torch.zeros(p.shape)
+        else:
+            # flax lecun_normal: stddev sqrt(1/fan_in) of the untruncated
+            # normal, corrected for the truncation at +-2 sigma
+            w = torch.empty(p.shape)
+            torch.nn.init.trunc_normal_(w, 0.0, 1.0, -2.0, 2.0, generator=generator)
+            w *= (1.0 / p.shape[1]) ** 0.5 / 0.87962566103423978
+        out[name] = w
+    return out

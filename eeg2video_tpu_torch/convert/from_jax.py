@@ -12,7 +12,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .export_diffusion import VAE_ENCODER_PREFIXES, unet3d_to_torch, vae_to_torch
+from .export_diffusion import unet3d_to_torch, vae_to_torch
 
 
 def _tensors(sd, dtype):
@@ -21,19 +21,24 @@ def _tensors(sd, dtype):
 
 
 def unet_state_dict_from_jax(params, config, dtype=torch.float32):
-    """Flax UNet3DConditionModel params -> ``UNet3DConditionModel`` state dict."""
+    """Flax UNet3DConditionModel params -> ``UNet3DConditionModel`` state dict.
+
+    The mapping is a relabelling plus transposes, so it carries a gradient
+    tree (``jax.grad`` of a loss with respect to the params) into the port's
+    key space exactly as it carries weights: ``grads_state_dict_from_jax``."""
     sd = unet3d_to_torch(params, n_down=len(config.block_out_channels),
                          layers_per_block=config.layers_per_block)
     return _tensors(sd, dtype)
 
 
+grads_state_dict_from_jax = unet_state_dict_from_jax
+
+
 def vae_state_dict_from_jax(params, config, dtype=torch.float32):
-    """Flax AutoencoderKL params -> ``AutoencoderKL`` (decoder) state dict;
-    the encoder's keys are dropped."""
-    sd = vae_to_torch(params, n_blocks=len(config.block_out_channels),
-                      enc_layers=config.layers_per_block)
-    return _tensors({k: v for k, v in sd.items()
-                     if not k.startswith(VAE_ENCODER_PREFIXES)}, dtype)
+    """Flax AutoencoderKL params -> ``AutoencoderKL`` state dict (encoder,
+    decoder and both quant convs)."""
+    return _tensors(vae_to_torch(params, n_blocks=len(config.block_out_channels),
+                                 enc_layers=config.layers_per_block), dtype)
 
 
 def semantic_state_dict_from_jax(params, dtype=torch.float32):

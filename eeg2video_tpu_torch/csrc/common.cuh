@@ -21,7 +21,9 @@ using FragBCol = wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_majo
 using FragC = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
 
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 constexpr float kSqrtHalf = 0.70710678118654752f;
+constexpr float kInvSqrt2Pi = 0.3989422804014327f;
 
 // 8 bf16 values moved as one 16-byte vector.
 union Vec8 {
@@ -45,6 +47,22 @@ __device__ __forceinline__ void store_vec8(bf16* p, const Vec8& v) {
   *reinterpret_cast<uint4*>(p) = v.u;
 }
 
+// Attention tiles: rows [row0, row0 + 64) x head columns [0, D) of a packed
+// (rows, hd) matrix into a (64, DP + 8) bf16 shared-memory tile; rows past
+// nrows and columns past D are zero.
+template <int DP, int THREADS>
+__device__ __forceinline__ void load_rows(bf16* dst, const bf16* src, int hd, int row0,
+                                          int nrows, int D) {
+  constexpr int kVPR = DP / 8;
+  for (int i = threadIdx.x; i < 64 * kVPR; i += THREADS) {
+    const int r = i / kVPR, d = (i % kVPR) * 8;
+    const int row = row0 + r;
+    Vec8 v = zero_vec8();
+    if (row < nrows && d < D) v = load_vec8(src + (long long)row * hd + d);
+    store_vec8(dst + r * (DP + 8) + d, v);
+  }
+}
+
 __device__ __forceinline__ float warp_max(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
@@ -60,6 +78,13 @@ __device__ __forceinline__ float warp_sum(float v) {
 // Exact (erf) GELU, as jax.nn.gelu(approximate=False).
 __device__ __forceinline__ float gelu_erf(float g) {
   return 0.5f * g * (1.0f + erff(g * kSqrtHalf));
+}
+
+// (gelu_erf(g), d gelu_erf / dg): g Phi(g) and Phi(g) + g phi(g).
+__device__ __forceinline__ void gelu_erf_grad(float g, float& gelu, float& dgelu) {
+  const float Phi = 0.5f * (1.0f + erff(g * kSqrtHalf));
+  gelu = g * Phi;
+  dgelu = Phi + g * kInvSqrt2Pi * expf(-0.5f * g * g);
 }
 
 __device__ __forceinline__ float silu(float f) { return f / (1.0f + expf(-f)); }

@@ -25,7 +25,13 @@
 // +-100, which is exact only while the row max stays <= 100 base-2 units;
 // that shortcut is not carried over). D is padded to a multiple of 16 inside
 // shared memory only; KV tails (Lkv = 77) are masked to -inf.
-// No lse output yet: training will need it.
+// An optional f32 output lse (N, H, Lq) holds, in natural-log units, the
+// log-sum-exp of each row's scaled (and biased) scores, m + log(l) of the
+// running softmax: the residual flash_attention_bwd recomputes the
+// probabilities from. It is a template parameter, so that the kernel the
+// inference paths launch (no lse) carries nothing of it: keeping the running
+// max alive to the epilogue costs registers, and the short cross-attention
+// calls are bound by how many blocks fit an SM.
 #include "common.cuh"
 
 namespace e2v {
@@ -52,6 +58,7 @@ struct AttnArgs {
   const float* bias0;  // (N / m, Lkv0) f32 or null
   bf16* out;
   long long o_so, o_si;
+  float* lse;  // (N, H, Lq) f32, natural log, or null
   int m, lq, lkv0, lkv1, head_dim, hd;
   float scale_log2;  // softmax scale * log2(e): scores in base-2 units
 };
@@ -63,22 +70,7 @@ constexpr size_t attn_smem_bytes() {
                                 (DP + 4) * sizeof(float));
 }
 
-// rows [row0, row0 + 64) x head columns [0, D) of a packed matrix into a
-// (64, DP) bf16 tile; rows past nrows and columns past D are zero.
-template <int DP>
-__device__ __forceinline__ void load_rows(bf16* dst, const bf16* src, int hd,
-                                          int row0, int nrows, int D) {
-  constexpr int kVPR = DP / 8;
-  for (int i = threadIdx.x; i < 64 * kVPR; i += kThreads) {
-    const int r = i / kVPR, d = (i % kVPR) * 8;
-    const int row = row0 + r;
-    Vec8 v = zero_vec8();
-    if (row < nrows && d < D) v = load_vec8(src + (long long)row * hd + d);
-    store_vec8(dst + r * (DP + 8) + d, v);
-  }
-}
-
-template <int DP>
+template <int DP, bool LSE>
 __global__ void __launch_bounds__(kThreads)
     flash_fwd_kernel(const AttnArgs a) {
   constexpr int LDQ = DP + 8;
@@ -99,7 +91,7 @@ __global__ void __launch_bounds__(kThreads)
   const int D = a.head_dim;
   const long long hoff = (long long)h * D;
 
-  load_rows<DP>(Qs, a.q + nb * a.q_so + nj * a.q_si + hoff, a.hd, q0, a.lq, D);
+  load_rows<DP, kThreads>(Qs, a.q + nb * a.q_so + nj * a.q_si + hoff, a.hd, q0, a.lq, D);
   float* Sw = Ss + warp * 16 * kLDS;
   bf16* Pw = Ps + warp * 16 * kLDP;
   float* Ow = Os + warp * 16 * LDO;
@@ -128,8 +120,8 @@ __global__ void __launch_bounds__(kThreads)
     }
     for (int kv0 = 0; kv0 < lkv; kv0 += kBKV) {
       __syncthreads();  // previous tile's K/V (and the Q load) are settled
-      load_rows<DP>(Ks, kb, a.hd, kv0, lkv, D);
-      load_rows<DP>(Vs, vb, a.hd, kv0, lkv, D);
+      load_rows<DP, kThreads>(Ks, kb, a.hd, kv0, lkv, D);
+      load_rows<DP, kThreads>(Vs, vb, a.hd, kv0, lkv, D);
       __syncthreads();
 
       // S = Q K^T for this warp's 16 query rows
@@ -205,6 +197,9 @@ __global__ void __launch_bounds__(kThreads)
       const float inv = 1.0f / lrow[r];
       for (int d = lane; d < D; d += 32)
         ob[(long long)row * a.hd + d] = __float2bfloat16(Ow[r * LDO + d] * inv);
+      if (LSE && lane == 0)
+        a.lse[((long long)n * gridDim.y + h) * a.lq + row] =
+            (mrow[r] + log2f(lrow[r])) * kLn2;
     }
   }
 }
@@ -213,20 +208,22 @@ template <int DP>
 int launch_flash(const AttnArgs& a, int n_total, void* stream) {
   const dim3 grid((a.lq + kBQ - 1) / kBQ, a.hd / a.head_dim, n_total);
   const size_t smem = attn_smem_bytes<DP>();
-  E2V_LAUNCH(flash_fwd_kernel<DP>, grid, kThreads, smem, stream, a);
+  void (*kernel)(const AttnArgs) =
+      a.lse != nullptr ? flash_fwd_kernel<DP, true> : flash_fwd_kernel<DP, false>;
+  E2V_LAUNCH(kernel, grid, kThreads, smem, stream, a);
 }
 
 }  // namespace
 }  // namespace e2v
 
-// Strides are in elements; every row is hd contiguous bf16 values. k1/v1 and
-// bias0 may be null. Returns the CUDA launch status.
+// Strides are in elements; every row is hd contiguous bf16 values. k1/v1,
+// bias0 and lse may be null. Returns the CUDA launch status.
 extern "C" int e2v_flash_attention_fwd(
     const void* q, long long q_so, long long q_si, const void* k0, long long k0_so,
     const void* v0, long long v0_so, const void* k1, long long k1_so, long long k1_si,
     const void* v1, long long v1_so, long long v1_si, const void* bias0, void* out,
     long long o_so, long long o_si, int n_total, int m, int lq, int lkv0, int lkv1,
-    int heads, int head_dim, float scale, void* stream) {
+    int heads, int head_dim, float scale, void* lse, void* stream) {
   using namespace e2v;
   AttnArgs a;
   a.q = static_cast<const bf16*>(q);
@@ -246,6 +243,7 @@ extern "C" int e2v_flash_attention_fwd(
   a.out = static_cast<bf16*>(out);
   a.o_so = o_so;
   a.o_si = o_si;
+  a.lse = static_cast<float*>(lse);
   a.m = m;
   a.lq = lq;
   a.lkv0 = lkv0;

@@ -1,10 +1,12 @@
-"""GIF output of the serving path: grid writer, encoders, background writer
-threads, and a GIF reader.
+"""Video IO: GIF output of the serving path (grid writer, encoders,
+background writer threads, a GIF reader) and the training clip loader.
 
-Counterpart of ``eeg2video_tpu/data/video.py`` (``save_videos_grid``,
-``_write_gif_fast``, ``AsyncVideoWriter``, ``dispatch_ahead``, ``load_gif``;
-:109-114, 165-267). The block-video extraction and the training clip dataset
-there are not ported yet. Two differences: ``encoder="native"`` encodes or
+Counterpart of ``eeg2video_tpu/data/video.py`` (``read_video_frames``,
+``VideoClipDataset``, ``save_videos_grid``, ``_write_gif_fast``,
+``AsyncVideoWriter``, ``dispatch_ahead``, ``load_gif``; :37-59, 109-162,
+165-267). The block-video extraction there is not ported yet, and
+``VideoClipDataset.load_all`` decodes clip by clip with cv2 (the JAX
+package's C++ thread-pool decoder is not ported). Two differences: ``encoder="native"`` encodes or
 raises (it never gives way to ``fast``), and ``load_gif`` decodes GIFs itself,
 so reading a GIF back needs neither imageio nor Pillow.
 """
@@ -14,6 +16,80 @@ from __future__ import annotations
 import os
 
 import numpy as np
+
+
+def _cv2():
+    try:
+        import cv2
+    except ImportError as e:
+        raise ImportError(
+            "reading video files needs the cv2 module (opencv-python), which "
+            "is not installed") from e
+    return cv2
+
+
+def read_video_frames(path: str, resize_hw=None):
+    """Decode all frames of a video as RGB uint8 (cv2), (N, H, W, 3);
+    ``resize_hw`` (h, w) resizes at decode. A file that yields no frame gives
+    a shape-correct empty array."""
+    cv2 = _cv2()
+    cap = cv2.VideoCapture(path)
+    frames = []
+    while True:
+        ok, frame = cap.read()
+        if not ok:
+            break
+        frame = cv2.cvtColor(frame, cv2.COLOR_BGR2RGB)
+        if resize_hw is not None:
+            h, w = resize_hw
+            frame = cv2.resize(frame, (w, h))
+        frames.append(frame)
+    cap.release()
+    if frames:
+        return np.stack(frames)
+    h, w = resize_hw if resize_hw is not None else (0, 0)
+    return np.zeros((0, h, w, 3), np.uint8)
+
+
+class VideoClipDataset:
+    """Training clip loader (the reference's TuneMultiVideoDataset,
+    dataset.py:52-88): per item decode a video, resize to (width, height),
+    take every ``sample_frame_rate``-th frame, the first ``n_sample_frames``
+    of them, scale to [-1, 1]. Items are channels-last (F, H, W, 3) float32
+    with the index of their prompt."""
+
+    def __init__(self, video_paths, prompt_ids, width=512, height=288,
+                 n_sample_frames=6, sample_frame_rate=8, sample_start_idx=0):
+        if len(video_paths) != len(prompt_ids):
+            raise ValueError("one prompt id per video path")
+        self.video_paths = list(video_paths)
+        self.prompt_ids = np.asarray(prompt_ids)
+        self.width, self.height = width, height
+        self.n_sample_frames = n_sample_frames
+        self.sample_frame_rate = sample_frame_rate
+        self.sample_start_idx = sample_start_idx
+
+    def __len__(self):
+        return len(self.video_paths)
+
+    def __getitem__(self, i):
+        frames = read_video_frames(self.video_paths[i], resize_hw=(self.height, self.width))
+        idx = np.arange(self.sample_start_idx, len(frames), self.sample_frame_rate)
+        idx = idx[: self.n_sample_frames]
+        if len(idx) < self.n_sample_frames:
+            # fail here with the path, not at a far-away shape mismatch
+            raise ValueError(
+                f"{self.video_paths[i]}: decoded {len(frames)} frames, "
+                f"need {self.n_sample_frames} at stride "
+                f"{self.sample_frame_rate} from {self.sample_start_idx}")
+        clip = frames[idx].astype(np.float32) / 127.5 - 1.0
+        return {"pixel_values": clip, "prompt_ids": self.prompt_ids[i]}
+
+    def load_all(self):
+        """Decode every clip once: (N, F, H, W, 3) float32 in [-1, 1] and the
+        prompt ids, for the resident-dataset trainer."""
+        pixels = np.stack([self[i]["pixel_values"] for i in range(len(self))])
+        return pixels, self.prompt_ids
 
 
 def _write_gif_fast(path, frames, duration_ms):

@@ -1,9 +1,11 @@
 """DDIM (eta = 0) and DPM-Solver++(2M) noise schedules with diffusers-0.11.1
-timestep spacing, in numpy (tables) and torch (the steps).
+timestep spacing, and the DDPM forward process of the fine-tune, in numpy
+(tables) and torch (the steps).
 
-Counterpart of ``eeg2video_tpu/diffusion/schedulers.py`` (``DDIMSchedule``
-:98-141, ``DPMSolverPPSchedule`` :157-234 and the spacing helper both share,
-``_ddim_spacing`` :43-62), for the Stable Diffusion v1-4 config: 1000 train
+Counterpart of ``eeg2video_tpu/diffusion/schedulers.py`` (``DDPMSchedule``
+:66-89, ``DDIMSchedule`` :98-141, ``DPMSolverPPSchedule`` :157-234 and the
+spacing helper the samplers share, ``_ddim_spacing`` :43-62), for the Stable
+Diffusion v1-4 config: 1000 train
 timesteps, scaled_linear betas 0.00085 -> 0.012, steps_offset 1,
 set_alpha_to_one False, epsilon prediction. All per-step coefficients are
 computed on the host in f64 and kept as f32; the steps run in f32 on the
@@ -23,6 +25,31 @@ BETA_START, BETA_END = 0.00085, 0.012  # scaled_linear
 STEPS_OFFSET = 1
 
 
+def _betas():
+    return np.linspace(BETA_START ** 0.5, BETA_END ** 0.5, NUM_TRAIN_TIMESTEPS,
+                       dtype=np.float64) ** 2
+
+
+@dataclasses.dataclass(frozen=True)
+class DDPMSchedule:
+    """The forward (q) process the fine-tune noises its latents with."""
+
+    alphas_cumprod: np.ndarray  # f32 (num_train_timesteps,)
+    num_train_timesteps: int
+
+    @classmethod
+    def create(cls):
+        return cls(alphas_cumprod=np.cumprod(1.0 - _betas()).astype(np.float32),
+                   num_train_timesteps=NUM_TRAIN_TIMESTEPS)
+
+    def add_noise(self, x0, noise, t):
+        """q(x_t | x_0) = sqrt(ac_t) x0 + sqrt(1 - ac_t) noise, f32; ``t`` is a
+        (B,) integer tensor, one timestep per leading row of ``x0``."""
+        ac = torch.from_numpy(self.alphas_cumprod).to(x0.device)[t.long()]
+        ac = ac.reshape(ac.shape + (1,) * (x0.dim() - ac.dim()))
+        return torch.sqrt(ac) * x0 + torch.sqrt(1.0 - ac) * noise
+
+
 def ddim_spacing(num_inference_steps):
     """The leading-space discretization DDIM and DPM-Solver++ share (they
     discretize the same probability-flow ODE on the same grid): f64
@@ -33,7 +60,7 @@ def ddim_spacing(num_inference_steps):
     if not 1 <= num_inference_steps <= t_max:
         raise ValueError(
             f"num_inference_steps={num_inference_steps} must be in [1, {t_max}]")
-    betas = np.linspace(BETA_START ** 0.5, BETA_END ** 0.5, t_max, dtype=np.float64) ** 2
+    betas = _betas()
     ac = np.cumprod(1.0 - betas)
     step_ratio = t_max // num_inference_steps
     ts = (np.arange(0, num_inference_steps) * step_ratio).round()[::-1].copy()

@@ -1,9 +1,9 @@
 """Pseudo-3D transformer blocks of the video UNet.
 
-Counterpart of ``eeg2video_tpu/models/attention3d.py`` (inference paths).
-Activations are (B, F, L, C), L = H*W spatial tokens. Spatial and cross
-attention go through ``flash_attention_fwd`` with the JAX package's
-inference folds, which decide the kernel calls:
+Counterpart of ``eeg2video_tpu/models/attention3d.py``. Activations are
+(B, F, L, C), L = H*W spatial tokens. Spatial and cross attention go through
+``ops.attention.flash_attention`` with the JAX package's layouts, which
+decide the kernel calls. At inference (``train=False``):
 
 - sparse-causal self-attention: frames 0 and 1 both attend [K0, K0], which
   is K0 alone, so they fold into the query axis as one (B, 2L) x (B, L) call
@@ -12,6 +12,17 @@ inference folds, which decide the kernel calls:
 - cross-attention folds the frames into the query axis, (B, F*L) x (B, S)
   (:491-503);
 - temporal attention is plain PyTorch, as JAX keeps it in XLA at inference.
+
+With ``train=True`` (the fine-tune step; every call is differentiable, with
+the backward kernels behind it):
+
+- frames 0 and 1 stay unfolded: (B, 2, L) query groups against the K0 of
+  their batch element (:236-241; the kernel reads K0 per group, so the
+  broadcast is never built and dk0 is summed over the two groups);
+- frames 2..F-1 take the same two-segment call and its backward (:249-258);
+- cross-attention stays per frame, (B*F, L) x (B*F, S) with the context
+  repeated per frame (:504-511);
+- temporal attention takes ``ops.temporal.temporal_attention`` (:375-385).
 
 Module and parameter names follow the diffusers key space that
 ``eeg2video_tpu.convert.export_diffusion.unet3d_to_torch`` emits.
@@ -25,8 +36,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..ops.attention import flash_attention_fwd
+from ..ops.attention import flash_attention, flash_attention_fwd
 from ..ops.geglu import feed_forward
+from ..ops.temporal import temporal_attention
 from .resnet3d import group_norm
 
 
@@ -50,8 +62,8 @@ class Attention(nn.Module):
 
     def forward(self, x, context=None):
         src = x if context is None else context
-        out = flash_attention_fwd(self.to_q(x), self.to_k(src), self.to_v(src),
-                                  self.heads)
+        out = flash_attention(self.to_q(x), self.to_k(src), self.to_v(src),
+                              self.heads)
         return self.to_out[0](out)
 
 
@@ -60,9 +72,21 @@ class SparseCausalAttention(Attention):
     (B, F, L, C); ``bias`` optional (B, 1, L), applied to the frame-0 keys
     only (the reference's F.pad quirk, attention3d.py:161-165)."""
 
-    def forward(self, x, bias=None):
+    def forward(self, x, bias=None, train=False):
         b, f = x.shape[:2]
         q, k, v = self.to_q(x), self.to_k(x), self.to_v(x)  # (B, F, L, inner)
+        if train:
+            if f == 1:
+                out = flash_attention(q[:, 0], k[:, 0], v[:, 0], self.heads,
+                                      bias0=bias)[:, None]
+            else:
+                out = flash_attention(q[:, :2], k[:, 0], v[:, 0], self.heads,
+                                      bias0=bias)
+            if f > 2:
+                rest = flash_attention(q[:, 2:], k[:, 0], v[:, 0], self.heads,
+                                       k1=k[:, 1:-1], v1=v[:, 1:-1], bias0=bias)
+                out = torch.cat([out, rest], dim=1)
+            return self.to_out[0](out)
         out = torch.empty_like(q)
         if f == 1:
             flash_attention_fwd(q[:, 0], k[:, 0], v[:, 0], self.heads,
@@ -79,13 +103,17 @@ class SparseCausalAttention(Attention):
 
 
 class TemporalAttentionUnrolled(Attention):
-    """Self-attention over the frame axis at each token (F x F per head),
-    plain PyTorch: f32 logits and softmax, probabilities rounded to v's dtype
-    (JAX ``_temporal_core``, attention3d.py:277-301)."""
+    """Self-attention over the frame axis at each token (F x F per head).
+    At inference plain PyTorch: f32 logits and softmax, probabilities rounded
+    to v's dtype (JAX ``_temporal_core``, attention3d.py:277-301). With
+    ``train`` the ``temporal_attention`` kernel pair, as JAX takes its Pallas
+    pair there."""
 
-    def forward(self, x):
+    def forward(self, x, train=False):
         b, f, l, _ = x.shape
         q, k, v = self.to_q(x), self.to_k(x), self.to_v(x)
+        if train:
+            return self.to_out[0](temporal_attention(q, k, v, self.heads))
         d = q.shape[-1] // self.heads
 
         def split(t):
@@ -128,15 +156,19 @@ class BasicTransformerBlock(nn.Module):
         self.attn_temp = TemporalAttentionUnrolled(dim, heads, head_dim)
         self.norm_temp = nn.LayerNorm(dim, eps=1e-5)
 
-    def forward(self, x, context, attention_bias=None):
+    def forward(self, x, context, attention_bias=None, train=False):
         b, f, l, c = x.shape
-        x = x + self.attn1(self.norm1(x), attention_bias)
-        h = self.norm2(x).reshape(b, f * l, c)
-        x = x + self.attn2(h, context).reshape(b, f, l, c)
+        x = x + self.attn1(self.norm1(x), attention_bias, train)
+        if train:
+            h = self.norm2(x).reshape(b * f, l, c)
+            ctx = context.repeat_interleave(f, dim=0)  # (B*F, S, Dc)
+        else:
+            h, ctx = self.norm2(x).reshape(b, f * l, c), context
+        x = x + self.attn2(h, ctx).reshape(b, f, l, c)
         proj, out = self.ff.net[0].proj, self.ff.net[2]
         x = feed_forward(x, self.norm3.weight, self.norm3.bias, proj.weight,
                          proj.bias, out.weight, out.bias, eps=1e-5)
-        return x + self.attn_temp(self.norm_temp(x))
+        return x + self.attn_temp(self.norm_temp(x), train)
 
 
 class Transformer3DModel(nn.Module):
@@ -154,13 +186,13 @@ class Transformer3DModel(nn.Module):
             [BasicTransformerBlock(inner, heads, head_dim, context_dim)])
         self.proj_out = nn.Conv2d(inner, channels, 1)
 
-    def forward(self, x, context, attention_bias=None):
+    def forward(self, x, context, attention_bias=None, train=False):
         b, f, hh, ww, c = x.shape
         h = group_norm(x.flatten(0, 1), self.groups, self.norm.weight,
                        self.norm.bias, self.norm.eps)
         h = F.linear(h, self.proj_in.weight.flatten(1), self.proj_in.bias)
         tokens = h.reshape(b, f, hh * ww, -1)
         for blk in self.transformer_blocks:
-            tokens = blk(tokens, context, attention_bias)
+            tokens = blk(tokens, context, attention_bias, train)
         h = F.linear(tokens, self.proj_out.weight.flatten(1), self.proj_out.bias)
         return x + h.reshape(b, f, hh, ww, c)

@@ -4,9 +4,11 @@ Counterpart of ``eeg2video_tpu/models/resnet3d.py``. Activations are
 (B, F, H, W, C); spatial convs fold frames into the batch axis. Convs that
 the JAX package leaves to XLA run on cuDNN here: the NHWC activation is
 handed over as an NCHW view with channels-last strides, so no copy is made.
-The level-0 GroupNorm -> SiLU -> conv chains go through the
+At inference the level-0 GroupNorm -> SiLU -> conv chains go through the
 ``conv3x3_gn_silu`` kernel, exactly where the JAX package's ``eligible``
-routes them (with its bf16 condition dropped).
+routes them (with its bf16 condition dropped). With ``train=True`` every
+conv is the library's (resnet3d.py:227-238 there: ``use1/use2 = not train
+and ...``), one call over all B*F frames, and autograd differentiates it.
 """
 
 from __future__ import annotations
@@ -27,16 +29,20 @@ def conv2d_nhwc(x, weight, bias, stride=1, padding=1):
     return y.permute(0, 2, 3, 1).contiguous()
 
 
-def conv2d_frames(x, weight, bias, stride=1, padding=1):
+def conv2d_frames(x, weight, bias, stride=1, padding=1, train=False):
     """Per-frame conv of (B, F, H, W, Cin) -> (B, F, H', W', Cout), one
     library call per batch element. Within one call cuDNN may sum an image's
     reduction in an order that depends on the image's place in the batch
     (seen on the H100 at the 1280-channel 3x3 convs on 9x16 and 5x8 frames:
     equal inputs at two batch positions, outputs one bf16 ulp apart), and a
     served clip must not depend on what shares its dispatch. Equal calls on
-    equal frames give equal bits, wherever the clip stands."""
+    equal frames give equal bits, wherever the clip stands. A train step
+    serves no clip: with ``train`` all B*F frames go into one call."""
     if weight.shape[-2:] == (1, 1) and stride == 1:
         return conv2d_nhwc(x, weight, bias)  # a channel matmul: row-wise already
+    if train:
+        return conv2d_nhwc(x.flatten(0, 1), weight, bias, stride, padding).unflatten(
+            0, x.shape[:2])
     return torch.stack([conv2d_nhwc(xi, weight, bias, stride, padding) for xi in x])
 
 
@@ -107,8 +113,9 @@ def gn_affine_pair(x, skip, gamma, beta, groups, eps):
 class PseudoConv3d(nn.Conv2d):
     """Per-frame 2-D convolution (InflatedConv3d) on (B, F, H, W, C)."""
 
-    def forward(self, x):
-        return conv2d_frames(x, self.weight, self.bias, self.stride[0], self.padding[0])
+    def forward(self, x, train=False):
+        return conv2d_frames(x, self.weight, self.bias, self.stride[0], self.padding[0],
+                             train)
 
 
 class Upsample3D(nn.Module):
@@ -120,13 +127,13 @@ class Upsample3D(nn.Module):
         super().__init__()
         self.conv = PseudoConv3d(channels, channels, 3, padding=1)
 
-    def forward(self, x, output_size=None):
+    def forward(self, x, output_size=None, train=False):
         h, w = x.shape[2], x.shape[3]
         oh, ow = output_size if output_size is not None else (2 * h, 2 * w)
         rows = torch.arange(oh, device=x.device) * h // oh
         cols = torch.arange(ow, device=x.device) * w // ow
         x = x.index_select(2, rows).index_select(3, cols)
-        return self.conv(x)
+        return self.conv(x, train)
 
 
 class Downsample3D(nn.Module):
@@ -136,8 +143,8 @@ class Downsample3D(nn.Module):
         super().__init__()
         self.conv = PseudoConv3d(channels, channels, 3, stride=2, padding=1)
 
-    def forward(self, x):
-        return self.conv(x)
+    def forward(self, x, train=False):
+        return self.conv(x, train)
 
 
 def _per_frame(t, f):
@@ -168,23 +175,24 @@ class ResnetBlock3D(nn.Module):
         self.conv_shortcut = (PseudoConv3d(in_channels, out_channels, 1)
                               if in_channels != out_channels else None)
 
-    def _gn_silu_conv(self, x, norm, conv):
+    def _gn_silu_conv(self, x, norm, conv, train):
         h = F.silu(group_norm(x, self.groups, norm.weight, norm.bias, self.eps))
-        return conv(h)
+        return conv(h, train)
 
-    def forward(self, x, temb, skip=None):
+    def forward(self, x, temb, skip=None, train=False):
         b, f, hh, ww, cx = x.shape
         cout = self.out_channels
         g, eps = self.groups, self.eps
         t = self.time_emb_proj(F.silu(temb))  # (B, Cout)
-        use2 = conv_eligible(hh, ww, cout, cout)
+        use2 = not train and conv_eligible(hh, ww, cout, cout)
         w1, b1 = self.conv1.weight, self.conv1.bias
         conv1_stats = None
         if skip is not None:
             cs = skip.shape[-1]
             (s1x, sh1x), (s1s, sh1s) = gn_affine_pair(
                 x, skip, self.norm1.weight, self.norm1.bias, g, eps)
-            if conv_eligible(hh, ww, cx, cout) and conv_eligible(hh, ww, cs, cout):
+            if (not train and conv_eligible(hh, ww, cx, cout)
+                    and conv_eligible(hh, ww, cs, cout)):
                 ha = conv3x3_gn_silu(x.flatten(0, 1), w1[:, :cx], b1,
                                      _per_frame(s1x, f), _per_frame(sh1x, f),
                                      _per_frame(t, f))
@@ -196,12 +204,12 @@ class ResnetBlock3D(nn.Module):
                 def half(tens, sc, sh, w_half):
                     a = F.silu(tens.float() * sc[:, None, None, None, :]
                                + sh[:, None, None, None, :]).to(x.dtype)
-                    return conv2d_frames(a, w_half, None).flatten(0, 1)
+                    return conv2d_frames(a, w_half, None, train=train).flatten(0, 1)
 
                 h = half(x, s1x, sh1x, w1[:, :cx]) + half(skip, s1s, sh1s, w1[:, cx:])
                 h = (h.float() + b1.float()).to(x.dtype).unflatten(0, (b, f))
                 h = h + t[:, None, None, None, :].to(h.dtype)
-        elif conv_eligible(hh, ww, cx, cout):
+        elif not train and conv_eligible(hh, ww, cx, cout):
             s1, sh1 = gn_affine(x, self.norm1.weight, self.norm1.bias, g, eps)
             res = conv3x3_gn_silu(x.flatten(0, 1), w1, b1, _per_frame(s1, f),
                                   _per_frame(sh1, f), _per_frame(t, f),
@@ -209,7 +217,7 @@ class ResnetBlock3D(nn.Module):
             h, conv1_stats = res if use2 else (res, None)
             h = h.unflatten(0, (b, f))
         else:
-            h = self._gn_silu_conv(x, self.norm1, self.conv1)
+            h = self._gn_silu_conv(x, self.norm1, self.conv1, train)
             h = h + t[:, None, None, None, :]
 
         if use2:
@@ -223,12 +231,12 @@ class ResnetBlock3D(nn.Module):
                                 self.conv2.bias, _per_frame(s2, f),
                                 _per_frame(sh2, f)).unflatten(0, (b, f))
         else:
-            h = self._gn_silu_conv(h, self.norm2, self.conv2)
+            h = self._gn_silu_conv(h, self.norm2, self.conv2, train)
 
         if skip is not None:
             ws = self.conv_shortcut.weight.flatten(1)
             x = (F.linear(x, ws[:, :cx]) + F.linear(skip, ws[:, cx:])
                  + self.conv_shortcut.bias)
         elif self.conv_shortcut is not None:
-            x = self.conv_shortcut(x)
+            x = self.conv_shortcut(x, train)
         return x + h

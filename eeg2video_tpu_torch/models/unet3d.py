@@ -4,6 +4,15 @@ Counterpart of ``eeg2video_tpu/models/unet3d.py``. I/O contract
 (channels-last, as the JAX package): sample (B, F, H, W, C_in), timesteps
 (B,) or scalar, context (B, S, cross_attention_dim) -> (B, F, H, W, C_out).
 Parameter names are the diffusers / reference key space.
+
+``train=True`` takes the training layouts of the blocks (see
+``attention3d``). With ``remat`` the down, mid and up blocks whose input has
+H*W >= ``remat_min_hw`` tokens per frame are recomputed in the backward
+(``torch.utils.checkpoint``, non-reentrant) instead of keeping their
+activations, as ``unet3d.py:139-154`` of the JAX package wraps them in
+``nn.remat``. A recomputed block is recomputed whole; the JAX policy of
+saving ``resnet_conv``, ``flash_out`` and ``ff_out`` inside it is not
+carried over (it changes speed, not results).
 """
 
 from __future__ import annotations
@@ -15,6 +24,7 @@ from typing import Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from .resnet3d import PseudoConv3d, group_norm
 from .unet_blocks import (CrossAttnDownBlock3D, CrossAttnUpBlock3D,
@@ -109,8 +119,16 @@ class UNet3DConditionModel(nn.Module):
         self.conv_norm_out = nn.GroupNorm(g, chs[0], eps)
         self.conv_out = PseudoConv3d(chs[0], cfg.out_channels, 3, padding=1)
 
-    def forward(self, sample, timesteps, context, attention_mask=None):
+    def forward(self, sample, timesteps, context, attention_mask=None, train=False,
+                remat=False, remat_min_hw=0):
         cfg = self.config
+
+        def run(blk, x, *args):
+            if train and remat and x.shape[2] * x.shape[3] >= remat_min_hw:
+                return checkpoint(blk, x, *args, use_reentrant=False,
+                                  preserve_rng_state=False)
+            return blk(x, *args)
+
         b = sample.shape[0]
         timesteps = torch.as_tensor(timesteps, device=sample.device)
         if timesteps.dim() == 0:
@@ -132,16 +150,16 @@ class UNet3DConditionModel(nn.Module):
                                    cfg.flip_sin_to_cos, cfg.freq_shift).to(dtype)
         temb = self.time_embedding(t_emb)
 
-        x = self.conv_in(sample)
+        x = self.conv_in(sample, train)
         skips = [x]
         for i, blk in enumerate(self.down_blocks):
             if isinstance(blk, CrossAttnDownBlock3D):
-                x, states = blk(x, temb, context, level_bias[i])
+                x, states = run(blk, x, temb, context, level_bias[i], train)
             else:
-                x, states = blk(x, temb)
+                x, states = run(blk, x, temb, train)
             skips += states
 
-        x = self.mid_block(x, temb, context, level_bias[-1])
+        x = run(self.mid_block, x, temb, context, level_bias[-1], train)
 
         n_up = cfg.layers_per_block + 1
         for i, blk in enumerate(self.up_blocks):
@@ -151,10 +169,10 @@ class UNet3DConditionModel(nn.Module):
             # not halve evenly: 5 -> 9 -> 18 -> 36)
             size = tuple(skips[-1].shape[2:4]) if i < n - 1 else None
             if isinstance(blk, CrossAttnUpBlock3D):
-                x = blk(x, res, temb, context, level_bias[n - 1 - i], size)
+                x = run(blk, x, res, temb, context, level_bias[n - 1 - i], size, train)
             else:
-                x = blk(x, res, temb, size)
+                x = run(blk, x, res, temb, size, train)
 
         x = F.silu(group_norm(x, cfg.norm_num_groups, self.conv_norm_out.weight,
                               self.conv_norm_out.bias, cfg.norm_eps))
-        return self.conv_out(x)
+        return self.conv_out(x, train)

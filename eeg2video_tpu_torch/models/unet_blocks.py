@@ -31,13 +31,13 @@ class CrossAttnDownBlock3D(nn.Module):
         self.downsamplers = nn.ModuleList(
             [Downsample3D(out_ch)] if add_downsample else [])
 
-    def forward(self, x, temb, context, attention_bias=None):
+    def forward(self, x, temb, context, attention_bias=None, train=False):
         states = []
         for resnet, attn in zip(self.resnets, self.attentions):
-            x = attn(resnet(x, temb), context, attention_bias)
+            x = attn(resnet(x, temb, train=train), context, attention_bias, train)
             states.append(x)
         for down in self.downsamplers:
-            x = down(x)
+            x = down(x, train)
             states.append(x)
         return x, states
 
@@ -52,13 +52,13 @@ class DownBlock3D(nn.Module):
         self.downsamplers = nn.ModuleList(
             [Downsample3D(out_ch)] if add_downsample else [])
 
-    def forward(self, x, temb):
+    def forward(self, x, temb, train=False):
         states = []
         for resnet in self.resnets:
-            x = resnet(x, temb)
+            x = resnet(x, temb, train=train)
             states.append(x)
         for down in self.downsamplers:
-            x = down(x)
+            x = down(x, train)
             states.append(x)
         return x, states
 
@@ -71,10 +71,10 @@ class UNetMidBlock3DCrossAttn(nn.Module):
         self.attentions = nn.ModuleList(
             [_transformer(ch, heads, context_dim, groups)])
 
-    def forward(self, x, temb, context, attention_bias=None):
-        x = self.resnets[0](x, temb)
-        return self.resnets[1](self.attentions[0](x, context, attention_bias),
-                               temb)
+    def forward(self, x, temb, context, attention_bias=None, train=False):
+        x = self.resnets[0](x, temb, train=train)
+        return self.resnets[1](self.attentions[0](x, context, attention_bias, train),
+                               temb, train=train)
 
 
 def _up_resnets(prev_ch, out_ch, skip_chs, temb_ch, groups, eps):
@@ -94,12 +94,13 @@ class CrossAttnUpBlock3D(nn.Module):
         self.upsamplers = nn.ModuleList([Upsample3D(out_ch)] if add_upsample else [])
 
     def forward(self, x, skips, temb, context, attention_bias=None,
-                upsample_size=None):
+                upsample_size=None, train=False):
         skips = list(skips)
         for resnet, attn in zip(self.resnets, self.attentions):
-            x = attn(resnet(x, temb, skip=skips.pop()), context, attention_bias)
+            x = attn(resnet(x, temb, skip=skips.pop(), train=train), context,
+                     attention_bias, train)
         for up in self.upsamplers:
-            x = up(x, upsample_size)
+            x = up(x, upsample_size, train)
         return x
 
 
@@ -110,10 +111,10 @@ class UpBlock3D(nn.Module):
         self.resnets = _up_resnets(prev_ch, out_ch, skip_chs, temb_ch, groups, eps)
         self.upsamplers = nn.ModuleList([Upsample3D(out_ch)] if add_upsample else [])
 
-    def forward(self, x, skips, temb, upsample_size=None):
+    def forward(self, x, skips, temb, upsample_size=None, train=False):
         skips = list(skips)
         for resnet in self.resnets:
-            x = resnet(x, temb, skip=skips.pop())
+            x = resnet(x, temb, skip=skips.pop(), train=train)
         for up in self.upsamplers:
-            x = up(x, upsample_size)
+            x = up(x, upsample_size, train)
         return x

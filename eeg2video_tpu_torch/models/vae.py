@@ -1,9 +1,10 @@
-"""AutoencoderKL decoder (Stable-Diffusion VAE), channels-last, plain PyTorch.
+"""AutoencoderKL (Stable-Diffusion VAE), channels-last, plain PyTorch.
 
-Counterpart of ``eeg2video_tpu/models/vae.py``: ``post_quant_conv`` and the
-decoder. The encoder is not ported yet, so ``vae_state_dict_from_jax``
-leaves out its keys. All convs run on cuDNN, as the JAX package leaves the
-VAE to XLA. Latents (N, h, w, 4) -> images (N, 8h, 8w, 3) in about [-1, 1].
+Counterpart of ``eeg2video_tpu/models/vae.py``: encoder + ``quant_conv``
+(``encode``: the posterior's mean and clipped log-variance) and
+``post_quant_conv`` + decoder (``decode``). All convs run on cuDNN, as the
+JAX package leaves the VAE to XLA. Images (N, H, W, 3) in about [-1, 1],
+latents (N, H/8, W/8, 4).
 """
 
 from __future__ import annotations
@@ -121,6 +122,55 @@ class UpDecoderBlock(nn.Module):
         return x
 
 
+class Downsample2D(nn.Module):
+    """diffusers Downsample2D: pad one row below and one column right, then a
+    stride-2 3x3 conv without padding (vae.py:96-100)."""
+
+    def __init__(self, ch):
+        super().__init__()
+        self.conv = nn.Conv2d(ch, ch, 3, stride=2, padding=0)
+
+    def forward(self, x):
+        return _conv(self.conv, F.pad(x, (0, 0, 0, 1, 0, 1)))
+
+
+class DownEncoderBlock(nn.Module):
+    def __init__(self, in_ch, out_ch, n_layers, groups, add_downsample):
+        super().__init__()
+        self.resnets = nn.ModuleList(
+            [VAEResnet(in_ch if j == 0 else out_ch, out_ch, groups)
+             for j in range(n_layers)])
+        self.downsamplers = nn.ModuleList([Downsample2D(out_ch)] if add_downsample else [])
+
+    def forward(self, x):
+        for r in self.resnets:
+            x = r(x)
+        for d in self.downsamplers:
+            x = d(x)
+        return x
+
+
+class Encoder(nn.Module):
+    def __init__(self, cfg: VAEConfig):
+        super().__init__()
+        g = self.groups = cfg.norm_num_groups
+        chs = cfg.block_out_channels
+        self.conv_in = nn.Conv2d(cfg.sample_channels, chs[0], 3, padding=1)
+        self.down_blocks = nn.ModuleList(
+            [DownEncoderBlock(chs[max(i - 1, 0)], ch, cfg.layers_per_block, g,
+                              i < len(chs) - 1) for i, ch in enumerate(chs)])
+        self.mid_block = MidBlock(chs[-1], g)
+        self.conv_norm_out = nn.GroupNorm(g, chs[-1], eps=1e-6)
+        self.conv_out = nn.Conv2d(chs[-1], 2 * cfg.latent_channels, 3, padding=1)
+
+    def forward(self, x):
+        h = _conv(self.conv_in, x)
+        for blk in self.down_blocks:
+            h = blk(h)
+        h = self.mid_block(h)
+        return _conv(self.conv_out, _gn_silu(h, self.conv_norm_out, self.groups))
+
+
 class Decoder(nn.Module):
     def __init__(self, cfg: VAEConfig):
         super().__init__()
@@ -142,14 +192,22 @@ class Decoder(nn.Module):
 
 
 class AutoencoderKL(nn.Module):
-    """The VAE's decoding half: ``post_quant_conv`` + decoder."""
-
     def __init__(self, config: VAEConfig = VAEConfig()):
         super().__init__()
         self.config = config
+        self.encoder = Encoder(config)
         self.decoder = Decoder(config)
+        self.quant_conv = nn.Conv2d(2 * config.latent_channels,
+                                    2 * config.latent_channels, 1)
         self.post_quant_conv = nn.Conv2d(config.latent_channels,
                                          config.latent_channels, 1)
+
+    def encode(self, x):
+        """(N, H, W, 3) -> the posterior's (mean, logvar), each (N, H/8, W/8,
+        latent_channels); logvar clipped to [-30, 20] as diffusers'
+        DiagonalGaussianDistribution does."""
+        mean, logvar = _conv(self.quant_conv, self.encoder(x)).chunk(2, dim=-1)
+        return mean, logvar.clamp(-30.0, 20.0)
 
     def decode(self, z):
         return self.decoder(_conv(self.post_quant_conv, z))

@@ -37,14 +37,22 @@ F = ctypes.c_float
 # C signatures of the entry points (argtypes; every restype is int)
 SIGNATURES = {
     "e2v_flash_attention_fwd": [P, LL, LL, P, LL, P, LL, P, LL, LL, P, LL, LL,
-                                P, P, LL, LL, I, I, I, I, I, I, I, F, P],
+                                P, P, LL, LL, I, I, I, I, I, I, I, F, P, P],
+    "e2v_flash_attention_bwd": [ctypes.POINTER(P), ctypes.POINTER(LL),
+                                ctypes.POINTER(I), F, P],
+    "e2v_temporal_attention_fwd": [P, P, P, P, LL, LL, I, I, I, I, I, F, P],
+    "e2v_temporal_attention_bwd": [P, P, P, P, P, P, P, LL, LL, I, I, I, I, I, F, P],
     "e2v_ff_ln": [P, P, P, P, P, P, P, P, I, I, I, F, P],
+    "e2v_ff_ln_bwd": [P, P, P, P, P, P, P, P, I, I, I, F, P],
     "e2v_geglu_out": [P, P, P, P, I, I, I, P],
+    "e2v_geglu_out_bwd": [P, P, P, P, I, I, I, P],
     "e2v_conv3x3": [P, P, P, P, P, P, P, P, I, I, I, I, I, P],
     "e2v_int8_dense": [P, P, P, P, P, P, P, I, I, I, I, I, I, P],
 }
 
-launches = {"flash_attention_fwd": 0, "ff_ln": 0, "geglu_out": 0,
+launches = {"flash_attention_fwd": 0, "flash_attention_bwd": 0,
+            "temporal_attention_fwd": 0, "temporal_attention_bwd": 0,
+            "ff_ln": 0, "ff_ln_bwd": 0, "geglu_out": 0, "geglu_out_bwd": 0,
             "conv3x3_gn_silu": 0, "int8_dense": 0}
 
 _lib = None

@@ -1,5 +1,6 @@
-"""Packed multi-head attention: ``flash_attention_fwd`` (CUDA kernel 1) and
-its plain PyTorch version.
+"""Packed multi-head attention: ``flash_attention_fwd`` and
+``flash_attention_bwd`` (CUDA kernels), their plain PyTorch versions, and the
+differentiable ``flash_attention`` over both.
 
 Counterpart of ``eeg2video_tpu/ops/attention.py``: ``fused_attention_packed``
 (one KV segment) and ``fused_attention_dual`` (sparse-causal [K0 | K_prev])
@@ -7,18 +8,25 @@ are one function here, because both compute one softmax over one or two KV
 segments. Operands stay packed (., L, H*D) channels-minor, as the to_q/k/v
 projections produce them; head h is columns h*D .. (h+1)*D.
 
-Layouts: ``q`` is (N, Lq, H*D), or (b, m, Lq, H*D) for the two-segment
-sparse-causal call (m query frames per batch element). ``k0``/``v0`` are
-(b, Lkv0, H*D), shared by the m frames of batch element n // m. ``k1``/``v1``
-are optional and per query group: (N, Lkv1, H*D) or (b, m, Lkv1, H*D).
-``bias0`` is an optional (b, 1, Lkv0) additive bias on segment 0 only,
-shared across heads and query rows. Any outer strides are accepted as long
-as each row is H*D contiguous values, so frame slices of a (B, F, L, H*D)
-projection go to the kernel without copies.
+Layouts: ``q`` is (N, Lq, H*D), or (b, m, Lq, H*D) when m query groups share
+one K0/V0 (the sparse-causal calls: m frames per batch element). ``k0``/``v0``
+are (b, Lkv0, H*D), shared by the m groups of batch element n // m.
+``k1``/``v1`` are optional and per query group: (N, Lkv1, H*D) or
+(b, m, Lkv1, H*D). ``bias0`` is an optional (b, 1, Lkv0) additive bias on
+segment 0 only, shared across heads and query rows. Any outer strides are
+accepted as long as each row is H*D contiguous values, so frame slices of a
+(B, F, L, H*D) projection go to the kernels without copies.
+
+The backward takes what the forward saved (q, k, v, out and the row
+log-sum-exp ``lse`` (N, H, Lq), f32, natural log) and returns dq, dk0, dv0
+(summed over the m groups that shared K0/V0) and dk1, dv1. A bias is used in
+the score recompute; its own gradient is not computed (``flash_attention``
+raises if it requires one).
 """
 
 from __future__ import annotations
 
+import ctypes
 import math
 
 import torch
@@ -26,6 +34,7 @@ import torch
 from . import _build
 
 KERNEL = "flash_attention_fwd"
+KERNEL_BWD = "flash_attention_bwd"
 
 
 def _as4(t, m):
@@ -35,82 +44,149 @@ def _as4(t, m):
     return t.unflatten(0, (t.shape[0] // m, m))
 
 
-def flash_attention_plain(q, k0, v0, heads, *, k1=None, v1=None, bias0=None,
-                          scale=None):
-    """The same function in plain PyTorch: materializes the KV concat and
-    the (Lq, Lkv) probabilities, computes in f32, returns q's dtype."""
-    m = q.shape[1] if q.dim() == 4 else 1
-    q4 = _as4(q, m)
-    b, _, lq, hd = q4.shape
-    d = hd // heads
-    if scale is None:
-        scale = 1.0 / math.sqrt(d)
+def _groups(q):
+    return q.shape[1] if q.dim() == 4 else 1
+
+
+def _heads_split(t, heads):
+    """(b, m, n, H*D) -> (b, m, H, n, D)"""
+    b, m, n, hd = t.shape
+    return t.reshape(b, m, n, heads, hd // heads).transpose(2, 3)
+
+
+def _plain_logits(q4, k0, k1, heads, bias0, scale):
+    """f32 logits (b, m, H, Lq, Lkv0 + Lkv1) and the concatenated keys."""
+    b, m, _, hd = q4.shape
     lkv0 = k0.shape[1]
     k = k0.float()[:, None].expand(b, m, lkv0, hd)
-    v = v0.float()[:, None].expand(b, m, lkv0, hd)
     if k1 is not None:
         k = torch.cat([k, _as4(k1, m).float()], dim=2)
-        v = torch.cat([v, _as4(v1, m).float()], dim=2)
-    lkv = k.shape[2]
-
-    def split(t, n):
-        return t.reshape(b, m, n, heads, d).transpose(2, 3)  # (b, m, H, n, D)
-
-    logits = split(q4.float(), lq) @ split(k, lkv).transpose(-1, -2) * scale
+    logits = _heads_split(q4.float(), heads) @ _heads_split(k, heads).transpose(-1, -2) * scale
     if bias0 is not None:
-        bias = bias0.float().reshape(b, 1, 1, 1, lkv0)
-        logits[..., :lkv0] += bias
-    out = torch.softmax(logits, dim=-1) @ split(v, lkv)  # (b, m, H, Lq, D)
+        logits[..., :lkv0] += bias0.float().reshape(b, 1, 1, 1, lkv0)
+    return logits, k
+
+
+def flash_attention_plain(q, k0, v0, heads, *, k1=None, v1=None, bias0=None,
+                          scale=None, return_lse=False):
+    """The same function in plain PyTorch: materializes the KV concat and
+    the (Lq, Lkv) probabilities, computes in f32, returns q's dtype (and,
+    with ``return_lse``, the f32 (N, H, Lq) log-sum-exp of the logits)."""
+    m = _groups(q)
+    q4 = _as4(q, m)
+    b, _, lq, hd = q4.shape
+    if scale is None:
+        scale = 1.0 / math.sqrt(hd // heads)
+    logits, _ = _plain_logits(q4, k0, k1, heads, bias0, scale)
+    v = v0.float()[:, None].expand(b, m, v0.shape[1], hd)
+    if v1 is not None:
+        v = torch.cat([v, _as4(v1, m).float()], dim=2)
+    out = torch.softmax(logits, dim=-1) @ _heads_split(v, heads)  # (b, m, H, Lq, D)
     out = out.transpose(2, 3).reshape(b, m, lq, hd).to(q.dtype)
-    return out if q.dim() == 4 else out.reshape(q.shape)
+    out = out if q.dim() == 4 else out.reshape(q.shape)
+    if return_lse:
+        return out, torch.logsumexp(logits, dim=-1).reshape(b * m, heads, lq)
+    return out
 
 
-def flash_attention_fwd(q, k0, v0, heads, *, k1=None, v1=None, bias0=None,
-                        scale=None, out=None):
-    """softmax(scale q [K0 | K1]^T + [bias0 | 0]) [V0 | V1] per head.
+def flash_attention_bwd_plain(q, k0, v0, heads, dout, out, lse, *, k1=None,
+                              v1=None, bias0=None, scale=None):
+    """The backward's written-out formula in plain PyTorch, f32, from the
+    same residuals the kernel takes: p = exp(logits - lse), delta =
+    rowsum(dout * out), dv = p^T dout, ds = p (dout v^T - delta) scale,
+    dq = ds k, dk = ds^T q; dk0/dv0 summed over the m groups. Returns
+    (dq, dk0, dv0, dk1, dv1) in the operands' dtype and shapes."""
+    m = _groups(q)
+    q4 = _as4(q, m)
+    b, _, lq, hd = q4.shape
+    if scale is None:
+        scale = 1.0 / math.sqrt(hd // heads)
+    lkv0 = k0.shape[1]
+    logits, k = _plain_logits(q4, k0, k1, heads, bias0, scale)
+    v = v0.float()[:, None].expand(b, m, lkv0, hd)
+    if v1 is not None:
+        v = torch.cat([v, _as4(v1, m).float()], dim=2)
+    p = torch.exp(logits - lse.float().reshape(b, m, heads, lq, 1))
+    qh, kh, vh = (_heads_split(t, heads) for t in (q4.float(), k, v))
+    doh = _heads_split(_as4(dout, m).float(), heads)
+    delta = (doh * _heads_split(_as4(out, m).float(), heads)).sum(dim=-1, keepdim=True)
+    ds = p * (doh @ vh.transpose(-1, -2) - delta) * scale
 
-    A CUDA tensor launches the kernel (bf16 operands); a CPU tensor takes
-    ``flash_attention_plain``. ``out`` is an optional preallocated output
-    (a view with q's shape and row layout) that receives the result."""
-    if not q.is_cuda:
-        res = flash_attention_plain(q, k0, v0, heads, k1=k1, v1=v1,
-                                    bias0=bias0, scale=scale)
-        return res if out is None else out.copy_(res)
-    m = q.shape[1] if q.dim() == 4 else 1
+    def merge(t):  # (b, m, H, n, D) -> (b, m, n, H*D)
+        return t.transpose(2, 3).reshape(b, m, t.shape[3], hd)
+
+    dq = merge(ds @ kh).to(q.dtype).reshape(q.shape)
+    dk, dv = merge(ds.transpose(-1, -2) @ qh), merge(p.transpose(-1, -2) @ doh)
+    dk0, dv0 = (t[:, :, :lkv0].sum(dim=1).to(k0.dtype) for t in (dk, dv))
+    if k1 is None:
+        return dq, dk0, dv0, None, None
+    dk1, dv1 = (t[:, :, lkv0:].to(k1.dtype).reshape(k1.shape) for t in (dk, dv))
+    return dq, dk0, dv0, dk1, dv1
+
+
+def _kernel_views(kernel, q, k0, v0, k1, v1, heads, extra=()):
+    """4-D views of the operands for the kernels, after the layout checks.
+    ``extra``: more tensors with q's shape (out, dout) to view and check."""
+    m = _groups(q)
     hd = q.shape[-1]
     d = hd // heads
-    if scale is None:
-        scale = 1.0 / math.sqrt(d)
     q4 = _as4(q, m)
     b, _, lq, _ = q4.shape
-    if out is None:
-        out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
-    o4 = _as4(out, m)
     k04, v04 = k0[:, None], v0[:, None]
-    tensors = [q4, k04, v04, o4]
+    like_q = [_as4(t, m) for t in extra]
+    tensors = [q4, k04, v04, *like_q]
+    k14 = v14 = None
     if k1 is not None:
         k14, v14 = _as4(k1, m), _as4(v1, m)
         tensors += [k14, v14]
     req = _build.require
-    req(heads * d == hd and d % 8 == 0 and d <= 160, KERNEL,
+    req(heads * d == hd and d % 8 == 0 and d <= 160, kernel,
         f"head_dim {d} must be a multiple of 8 and <= 160")
     for t in tensors:
-        req(t.is_cuda and t.dtype == torch.bfloat16, KERNEL,
+        req(t.is_cuda and t.dtype == torch.bfloat16, kernel,
             "operands must be bf16 CUDA tensors")
         req(t.shape[-1] == hd and t.stride(-1) == 1 and t.stride(-2) == hd,
-            KERNEL, "rows must be H*D contiguous values")
+            kernel, "rows must be H*D contiguous values")
         req(t.shape[0] == b and t.stride(0) % 8 == 0 and t.stride(1) % 8 == 0
-            and t.data_ptr() % 16 == 0, KERNEL,
+            and t.data_ptr() % 16 == 0, kernel,
             "outer strides must keep 16-byte row alignment")
-    req(o4.shape == q4.shape, KERNEL, "out must have q's shape")
+    for t in like_q:
+        req(t.shape == q4.shape, kernel, "out and dout must have q's shape")
     if k1 is not None:
-        req(k14.shape[:2] == (b, m) and v14.shape == k14.shape, KERNEL,
+        req(k14.shape[:2] == (b, m) and v14.shape == k14.shape, kernel,
             "k1/v1 must be (b, m, Lkv1, H*D)")
-    req(k0.shape[0] == b and v0.shape == k0.shape, KERNEL,
+    req(k0.shape[0] == b and v0.shape == k0.shape, kernel,
         "k0/v0 must be (b, Lkv0, H*D)")
-    bias = None
-    if bias0 is not None:
-        bias = bias0.float().reshape(b, k0.shape[1]).contiguous()
+    return m, b, lq, d, q4, k04, v04, k14, v14, like_q
+
+
+def _bias_rows(bias0, b, lkv0):
+    return None if bias0 is None else bias0.float().reshape(b, lkv0).contiguous()
+
+
+def flash_attention_fwd(q, k0, v0, heads, *, k1=None, v1=None, bias0=None,
+                        scale=None, out=None, return_lse=False):
+    """softmax(scale q [K0 | K1]^T + [bias0 | 0]) [V0 | V1] per head.
+
+    A CUDA tensor launches the kernel (bf16 operands); a CPU tensor takes
+    ``flash_attention_plain``. ``out`` is an optional preallocated output
+    (a view with q's shape and row layout) that receives the result. With
+    ``return_lse`` the f32 (N, H, Lq) row log-sum-exp comes back as well."""
+    if not q.is_cuda:
+        res = flash_attention_plain(q, k0, v0, heads, k1=k1, v1=v1, bias0=bias0,
+                                    scale=scale, return_lse=return_lse)
+        if out is None:
+            return res
+        return (out.copy_(res[0]), res[1]) if return_lse else out.copy_(res)
+    if out is None:
+        out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    m, b, lq, d, q4, k04, v04, k14, v14, (o4,) = _kernel_views(
+        KERNEL, q, k0, v0, k1, v1, heads, extra=(out,))
+    if scale is None:
+        scale = 1.0 / math.sqrt(d)
+    bias = _bias_rows(bias0, b, k0.shape[1])
+    lse = (torch.empty((b * m, heads, lq), dtype=torch.float32, device=q.device)
+           if return_lse else None)
     lib = _build.library()
     if k1 is None:
         seg1 = (None, 0, 0, None, 0, 0)
@@ -122,7 +198,85 @@ def flash_attention_fwd(q, k0, v0, heads, *, k1=None, v1=None, bias0=None,
         k04.data_ptr(), k04.stride(0), v04.data_ptr(), v04.stride(0),
         *seg1, _build.ptr(bias), o4.data_ptr(), o4.stride(0), o4.stride(1),
         b * m, m, lq, k0.shape[1], 0 if k1 is None else k1.shape[-2],
-        heads, d, float(scale), _build.stream_of(q))
+        heads, d, float(scale), _build.ptr(lse), _build.stream_of(q))
     _build.check(rc, KERNEL)
     _build.launches[KERNEL] += 1
-    return out
+    return (out, lse) if return_lse else out
+
+
+def flash_attention_bwd(q, k0, v0, heads, dout, out, lse, *, k1=None, v1=None,
+                        bias0=None, scale=None):
+    """(dq, dk0, dv0, dk1, dv1) of ``flash_attention_fwd`` from its operands,
+    its output, its ``lse`` and the output's gradient. A CUDA tensor launches
+    the kernel (bf16 operands, f32 lse); a CPU tensor takes
+    ``flash_attention_bwd_plain``."""
+    if not q.is_cuda:
+        return flash_attention_bwd_plain(q, k0, v0, heads, dout, out, lse, k1=k1,
+                                         v1=v1, bias0=bias0, scale=scale)
+    if dout.stride(-1) != 1 or dout.stride(-2) != dout.shape[-1]:
+        dout = dout.contiguous()
+    m, b, lq, d, q4, k04, v04, k14, v14, (do4, o4) = _kernel_views(
+        KERNEL_BWD, q, k0, v0, k1, v1, heads, extra=(dout, out))
+    if scale is None:
+        scale = 1.0 / math.sqrt(d)
+    n = b * m
+    req = _build.require
+    req(lse.is_cuda and lse.dtype == torch.float32 and lse.shape == (n, heads, lq)
+        and lse.is_contiguous(), KERNEL_BWD, "lse must be a contiguous f32 (N, H, Lq)")
+    bias = _bias_rows(bias0, b, k0.shape[1])
+    dev = q.device
+    delta = torch.empty_like(lse)
+    dq = torch.empty(q.shape, dtype=q.dtype, device=dev)
+    dk0, dv0 = torch.empty_like(k0, memory_format=torch.contiguous_format), \
+        torch.empty_like(v0, memory_format=torch.contiguous_format)
+    dk1 = dv1 = None
+    if k1 is not None:
+        dk1 = torch.empty(k1.shape, dtype=k1.dtype, device=dev)
+        dv1 = torch.empty(v1.shape, dtype=v1.dtype, device=dev)
+    ptrs = [q4, k04, v04, k14, v14, do4, o4, lse, bias, delta, dq, dk0, dv0, dk1, dv1]
+    strides = [q4.stride(0), q4.stride(1), do4.stride(0), do4.stride(1),
+               o4.stride(0), o4.stride(1), k04.stride(0), v04.stride(0)]
+    strides += [0, 0, 0, 0] if k1 is None else [k14.stride(0), k14.stride(1),
+                                                v14.stride(0), v14.stride(1)]
+    dims = [n, m, lq, k0.shape[1], 0 if k1 is None else k1.shape[-2], heads, d]
+    rc = _build.library().e2v_flash_attention_bwd(
+        (ctypes.c_void_p * len(ptrs))(*[_build.ptr(t) for t in ptrs]),
+        (ctypes.c_longlong * len(strides))(*strides),
+        (ctypes.c_int * len(dims))(*dims), float(scale), _build.stream_of(q))
+    _build.check(rc, KERNEL_BWD)
+    _build.launches[KERNEL_BWD] += 1
+    return dq, dk0, dv0, dk1, dv1
+
+
+class _FlashAttention(torch.autograd.Function):
+    """``flash_attention_fwd`` with lse saved, ``flash_attention_bwd`` behind."""
+
+    @staticmethod
+    def forward(ctx, q, k0, v0, k1, v1, bias0, heads, scale):
+        out, lse = flash_attention_fwd(q, k0, v0, heads, k1=k1, v1=v1, bias0=bias0,
+                                       scale=scale, return_lse=True)
+        ctx.save_for_backward(q, k0, v0, k1, v1, bias0, out, lse)
+        ctx.heads, ctx.scale = heads, scale
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k0, v0, k1, v1, bias0, out, lse = ctx.saved_tensors
+        dq, dk0, dv0, dk1, dv1 = flash_attention_bwd(
+            q, k0, v0, ctx.heads, dout, out, lse, k1=k1, v1=v1, bias0=bias0,
+            scale=ctx.scale)
+        return dq, dk0, dv0, dk1, dv1, None, None, None
+
+
+def flash_attention(q, k0, v0, heads, *, k1=None, v1=None, bias0=None, scale=None):
+    """Differentiable attention: ``flash_attention_fwd`` where no operand
+    asks for a gradient, else the forward with lse and the backward kernel
+    behind one ``autograd.Function``."""
+    operands = [t for t in (q, k0, v0, k1, v1) if t is not None]
+    if not (torch.is_grad_enabled() and any(t.requires_grad for t in operands)):
+        return flash_attention_fwd(q, k0, v0, heads, k1=k1, v1=v1, bias0=bias0,
+                                   scale=scale)
+    if bias0 is not None and bias0.requires_grad:
+        raise NotImplementedError(
+            "flash_attention: the gradient of bias0 (dbias) is not ported")
+    return _FlashAttention.apply(q, k0, v0, k1, v1, bias0, heads, scale)

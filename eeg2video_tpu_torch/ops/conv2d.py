@@ -4,6 +4,12 @@ its plain PyTorch version.
 Counterpart of ``eeg2video_tpu/ops/conv2d.py`` (``fused_conv3x3_t`` and
 ``fused_conv3x3_t_stats``). NHWC activations; the weight is the PyTorch
 (Cout, Cin, 3, 3) Conv2d weight.
+
+Inference only: with ``train=True`` the resnets take the library convolution
+(``models.resnet3d``; the JAX package's ``use1/use2 = not train and ...``,
+resnet3d.py:227-238, 262, 297, whose kernel has a plain XLA backward), so a
+train step launches this kernel 0 times, no backward kernel exists for it,
+and the wrapper is not differentiable.
 """
 
 from __future__ import annotations

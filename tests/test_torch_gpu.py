@@ -8,16 +8,17 @@ imports torch and the port only, so it runs on a machine without jax:
 (``--noconftest`` because tests/conftest.py sets up the JAX CPU mesh).
 The shapes are small and ragged on purpose: KV and query tails, head dims
 8 and 40 (padded to 16 and 48 in shared memory), channel counts that do not
-fill a tile. chip_smoke.py checks the generation path's own shapes.
+fill a tile. chip_smoke.py checks the main paths' own shapes.
 Bound: max |kernel - plain| / max |plain| < 1e-2, the plain version in f32
 on the same bf16 inputs (bf16 rounding of the output and of the in-kernel
-bf16 intermediates).
+bf16 intermediates). The backward kernels are held to the same bound, each
+gradient against the plain backward's on the same residuals.
 """
 
 import pytest
 import torch
 
-from eeg2video_tpu_torch.ops import attention, conv2d, geglu, int8_dense
+from eeg2video_tpu_torch.ops import attention, conv2d, geglu, int8_dense, temporal
 
 BOUND = 1e-2
 
@@ -61,6 +62,115 @@ def test_flash_attention_matches_plain(gen, n, lq, lkv, hd, heads, bias, two_seg
     want = attention.flash_attention_plain(q32, k032, v032, heads, k1=k132, v1=v132,
                                            bias0=b0)
     assert _err(out, want) < BOUND
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,m,lq,lkv0,lkv1,hd,heads,bias", [
+    (2, 1, 70, 77, 0, 64, 8, False),     # D = 8, one segment, query and KV tails
+    (2, 1, 300, 130, 0, 320, 8, True),   # D = 40 (padded to 48), bias in the recompute
+    (2, 3, 100, 100, 90, 128, 8, True),  # D = 16, two segments, dk0 summed over m = 3
+    (1, 2, 130, 64, 0, 320, 2, False),   # D = 160, m = 2 groups on one shared segment
+])
+def test_flash_attention_lse_and_backward_match_plain(gen, n, m, lq, lkv0, lkv1, hd, heads,
+                                                      bias):
+    q = _rand(gen, n, m, lq, hd) if m > 1 else _rand(gen, n, lq, hd)
+    k0, v0 = _rand(gen, n, lkv0, hd), _rand(gen, n, lkv0, hd)
+    k1 = _rand(gen, n, m, lkv1, hd) if lkv1 else None
+    v1 = _rand(gen, n, m, lkv1, hd) if lkv1 else None
+    b0 = _rand(gen, n, 1, lkv0, scale=2.0, dtype=torch.float32) if bias else None
+    dout = _rand(gen, *q.shape)
+    out, lse = attention.flash_attention_fwd(q, k0, v0, heads, k1=k1, v1=v1, bias0=b0,
+                                             return_lse=True)
+    q32, k032, v032, k132, v132 = _f32([q, k0, v0, k1, v1])
+    want, want_lse = attention.flash_attention_plain(q32, k032, v032, heads, k1=k132,
+                                                     v1=v132, bias0=b0, return_lse=True)
+    assert _err(out, want) < BOUND
+    assert (lse - want_lse).abs().max().item() < 1e-3  # f32 both sides, absolute
+    got = attention.flash_attention_bwd(q, k0, v0, heads, dout, out, lse, k1=k1, v1=v1,
+                                        bias0=b0)
+    ref = attention.flash_attention_bwd_plain(q32, k032, v032, heads, dout.float(),
+                                              out.float(), lse, k1=k132, v1=v132, bias0=b0)
+    for g, r in zip(got, ref):
+        assert (g is None) == (r is None)
+        if g is not None:
+            assert g.shape == r.shape and _err(g, r) < BOUND
+    again = attention.flash_attention_bwd(q, k0, v0, heads, dout, out, lse, k1=k1, v1=v1,
+                                          bias0=b0)
+    assert all(a is None or torch.equal(a, b) for a, b in zip(again, got))  # no atomics
+
+
+@pytest.mark.gpu
+def test_flash_attention_function_takes_strided_frame_slices(gen):
+    """The differentiable call on frame slices of one (B, F, L, H*D) projection, as the
+    sparse-causal attention makes it: gradients against autograd through the plain version."""
+    b, f, l, hd, heads = 2, 4, 70, 64, 8
+    qkv = [_rand(gen, b, f, l, hd).requires_grad_() for _ in range(3)]
+    ref = [t.detach().float().requires_grad_() for t in qkv]
+
+    def run(fn, q, k, v):
+        return fn(q[:, 2:], k[:, 0], v[:, 0], heads, k1=k[:, 1:-1], v1=v[:, 1:-1])
+
+    out = run(attention.flash_attention, *qkv)
+    want = run(attention.flash_attention_plain, *ref)
+    dout = _rand(gen, *out.shape)
+    got = torch.autograd.grad(out, qkv, dout)
+    wanted = torch.autograd.grad(want, ref, dout.float())
+    assert _err(out, want) < BOUND
+    for g, w in zip(got, wanted):
+        assert _err(g, w) < BOUND
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,f,l,hd,heads", [
+    (2, 6, 50, 320, 8),   # D = 40: two values per lane
+    (1, 3, 33, 32, 4),    # D = 8 over 8 lanes: one value per lane
+    (2, 2, 7, 1280, 8),   # D = 160
+    (1, 8, 5, 64, 8),     # F = 8
+])
+def test_temporal_attention_matches_plain(gen, b, f, l, hd, heads):
+    q, k, v, dout = (_rand(gen, b, f, l, hd) for _ in range(4))
+    out = temporal.temporal_attention_fwd(q, k, v, heads)
+    assert _err(out, temporal.temporal_attention_plain(*_f32([q, k, v]), heads)) < BOUND
+    got = temporal.temporal_attention_bwd(q, k, v, dout, heads)
+    want = temporal.temporal_attention_bwd_plain(*_f32([q, k, v, dout]), heads)
+    for g, w in zip(got, want):
+        assert _err(g, w) < BOUND
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("t,c", [(100, 64), (37, 128), (70, 640)])
+def test_ff_ln_bwd_matches_plain(gen, t, c):
+    i = 4 * c
+    args = [_rand(gen, t, c), _rand(gen, t, c), 1.0 + 0.05 * _rand(gen, c, dtype=torch.float32),
+            0.02 * _rand(gen, c, dtype=torch.float32), _rand(gen, 2 * i, c, scale=c ** -0.5),
+            0.02 * _rand(gen, 2 * i, dtype=torch.float32), _rand(gen, c, i, scale=i ** -0.5)]
+    assert _err(geglu.ff_ln_bwd(*args), geglu.ff_ln_bwd_plain(*_f32(args))) < BOUND
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("t,i,c", [(50, 64, 32), (130, 200, 96)])
+def test_geglu_out_bwd_matches_plain(gen, t, i, c):
+    args = [_rand(gen, t, 2 * i), _rand(gen, t, c), _rand(gen, c, i, scale=i ** -0.5)]
+    assert _err(geglu.geglu_out_bwd(*args), geglu.geglu_out_bwd_plain(*_f32(args))) < BOUND
+
+
+@pytest.mark.gpu
+def test_feed_forward_functions_give_parameter_gradients_on_request(gen):
+    """Behind their autograd.Functions the kernels give dx; parameters that ask get their
+    gradient from plain ops, the others none."""
+    t, c = 64, 64
+    i = 4 * c
+    x = _rand(gen, t, c).requires_grad_()
+    params = [1.0 + 0.05 * _rand(gen, c), 0.02 * _rand(gen, c), _rand(gen, 2 * i, c, scale=c ** -0.5),
+              0.02 * _rand(gen, 2 * i), _rand(gen, c, i, scale=i ** -0.5), 0.02 * _rand(gen, c)]
+    params[4].requires_grad_()
+    out = geglu.ff_ln_function(x, *params)
+    dout = _rand(gen, t, c)
+    dx, dwo = torch.autograd.grad(out, [x, params[4]], dout)
+    ref = [t_.detach().float().requires_grad_(t_.requires_grad) for t_ in [x] + params]
+    wdx, wdwo = torch.autograd.grad(geglu.ff_ln_plain(*ref), [ref[0], ref[5]], dout.float())
+    assert _err(dx, wdx) < BOUND and _err(dwo, wdwo) < BOUND
+    assert all(p.grad is None for p in params)
 
 
 @pytest.mark.gpu

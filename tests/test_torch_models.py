@@ -317,9 +317,7 @@ def test_full_width_keys_and_shapes():
 
     vshapes = jax.eval_shape(
         lambda: JVAE(JVAEConfig()).init(jax.random.key(0), jnp.zeros((1, 16, 16, 3)))["params"])
-    vsd = {k: v for k, v in ed.vae_to_torch(_zero_stride(vshapes)).items()
-           if not k.startswith(("encoder.", "quant_conv."))}
-    _check_keys_and_shapes(vae, vsd)
+    _check_keys_and_shapes(vae, ed.vae_to_torch(_zero_stride(vshapes)))  # both halves
 
 
 def test_port_imports_no_jax():
