@@ -25,9 +25,24 @@ printed on its own line; any failure prints ``FAIL ...`` and exits 1:
    steps, with per-UNet-forward launch counts of every kernel;
 6. serve: the port's server, in-process, on ``--listen 127.0.0.1:0 --coalesce
    --max_batch 2 --semantic_int8 --sampler dpm++ --num_inference_steps 20
-   --gif_encoder native`` with the same pipeline and a hidden=10000 int8
-   semantic MLP; two client connections send feature and embedding requests,
-   ping, stats and shutdown; GIFs are read back and launch counts checked.
+   --gif_encoder native --torch_seq2seq <file> --seq2seq_scaler <file>
+   --flow_scores <table>`` with the
+   same pipeline, a hidden=10000 int8 semantic MLP and a full-size Seq2Seq
+   transformer; two client connections send feature and embedding requests,
+   then requests that carry only raw EEG (a (2, 62, 400) segment stack; a
+   whole (7, 40, 5, 62, 400) subject with one clip chosen; the woDANA and
+   woSeq2Seq ablations), ping, stats and shutdown; GIFs are read back and
+   launch counts checked; the file chain ``cli.inference_seq2seq_v2`` ->
+   ``cli.add_noise`` on the same subject gives the server's DANA latents bit
+   for bit; ``de_psd`` on the card against its float64 oracle;
+7. the ``fused_attention`` op: one differentiable call on (B, H, L, D)
+   operands, forward and backward launches counted;
+8. train parity and train: a narrow train step and ``mask.grad`` via the
+   kernels against the plain versions; ``cli.train_tuneavideo.train`` at full
+   width (three optimizer steps at batch 10, checkpoints, resume), one masked
+   forward/backward with a soft ``attention_mask`` that asks for a gradient
+   (the dbias launches counted), and ``cli.inference_eeg2video.main`` twice on
+   the checkpoint the trainer wrote (fresh-noise and DANA latents).
 
 The third-to-last line is a JSON object with one entry per kernel, then the
 ``nvidia-smi`` line; the last line is ``{"ok": true, "device": {...}}``.
@@ -71,9 +86,16 @@ EXPECTED_PER_TRAIN_STEP = {
     "flash_attention_fwd": 3 * _FWD_PASSES, "flash_attention_bwd": 3 * 16,
     "temporal_attention_fwd": _FWD_PASSES, "temporal_attention_bwd": 16,
     "ff_ln": 2 * 10, "ff_ln_bwd": 10, "geglu_out": 6, "geglu_out_bwd": 6,
-    "conv3x3_gn_silu": 0, "int8_dense": 0}
+    "conv3x3_gn_silu": 0, "int8_dense": 0,
+    "flash_attention_bwd_dbias": 0, "fused_attention_fwd": 0, "fused_attention_bwd": 0}
+# a masked step: of each block's three backward launches the self (frames
+# 0-1) and the two-segment (frames 2-5) call carry the mask's bias and write
+# its gradient; cross-attention has no bias
+EXPECTED_DBIAS_PER_MASKED_STEP = 2 * 16
 TRAIN_ONLY_KERNELS = ("flash_attention_bwd", "temporal_attention_fwd", "temporal_attention_bwd",
                       "ff_ln_bwd", "geglu_out_bwd")
+FUSED_OP_KERNELS = ("fused_attention_fwd", "fused_attention_bwd")
+DE_BOUND = 1e-3               # worst relative error of de_psd's psd against the f64 oracle
 INT8_LAYERS = 5               # int8_dense launches per 100-row chunk: fc0..fc3, out
 KERNEL_SOURCES = {
     "flash_attention_fwd": ("eeg2video_tpu_torch/csrc/flash_attention.cu",
@@ -81,8 +103,13 @@ KERNEL_SOURCES = {
                             ":566 _packed_dual_kernel"),
     "flash_attention_bwd": ("eeg2video_tpu_torch/csrc/flash_attention_bwd.cu",
                             "eeg2video_tpu/ops/attention.py:1021 _packed_dqkv_kernel, "
-                            ":902 _packed_dq_kernel, :957 _packed_dkv_kernel, "
+                            ":902 _packed_dq_kernel, :957 _packed_dkv_kernel (with dbias), "
                             ":789 _flash_attention_dual_bwd"),
+    "fused_attention_fwd": ("eeg2video_tpu_torch/csrc/flash_attention_bhld.cu",
+                            "eeg2video_tpu/ops/attention.py:75 _flash_kernel"),
+    "fused_attention_bwd": ("eeg2video_tpu_torch/csrc/flash_attention_bhld.cu",
+                            "eeg2video_tpu/ops/attention.py:118 _flash_dq_kernel, "
+                            ":147 _flash_dkv_kernel"),
     "temporal_attention_fwd": ("eeg2video_tpu_torch/csrc/temporal_attention.cu",
                                "eeg2video_tpu/ops/temporal.py:81 _temporal_fwd_kernel"),
     "temporal_attention_bwd": ("eeg2video_tpu_torch/csrc/temporal_attention.cu",
@@ -320,6 +347,91 @@ def kernel_cases(torch, dev):
     attn_train(f"train dual f2-5 D=160 ({tb},4,144,1280)x[144|144]", r(tb, 4, 144, 1280),
                r(tb, 144, 1280), r(tb, 144, 1280), k1=r(tb, 4, 144, 1280),
                v1=r(tb, 4, 144, 1280))
+
+    def attn_dbias(label, q, k0, v0, k1=None, v1=None, step=2):
+        """The backward that also writes the gradient of bias0. The bias is
+        what a mask gives (0, and -1e4 at the holes) plus dense noise, so that
+        dbias0 is not trivially 0. The yardstick: the backward of one
+        scaled_dot_product_attention call whose attn_mask asks for a gradient."""
+        b, hd = k0.shape[0], q.shape[-1]
+        m = q.shape[1] if q.dim() == 4 else 1
+        lkv0, lkv1 = k0.shape[1], 0 if k1 is None else k1.shape[-2]
+        bias = 0.5 * torch.randn(b, 1, lkv0, generator=g, device=dev)
+        bias[:, :, ::9] = -1e4
+        dout = r(*q.shape)
+        out, lse = attention.flash_attention_fwd(q, k0, v0, heads, k1=k1, v1=v1, bias0=bias,
+                                                 return_lse=True)
+
+        def kern():
+            return attention.flash_attention_bwd(q, k0, v0, heads, dout, out, lse, k1=k1, v1=v1,
+                                                 bias0=bias, need_dbias=True)
+
+        first, again = kern(), kern()
+        if not all(a is None or torch.equal(a, c) for a, c in zip(first, again)):
+            fail(f"kernels: flash_attention_bwd [{label}]: two runs gave different bits")
+        if float(first[5].abs().max()) == 0 or bool((first[5][:, :, ::9] != 0).any()):
+            fail(f"kernels: flash_attention_bwd [{label}]: dbias0 is zero, or not zero at a hole")
+        leaves = [t.detach().requires_grad_() for t in sdpa_operands(q, k0, v0, k1, v1)]
+        mask = bias.to(q.dtype).requires_grad_()
+        doh = dout.reshape(-1, dout.shape[-2], hd).unflatten(-1, (heads, hd // heads)).transpose(1, 2)
+        try:  # the library may refuse a broadcast mask that asks for a gradient
+            full = F.pad(mask.repeat_interleave(m, dim=0)[:, None], (0, lkv1))
+            sd_out = F.scaled_dot_product_attention(*leaves, attn_mask=full)
+            library = lambda: torch.autograd.grad(sd_out, leaves + [mask], doh, retain_graph=True)
+            library()
+        except RuntimeError as e:
+            say(f"kernels: flash_attention_bwd [{label}]: no library yardstick, "
+                f"scaled_dot_product_attention refused: {str(e).splitlines()[0]}")
+            library = None
+        add("flash_attention_bwd", label, kern,
+            lambda ts: chunked(lambda p: attention.flash_attention_bwd_plain(
+                p[0], p[1], p[2], heads, p[5], p[6],
+                p[7].flatten(0, 1) if q.dim() == 4 else p[7], k1=p[3], v1=p[4], bias0=p[8],
+                need_dbias=True), ts, b, step),
+            [q, k0, v0, k1, v1, dout, out,
+             lse.unflatten(0, (b, -1)) if q.dim() == 4 else lse, bias],
+            flops=10 * (q.numel() // hd) * (lkv0 + lkv1) * hd, library=library)
+
+    attn_dbias(f"train self +dbias ({tb},2,2304,320)x2304 bias ({tb},1,2304)",
+               r(tb, 2, 2304, 320), r(tb, 2304, 320), r(tb, 2304, 320))
+    attn_dbias(f"train dual f2-5 +dbias ({tb},4,2304,320)x[2304|2304] bias0 ({tb},1,2304)",
+               r(tb, 4, 2304, 320), r(tb, 2304, 320), r(tb, 2304, 320),
+               k1=r(tb, 4, 2304, 320), v1=r(tb, 4, 2304, 320))
+    # the masked step's deeper levels: other head widths are other
+    # instantiations of the pass that writes dbias0, each held here
+    for l, hd in ((576, 640), (144, 1280), (40, 1280)):
+        d = hd // heads
+        attn_dbias(f"train self +dbias D={d} ({tb},2,{l},{hd})x{l} bias ({tb},1,{l})",
+                   r(tb, 2, l, hd), r(tb, l, hd), r(tb, l, hd))
+        attn_dbias(f"train dual f2-5 +dbias D={d} ({tb},4,{l},{hd})x[{l}|{l}] bias0 ({tb},1,{l})",
+                   r(tb, 4, l, hd), r(tb, l, hd), r(tb, l, hd),
+                   k1=r(tb, 4, l, hd), v1=r(tb, 4, l, hd))
+
+    # fused_attention over head-major (B, H, L, D) operands, read in place;
+    # the yardstick is one scaled_dot_product_attention call on the same
+    # tensors, and autograd through it for the backward
+    def fused(label, b, h, lq, lkv, d, primary=False):
+        q, k, v, dout = r(b, h, lq, d), r(b, h, lkv, d), r(b, h, lkv, d), r(b, h, lq, d)
+        out, lse = attention.fused_attention_fwd(q, k, v, return_lse=True)
+        add("fused_attention_fwd", f"{label} +lse",
+            lambda: attention.fused_attention_fwd(q, k, v, return_lse=True),
+            lambda ts: chunked(lambda p: attention.fused_attention_plain(*p, return_lse=True),
+                               ts, b),
+            [q, k, v], flops=4 * b * h * lq * lkv * d,
+            library=lambda: F.scaled_dot_product_attention(q, k, v), primary=primary)
+        leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+        sd_out = F.scaled_dot_product_attention(*leaves)
+        add("fused_attention_bwd", label,
+            lambda: attention.fused_attention_bwd(q, k, v, dout, out, lse),
+            lambda ts: chunked(lambda p: attention.fused_attention_bwd_plain(*p), ts, b),
+            [q, k, v, dout, out, lse], flops=10 * b * h * lq * lkv * d,
+            library=lambda: torch.autograd.grad(sd_out, leaves, dout, retain_graph=True),
+            primary=primary)
+
+    fused("(2,8,2304,40)x4608", 2, 8, 2304, 4608, 40)
+    fused(f"train scale ({tb},8,2304,40)x4608", tb, 8, 2304, 4608, 40, primary=True)
+    fused(f"D=160 ({tb},8,144,160)x144", tb, 8, 144, 144, 160)
+    fused("ragged (1,2,300,40)x450", 1, 2, 300, 450, 40)
 
     # temporal attention: bound by memory, 4 tensors forward and 7 backward;
     # operations: the F*F dot products and weighted sums per token and head.
@@ -592,11 +704,17 @@ def phase_serve(torch, build, pipe):
     (the models live where ``pipe`` does)."""
     import numpy as np
 
-    from eeg2video_tpu_torch.cli import serve
+    from eeg2video_tpu_torch.cli import add_noise, inference_seq2seq_v2, serve
+    from eeg2video_tpu_torch.data.io import load_array
     from eeg2video_tpu_torch.data.video import load_gif
+    from eeg2video_tpu_torch.models.init import random_init_
     from eeg2video_tpu_torch.models.semantic import HIDDEN, IN_DIM, Int8SemanticPredictor
+    from eeg2video_tpu_torch.models.seq2seq import Seq2SeqTransformer
     from eeg2video_tpu_torch.ops.int8_dense import quantize_int8
+    from eeg2video_tpu_torch.serving import runtimes
     from eeg2video_tpu_torch.serving.runtimes import PREDICT_CHUNK, make_semantic_predict
+    from eeg2video_tpu_torch.train.seq2seq import ROLLOUT_CHUNK, windows_from_segments
+    from eeg2video_tpu_torch.utils import StandardScaler
 
     dev = pipe.device
     g = torch.Generator(device=dev).manual_seed(3)
@@ -615,14 +733,20 @@ def phase_serve(torch, build, pipe):
         f"({sum(l[0].numel() for l in layers)} bytes padded), random from a seed")
 
     chunk_ms = []
+    front_ms = {"de_psd": [], "seq2seq rollout": [], "dana": []}  # per call, whole request part
 
-    def timed_semantic(x):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        y = semantic(x)
-        torch.cuda.synchronize()
-        chunk_ms.append((time.perf_counter() - t0) * 1e3)
-        return y
+    def timed(fn, into):
+        """``fn`` with its synchronized host-clock milliseconds appended to ``into``."""
+        def run(*a, **k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            y = fn(*a, **k)
+            torch.cuda.synchronize()
+            into.append((time.perf_counter() - t0) * 1e3)
+            return y
+        return run
+
+    timed_semantic = timed(semantic, chunk_ms)
 
     step_ms, t_fwd = [], []
 
@@ -641,10 +765,40 @@ def phase_serve(torch, build, pipe):
         feats, emb = os.path.join(tmp, "de.npy"), os.path.join(tmp, "emb.npy")
         np.save(feats, rng.standard_normal((6, IN_DIM)).astype(np.float32))
         np.save(emb, rng.standard_normal((2, 77 * 768)).astype(np.float32))
+        # raw EEG: a caller-ordered stack of two 2 s segments with positional
+        # flow scores, and one whole segmented subject with the (7, 200) table
+        raw2, flow2 = os.path.join(tmp, "raw2.npy"), os.path.join(tmp, "flow2.npy")
+        subject, table = os.path.join(tmp, "subject.npy"), os.path.join(tmp, "flow_table.npy")
+        np.save(raw2, 10.0 * rng.standard_normal((2, 62, 400), dtype=np.float32))
+        np.save(flow2, np.asarray([2.5, 0.4], np.float32))
+        subject_eeg = 10.0 * rng.standard_normal((7, 40, 5, 62, 400), dtype=np.float32)
+        np.save(subject, subject_eeg)
+        np.save(table, (1.8 + rng.standard_normal((7, 200))).astype(np.float32))
+        # the Seq2Seq stage's EEG scaler, fitted on the windows of block 0
+        scaler_file = os.path.join(tmp, "eeg_scaler.npz")
+        StandardScaler().fit(windows_from_segments(subject_eeg[0]).reshape(200, -1)).save(scaler_file)
+        del subject_eeg
+        # a full-size Seq2Seq (d_model 512, latent 4x36x64), random from a seed,
+        # written as the reference's .pt and read back by the server's loader
+        seq2seq_file = os.path.join(tmp, "seq2seqmodel.pt")
+        seq2seq = random_init_(Seq2SeqTransformer().to(dev), g)
+        torch.save({"state_dict": seq2seq.state_dict()}, seq2seq_file)
+        n_seq = sum(p.numel() for p in seq2seq.parameters())
+        del seq2seq
         args = serve.build_parser().parse_args([
             "--listen", "127.0.0.1:0", "--coalesce", "--coalesce_wait", "1", "--max_batch", "2",
             "--semantic_int8", "--sampler", "dpm++", "--num_inference_steps", str(SERVE_STEPS),
-            "--gif_encoder", "native", "--device", str(dev), "--out_dir", os.path.join(tmp, "out")])
+            "--gif_encoder", "native", "--device", str(dev), "--out_dir", os.path.join(tmp, "out"),
+            "--torch_seq2seq", seq2seq_file, "--seq2seq_scaler", scaler_file,
+            "--flow_scores", table])
+        t0 = time.perf_counter()
+        seq2seq_untimed = runtimes._load_seq2seq(args)
+        seq2seq_predict = timed(seq2seq_untimed, front_ms["seq2seq rollout"])
+        say(f"serve: Seq2SeqTransformer() {n_seq} params (d_model 512, latent 4x36x64), random "
+            f"from a seed, loaded from its .pt in {time.perf_counter() - t0:.2f} s")
+        real_de, real_dana = runtimes.de_psd, runtimes.dana_mod.dana_add_noise
+        runtimes.de_psd = timed(real_de, front_ms["de_psd"])
+        runtimes.dana_mod.dana_add_noise = timed(real_dana, front_ms["dana"])
         ready, box = threading.Event(), {}
 
         def on_ready(line):
@@ -654,7 +808,8 @@ def phase_serve(torch, build, pipe):
         def run():
             try:
                 box["rc"] = serve.serve(
-                    pipe, args, make_semantic_predict(timed_semantic, dev), on_ready)
+                    pipe, args, make_semantic_predict(timed_semantic, dev), on_ready,
+                    seq2seq_predict=seq2seq_predict)
             except Exception as e:  # reported by the main thread, which fails the run
                 box["error"] = e
             finally:
@@ -681,6 +836,20 @@ def phase_serve(torch, build, pipe):
         c2.send({"id": "b2", "features": feats, "indices": [2], "out_dir": out("b2")})
         replies["c"] = (c1.recv(), time.perf_counter() - t0)
         replies["b2"] = (c2.recv(), time.perf_counter() - t0)
+        # requests whose only payload is raw EEG: embeddings from de_psd -> the
+        # int8 semantic predictor, latents from the Seq2Seq rollout -> DANA.
+        # Two segments; one clip of a whole subject (GT reorder, 200-clip
+        # rollout in 50-row chunks, 200-row DE and semantic pass, DANA over
+        # the whole set); the first segment again without DANA, and without
+        # Seq2Seq (noise latents)
+        replies["raw"] = c1.ask({"id": "raw", "raw": raw2, "flow_scores": flow2,
+                                 "out_dir": out("raw")})
+        replies["subject"] = c2.ask({"id": "subject", "raw": subject, "indices": [3],
+                                     "out_dir": out("subject")})
+        replies["wodana"] = c1.ask({"id": "wodana", "raw": raw2, "indices": [0], "dana": False,
+                                    "out_dir": out("wodana")})
+        replies["woseq"] = c2.ask({"id": "woseq", "raw": raw2, "indices": [0], "seq2seq": False,
+                                   "out_dir": out("woseq")})
         pong, _ = c1.ask({"cmd": "ping"})
         stats, _ = c2.ask({"cmd": "stats", "id": "s"})
         bye, _ = c1.ask({"cmd": "shutdown"})
@@ -690,12 +859,39 @@ def phase_serve(torch, build, pipe):
         launches = dict(build.launches)
         for h in hooks:
             h.remove()
+        # the DANA latents of the two segments as the file chain would store
+        # them, (N, F, C, H, W), for inference_eeg2video.main later
+        dana_latents = np.transpose(runtimes._latents_from_raw(
+            args, {"raw": raw2, "flow_scores": flow2}), (0, 1, 4, 2, 3))
+        runtimes.de_psd, runtimes.dana_mod.dana_add_noise = real_de, real_dana
         if "error" in box:
             fail(f"serve: the server thread raised {box['error']!r}")
         if server.is_alive() or box.get("rc") != 0:
             fail(f"serve: the server did not stop cleanly (rc {box.get('rc')})")
 
-        clips = {"a": [0, 1], "b": [2], "c": [0], "b2": [2]}
+        # the file chain on the same subject: cli.inference_seq2seq_v2 ->
+        # cli.add_noise write the two artifacts inference_eeg2video.main reads.
+        # Same scaler, same 50-row rollout chunks, same seeded generator: its
+        # DANA latents are the server's for that subject, bit for bit
+        lat_file, dana_file = out("latent_out_block7_40_classes.npy"), out("dana.pt")
+        t0 = time.perf_counter()
+        inference_seq2seq_v2.main(["--eeg", subject, "--eeg_scaler", scaler_file, "--torch_ckpt",
+                                   seq2seq_file, "--out", lat_file, "--device", str(dev)])
+        add_noise.main(["--latents", lat_file, "--flow_scores", table, "--out", dana_file,
+                        "--device", str(dev)])
+        chain_s = time.perf_counter() - t0
+        args.seq2seq_predict = seq2seq_untimed
+        served = runtimes._latents_from_raw(args, {"raw": subject})
+        chain = np.transpose(load_array(dana_file), (0, 1, 3, 4, 2))
+        same = chain.shape == (200, 6, 36, 64, 4) and np.array_equal(chain, served)
+        say(f"serve: file chain inference_seq2seq_v2.main -> add_noise.main on the subject, "
+            f"{chain_s:.2f} s: DANA latents {chain.shape} "
+            f"{'bit-equal to' if same else 'DIFFER from'} the server's {'ok' if same else 'FAILED'}")
+        if not same:
+            fail("serve: the file chain and the server disagree on a subject's DANA latents")
+
+        clips = {"a": [0, 1], "b": [2], "c": [0], "b2": [2], "raw": [0, 1], "subject": [3],
+                 "wodana": [0], "woseq": [0]}
         for rid, (reply, secs) in replies.items():
             want = [os.path.join(out(rid), f"{i}.gif") for i in clips[rid]]
             ok = (reply.get("ok") is True and reply.get("id") == rid
@@ -710,7 +906,7 @@ def phase_serve(torch, build, pipe):
                 frames = load_gif(path)
                 if head != b"GIF89a" or frames.shape != (6, 288, 512, 3) or frames.std() == 0:
                     fail(f"serve: {path} is not a 6-frame 288x512 GIF: {head!r} {frames.shape}")
-        say("serve: 5 GIFs start with GIF89a and decode to (6, 288, 512, 3) with content")
+        say("serve: 10 GIFs start with GIF89a and decode to (6, 288, 512, 3) with content")
         if replies["c"][0].get("coalesced") != 2 or replies["b2"][0].get("coalesced") != 2:
             fail("serve: requests c and b2 did not share one dispatch group")
         with open(os.path.join(out("b"), "2.gif"), "rb") as f1, \
@@ -723,15 +919,39 @@ def phase_serve(torch, build, pipe):
         with open(os.path.join(out("a"), "0.gif"), "rb") as f1:
             if f1.read() == alone:
                 fail("serve: two different clips gave the same GIF")
+        sources = {}
+        for rid in ("raw", "wodana", "woseq"):
+            with open(os.path.join(out(rid), "0.gif"), "rb") as f1:
+                sources[rid] = f1.read()
+        differ = len(set(sources.values())) == 3
+        say(f"serve: segment 0 with Seq2Seq + DANA, Seq2Seq only and noise latents: "
+            f"{[len(v) for v in sources.values()]} GIF bytes "
+            f"{'all different' if differ else 'NOT all different'}")
+        if not differ:
+            fail("serve: the three latent sources did not give three different GIFs")
         if not (pong.get("ok") and pong.get("pong", 0) > 0 and bye == {"ok": True, "bye": True}):
             fail(f"serve: ping or shutdown reply is wrong: {pong} {bye}")
-        ok = (stats.get("id") == "s" and stats.get("requests") == 4 and stats.get("clips") == 5
+        ok = (stats.get("id") == "s" and stats.get("requests") == 8 and stats.get("clips") == 10
               and stats.get("errors") == 0)
         say(f"serve: stats {json.dumps(stats)} {'ok' if ok else 'FAILED'}")
         if not ok:
-            fail("serve: stats do not count 4 requests, 5 clips, 0 errors")
+            fail("serve: stats do not count 8 requests, 10 clips, 0 errors")
 
-    dispatches, chunks = 3, 3  # [a0 a1] [b b] [c b2]; one 100-row chunk per features request
+    # dispatches: [a0 a1] [b b] [c b2] [raw0 raw1] [subject3 pad] [wodana0 pad] [woseq0 pad];
+    # 100-row semantic chunks: one per features request (a, b, b2) and per
+    # two-segment raw request (raw, wodana, woseq), two for the 200-clip subject;
+    # the direct _latents_from_raw call above adds one rollout and one DANA call
+    dispatches, chunks = 7, 8
+    rollouts = {"calls": 4, "chunks": 3 + 200 // ROLLOUT_CHUNK}
+    ok = (len(front_ms["seq2seq rollout"]) == rollouts["calls"] and len(front_ms["dana"]) == 3
+          and len(front_ms["de_psd"]) == 4)
+    say(f"serve: front half, ms per request part (host clock, synchronized): "
+        f"{ {k: [round(t, 2) for t in v] for k, v in front_ms.items()} } "
+        f"(de_psd and rollout: 2 segments, the 200-clip subject, 2 segments twice; the subject's "
+        f"rollout is {200 // ROLLOUT_CHUNK} chunks of {ROLLOUT_CHUNK} rows) "
+        f"{'ok' if ok else 'FAILED'}")
+    if not ok:
+        fail("serve: the raw requests did not run DE, the rollout and DANA as often as expected")
     forwards = len(step_ms)
     expected = dict.fromkeys(launches, 0)  # no training kernel on the serving path
     expected.update({k: n * SERVE_STEPS * dispatches for k, n in EXPECTED_PER_FORWARD.items()})
@@ -749,6 +969,69 @@ def phase_serve(torch, build, pipe):
     say(f"serve: request latency at the client (requests b, c and b2 include up to 1 s of "
         f"--coalesce_wait) {({k: round(v[1], 3) for k, v in replies.items()})} s; "
         f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    return launches, dana_latents
+
+
+def phase_de_psd(torch):
+    """de_psd on the card against its float64 numpy oracle."""
+    import numpy as np
+
+    from eeg2video_tpu_torch.dsp import de_psd, de_psd_numpy
+
+    x = 10.0 * np.random.default_rng(8).standard_normal((200, 62, 400), dtype=np.float32)
+    flags = (torch.backends.cuda.matmul.allow_tf32, torch.get_float32_matmul_precision())
+    worst = {}
+    try:
+        for allow in (False, True):  # the result must not follow the global TF32 switch
+            torch.backends.cuda.matmul.allow_tf32 = allow
+            de, psd = de_psd(x)
+            torch.cuda.synchronize()
+            want_de, want_psd = de_psd_numpy(x.astype(np.float64))
+            worst[allow] = (float(np.max(np.abs(psd.cpu().numpy() - want_psd) / want_psd)),
+                            float(np.max(np.abs(de.cpu().numpy() - want_de))))
+        ms = timed_ms(lambda: de_psd(x), torch, 5)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = flags[0]
+        torch.set_float32_matmul_precision(flags[1])
+    ok = (de.is_cuda and tuple(psd.shape) == (200, 62, 5)
+          and all(w[0] < DE_BOUND for w in worst.values()) and worst[False] == worst[True])
+    say(f"de_psd (200,62,400) on the card vs the float64 oracle: worst relative error of psd "
+        f"{worst[False][0]:.3e} (bound {DE_BOUND:.0e}), worst |de| error {worst[False][1]:.3e}; "
+        f"with allow_tf32 on {worst[True][0]:.3e}; {ms:.3f} ms with the host-to-device copy "
+        f"{'ok' if ok else 'FAILED'}")
+    if not ok:
+        fail("de_psd disagrees with its oracle, or follows the global TF32 switch")
+
+
+def phase_fused_op(torch, build):
+    """``fused_attention``, the public op over (B, H, L, D): a call without
+    and a call with gradients, launches counted."""
+    from eeg2video_tpu_torch.ops import attention, fused_attention
+
+    g = torch.Generator(device="cuda").manual_seed(9)
+    q, k, v = (torch.randn(2, 8, l, 40, generator=g, device="cuda").bfloat16().requires_grad_()
+               for l in (2304, 4608, 4608))
+    dout = torch.randn(2, 8, 2304, 40, generator=g, device="cuda").bfloat16()
+    build.reset_launches()
+    with torch.no_grad():
+        plain_call = fused_attention(q, k, v)
+    out = fused_attention(q, k, v)
+    grads = torch.autograd.grad(out, [q, k, v], dout)
+    torch.cuda.synchronize()
+    launches = dict(build.launches)
+    want = attention.fused_attention_plain(q.detach().float(), k.detach().float(),
+                                           v.detach().float())
+    err = ((out.float() - want).abs().max() / want.abs().max()).item()
+    expected = dict.fromkeys(launches, 0)
+    expected.update(fused_attention_fwd=2, fused_attention_bwd=1)
+    ok = (launches == expected and torch.equal(plain_call, out.detach()) and err < KERNEL_BOUND
+          and all(gr.shape == t.shape and bool(torch.isfinite(gr).all()) and float(gr.abs().max()) > 0
+                  for gr, t in zip(grads, (q, k, v))))
+    say(f"fused_attention (2,8,2304,40)x4608: one call without and one with gradients, launches "
+        f"{ {k_: n for k_, n in launches.items() if n} } (expected 2 forward, 1 backward), "
+        f"max_rel_err {err:.3e} {'ok' if ok else 'FAILED'}")
+    if not ok:
+        fail("fused_attention: the op did not go through its kernels")
     return launches
 
 
@@ -756,7 +1039,7 @@ def _rel(a, b):
     return ((a.float() - b.float()).norm() / b.float().norm()).item()
 
 
-def phase_train_parity(torch):
+def phase_train_parity(torch, build):
     """A narrow UNet in bf16 on the card: the fine-tune loss and its
     trainable gradients through the kernels, against the same model with the
     plain versions (f32 inside, autograd through them) in the kernels' place."""
@@ -774,6 +1057,7 @@ def phase_train_parity(torch):
     g = torch.Generator(device=dev).manual_seed(5)
     unet = random_init_(UNet3DConditionModel(cfg).to(dev), g)
     twin = copy.deepcopy(unet)
+    masked_pair = (copy.deepcopy(unet), copy.deepcopy(unet))  # for the mask.grad parity below
     post = torch.cat([torch.randn(2, 6, 16, 16, 4, generator=g, device=dev),
                       0.3 * torch.randn(2, 6, 16, 16, 4, generator=g, device=dev)], dim=-1)
     ctx = torch.randn(2, 77, 768, generator=g, device=dev)
@@ -800,6 +1084,42 @@ def phase_train_parity(torch):
     finally:
         for name, fn in real.items():
             setattr(attention3d, name, fn)
+
+    # the same step with a soft attention_mask that asks for a gradient:
+    # mask.grad through the kernels' dbias against autograd through the plain
+    # attention (the plain versions patched in as above)
+    mask0 = (1.0 - 2e-4 * torch.rand(2, 16, 16, generator=g, device=dev))
+    mask0[:, ::5, ::3] = 0.0  # holes: bias -1e4
+
+    def mask_grad(model):
+        state = vd.init_video_train_state(model, tcfg, dev)
+        mask = mask0.clone().requires_grad_()
+        lat = post[..., :4] * vd.SD_VAE_SCALE
+        noisy = vd.DDPMSchedule.create().add_noise(lat, draws["noise"], draws["t"])
+        pred = state.unet(noisy.bfloat16(), draws["t"], ctx.bfloat16(), attention_mask=mask,
+                          train=True, remat=True, remat_min_hw=tcfg.remat_min_hw).float()
+        torch.mean((pred - draws["noise"]) ** 2).backward()
+        return mask.grad
+
+    build.reset_launches()
+    mgrad_k = mask_grad(masked_pair[0])
+    dbias_launches = build.launches["flash_attention_bwd_dbias"]
+    try:
+        for name, fn in patched.items():
+            setattr(attention3d, name, fn)
+        mgrad_p = mask_grad(masked_pair[1])
+    finally:
+        for name, fn in real.items():
+            setattr(attention3d, name, fn)
+    mask_err = _rel(mgrad_k, mgrad_p)
+    ok = (mask_err < TRAIN_BOUND and bool(torch.isfinite(mgrad_k).all())
+          and float(mgrad_k.abs().max()) > 0 and dbias_launches == EXPECTED_DBIAS_PER_MASKED_STEP)
+    say(f"mask.grad parity, same narrow model, soft mask (2,16,16) with holes: rel_err "
+        f"{mask_err:.3e} via kernels vs via plain (bound {TRAIN_BOUND:.0e}), max |grad| "
+        f"{float(mgrad_k.abs().max()):.3e}, {dbias_launches} backward launches wrote dbias "
+        f"(expected {EXPECTED_DBIAS_PER_MASKED_STEP}) {'ok' if ok else 'FAILED'}")
+    if not ok:
+        fail("mask.grad parity")
     worst = max((_rel(grads_k[n], grads_p[n]), n) for n in grads_p)
     total = _rel(torch.cat([grads_k[n].flatten() for n in grads_p]),
                  torch.cat([grads_p[n].flatten() for n in grads_p]))
@@ -813,7 +1133,94 @@ def phase_train_parity(torch):
         fail("train parity")
 
 
-def phase_train(torch, build, vae):
+def _masked_step(torch, build, vd, state, post, contexts):
+    """One full-width forward/backward with a soft attention_mask (B, 36, 64)
+    that asks for a gradient: the biased attention backward writes dbias0 and
+    autograd carries it to ``mask.grad``."""
+    dev = post.device
+    g = torch.Generator(device=dev).manual_seed(10)
+    b = post.shape[0]
+    mask = 1.0 - 2e-4 * torch.rand(b, 36, 64, generator=g, device=dev)
+    mask[:, ::6, ::5] = 0.0  # holes: bias -1e4
+    mask.requires_grad_()
+    latents = post[..., :4].float() * vd.SD_VAE_SCALE
+    t = torch.randint(0, 1000, (b,), generator=g, device=dev)
+    noise = torch.randn(latents.shape, generator=g, device=dev)
+    noisy = vd.DDPMSchedule.create().add_noise(latents, noise, t)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    build.reset_launches()
+    t0 = time.perf_counter()
+    pred = state.unet(noisy.to(state.dtype), t, contexts.to(state.dtype), attention_mask=mask,
+                      train=True, remat=state.cfg.remat, remat_min_hw=state.cfg.remat_min_hw)
+    loss = torch.mean((pred.float() - noise) ** 2)
+    loss.backward()
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launched = dict(build.launches)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    for p in state.unet.parameters():
+        p.grad = None
+    expected = dict(EXPECTED_PER_TRAIN_STEP,
+                    flash_attention_bwd_dbias=EXPECTED_DBIAS_PER_MASKED_STEP)
+    grad = mask.grad
+    ok = (launched == expected and grad is not None and grad.shape == mask.shape
+          and bool(torch.isfinite(grad).all()) and float(grad.abs().max()) > 0
+          and bool(torch.isfinite(loss)))
+    say(f"train: masked step at batch {b}, soft attention_mask ({b},36,64) with holes, forward + "
+        f"backward {secs:.3f} s (no optimizer update), loss {float(loss.detach()):.4f}, mask.grad finite, "
+        f"max |grad| {float(grad.abs().max()):.3e}, {int((grad != 0).sum())} of {grad.numel()} "
+        f"non-zero; {launched['flash_attention_bwd_dbias']} of "
+        f"{launched['flash_attention_bwd']} backward launches wrote dbias (expected "
+        f"{EXPECTED_DBIAS_PER_MASKED_STEP} of {EXPECTED_PER_TRAIN_STEP['flash_attention_bwd']}), "
+        f"peak memory {peak:.2f} GiB {'ok' if ok else 'FAILED'}")
+    if not ok:
+        fail(f"train: the masked step launched {launched}, expected {expected}, or mask.grad "
+             f"is missing, zero or not finite")
+    return launched["flash_attention_bwd_dbias"]
+
+
+def _inference_main(torch, build, tmp, dana_latents):
+    """cli.inference_eeg2video.main on the diffusers directories the trainer
+    wrote: fresh-noise latents, then the DANA latents of the raw path."""
+    import numpy as np
+
+    from eeg2video_tpu_torch.cli import inference_eeg2video
+    from eeg2video_tpu_torch.data.video import load_gif
+
+    emb = os.path.join(tmp, "embeddings.npy")
+    np.save(emb, np.random.default_rng(11).standard_normal((3, 77 * 768)).astype(np.float32))
+    np.save(os.path.join(tmp, "dana_latents.npy"), dana_latents)
+    common = ["--embeddings", emb, "--unet", tmp, "--vae", tmp, "--limit", "2", "--batch", "2",
+              "--num_inference_steps", str(STEPS), "--gif_encoder", "native"]
+    runs = {"woSeq2Seq": ["--woSeq2Seq"],
+            "Fullmodel": ["--dana_latents", os.path.join(tmp, "dana_latents.npy")]}
+    gifs = {}
+    for tag, extra in runs.items():
+        out_dir = os.path.join(tmp, f"inference_{tag}")
+        build.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        inference_eeg2video.main([*common, *extra, "--out_dir", out_dir])
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        names = sorted(os.listdir(out_dir))
+        frames = [load_gif(os.path.join(out_dir, n)) for n in names]
+        forwards = build.launches["flash_attention_fwd"] / EXPECTED_PER_FORWARD["flash_attention_fwd"]
+        ok = (names == ["0.gif", "1.gif"] and forwards == STEPS
+              and all(f.shape == (6, 288, 512, 3) and f.std() > 0 for f in frames))
+        say(f"inference_eeg2video.main --limit 2 --num_inference_steps {STEPS} {' '.join(extra[:1])}: "
+            f"{names} {[f.shape for f in frames]}, {forwards:g} UNet forwards, {secs:.1f} s with "
+            f"loading the pipeline from the diffusers directories {'ok' if ok else 'FAILED'}")
+        if not ok:
+            fail(f"inference_eeg2video.main ({tag}) did not write two 6-frame 288x512 GIFs")
+        with open(os.path.join(out_dir, "0.gif"), "rb") as f:
+            gifs[tag] = f.read()
+    if gifs["woSeq2Seq"] == gifs["Fullmodel"]:
+        fail("inference_eeg2video.main: noise latents and DANA latents gave the same GIF")
+
+
+def phase_train(torch, build, vae, dana_latents):
     """The fine-tune path at full width through cli.train_tuneavideo.train."""
     from eeg2video_tpu_torch.cli import train_tuneavideo
     from eeg2video_tpu_torch.data.video import load_gif
@@ -950,8 +1357,12 @@ def phase_train(torch, build, vae):
             fail("train: a resumed step differs from the uninterrupted one")
 
         _profile_step(torch, lambda: vd.train_step(state, vae, batch, bctx, args.seed))
+        dbias_launches = _masked_step(torch, build, vd, state, batch, bctx)
+        del state
+        torch.cuda.empty_cache()
+        _inference_main(torch, build, tmp, dana_latents)
 
-    return {k: sum(s[2][k] for s in steps) for k in EXPECTED_PER_TRAIN_STEP}
+    return {k: sum(s[2][k] for s in steps) for k in EXPECTED_PER_TRAIN_STEP}, dbias_launches
 
 
 # device kernels of a train step, grouped by what launched them (substrings
@@ -1015,11 +1426,13 @@ def main():
     report = phase_kernels(torch)
     phase_unet_parity(torch)
     pipe, ddim_launches = phase_slice(torch, build)
-    launches = phase_serve(torch, build, pipe)
+    launches, dana_latents = phase_serve(torch, build, pipe)
+    phase_de_psd(torch)
+    fused_launches = phase_fused_op(torch, build)
     pipe.unet = None  # the train phase builds its own, with f32 masters
     torch.cuda.empty_cache()
-    phase_train_parity(torch)
-    train_launches = phase_train(torch, build, pipe.vae)
+    phase_train_parity(torch, build)
+    train_launches, dbias_launches = phase_train(torch, build, pipe.vae, dana_latents)
     leaked = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "jaxlib", "flax", "eeg2video_tpu"))
     if leaked:
@@ -1031,14 +1444,20 @@ def main():
         # each main path was driven with the counts set to 0 just before it
         # and read just after: the serve phase (20-step dispatches), the slice
         # phase (4-step DDIM requests), the train phase (three optimizer
-        # steps). launches: the count on the path the kernel was ported for,
-        # the serve path for the forward kernels (as this line always gave
-        # it), the train path for the kernels only training runs; a kernel
-        # its path did not launch fails the run.
+        # steps), the fused_attention op (one call without, one with
+        # gradients). launches: the count on the path the kernel was ported
+        # for, the serve path for the forward kernels (as this line always
+        # gave it), the train path for the kernels only training runs, the
+        # op's own calls for the fused_attention pair, which no model path
+        # reaches; a kernel its path did not launch fails the run.
         per_path = {"launches_serve_path": launches[name],
                     "launches_ddim_path": ddim_launches[name],
-                    "launches_train_path": train_launches[name]}
-        path = "train" if name in TRAIN_ONLY_KERNELS else "serve"
+                    "launches_train_path": train_launches[name],
+                    "launches_fused_op_path": fused_launches[name]}
+        if name == "flash_attention_bwd":  # of one masked step's launches, those that wrote dbias
+            per_path["launches_dbias_masked_step"] = dbias_launches
+        path = ("train" if name in TRAIN_ONLY_KERNELS else
+                "fused_op" if name in FUSED_OP_KERNELS else "serve")
         if per_path[f"launches_{path}_path"] == 0:
             fail(f"launches: the {path} path did not launch {name}")
         kernels.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,

@@ -12,6 +12,8 @@ stdout (logs go to stderr):
   {"id": "r2", "embeddings": "emb.npy", "indices": [3, 7],
    "latents": "dana.pt", "seed": 114514, "guidance_scale": 12.5}
   {"id": "r3", "features": "DE_1per2s/sub1.npy", "block": 6}
+  {"id": "r4", "raw": "Segmented_Rawf_200Hz_2s/sub1.npy", "block": 6,
+   "indices": [0, 1]}
   {"cmd": "ping"}
   {"cmd": "stats"}
   {"cmd": "shutdown"}
@@ -21,9 +23,18 @@ features instead of precomputed embeddings: the warm in-process semantic
 predictor (f32, or weight-only int8 with ``--semantic_int8``) encodes them,
 and the CFG negative is their embedding mean, exactly as the two-script
 reference chain (inference_semantic -> inference_eeg2video via an .npy on
-disk) would produce. Requests carrying ``raw`` EEG (the Seq2Seq, DANA and
-DE-feature stages of the JAX server) are not ported yet and get an error
-reply.
+disk) would produce.
+
+With ``--seq2seq_ckpt`` (or ``--torch_seq2seq``) a request may carry ``raw``
+EEG: the per-subject segmented (7, 40, 5, 62, 400) file, a caller-ordered
+(N, 62, 400) segment stack, or pre-windowed (N, 7, 62, 100) arrays. The warm
+Seq2Seq transformer rolls the latents out and, when flow scores are configured
+(``--flow_scores`` or the request's ``flow_scores``), DANA noises them: the
+reference's full-model latent source (three chained scripts and two disk
+artifacts there). A request carrying only ``raw`` also derives its embeddings
+from it: DE features of the 2 s segments (``dsp.de_psd``) through the semantic
+predictor. ``{"dana": false}`` and ``{"seq2seq": false}`` select the woDANA and
+woSeq2Seq ablations; ``dana_seed`` and ``flow_scores`` override per request.
 
 Replies: {"id": "r1", "ok": true, "gifs": ["gifs/0.gif", ...],
           "latency_s": ..., "clips": 1} or {"id": ..., "ok": false,
@@ -71,7 +82,7 @@ import time
 import numpy as np
 
 from ..serving.batching import handle
-from ..serving.runtimes import _load_semantic
+from ..serving.runtimes import _load_semantic, _load_seq2seq
 from ..serving.transport import _Stats, _serve_coalesced, _serve_socket
 from ..utils import get_logger, resolve_device
 from .inference_eeg2video import load_pipeline
@@ -155,6 +166,42 @@ def build_parser():
                         "pre-scaled")
     p.add_argument("--hidden", type=int, default=10000,
                    help="semantic MLP hidden width")
+    p.add_argument("--seq2seq_ckpt", default=None,
+                   help="Seq2Seq .pt state dict (reference keys, e.g. from "
+                        "convert.from_jax.seq2seq_state_dict_from_jax): loads "
+                        "the EEG->latent transformer once so requests can "
+                        "send {'raw': eeg.npy} instead of precomputed latent "
+                        "artifacts (with --flow_scores this is the "
+                        "reference's FULL model path, Seq2Seq + DANA, served "
+                        "warm)")
+    p.add_argument("--torch_seq2seq", default=None,
+                   help="reference seq2seqmodel.pt instead of "
+                        "--seq2seq_ckpt")
+    p.add_argument("--seq2seq_scaler", default=None,
+                   help="eeg_scaler.npz of the Seq2Seq training (train-"
+                        "split EEG z-score stats); omit if raw requests "
+                        "arrive pre-scaled")
+    p.add_argument("--seq2seq_stats", default=None,
+                   help="stats.npz from --normalize training: predicted "
+                        "latents are de-normalized mean_z/std_z")
+    p.add_argument("--seq2seq_frames", type=int, default=6,
+                   help="Seq2Seq rollout length (must match the diffusion "
+                        "--video_length)")
+    p.add_argument("--seq2seq_latent", default="4,36,64",
+                   help="C,H,W of one predicted latent frame (must match "
+                        "--height/--width // 8)")
+    p.add_argument("--flow_scores", default=None,
+                   help="optical-flow score table (the shipped (7, 200) "
+                        "All_video_optical_flow_score.npy, or (N,) per-"
+                        "clip scores for segment-form requests): raw "
+                        "requests then default to DANA noising "
+                        "(reference add_noise.py:100-129); per-request "
+                        "'flow_scores'/'dana'/'dana_seed' override")
+    p.add_argument("--dana_threshold", type=float, default=1.799,
+                   help="fast-motion flow cut (reference add_noise.py:107)")
+    p.add_argument("--dana_seed", type=int, default=3407,
+                   help="DANA noising seed (reference add_noise.py:81)")
+    p.add_argument("--dana_time_steps", type=int, default=500)
     p.add_argument("--semantic_int8", action="store_true",
                    help="weight-only-int8 semantic serving (ops/"
                         "int8_dense): weights quantize once at startup, a "
@@ -189,14 +236,17 @@ def warmup(pipe, args):
     log.info("warmup done in %.1fs", time.time() - t0)
 
 
-def serve(pipe, args, semantic_predict=None, on_ready=None):
+def serve(pipe, args, semantic_predict=None, on_ready=None, seq2seq_predict=None):
     """Serve requests against an already-built pipeline (and, optionally, a
-    warm semantic predictor from ``runtimes.make_semantic_predict``) until a
-    shutdown; ``main`` calls this after loading. ``args`` is a namespace
-    from ``build_parser``. ``on_ready`` (optional) is called with the ready
-    line of the socket transport, which carries the bound port."""
+    warm semantic predictor from ``runtimes.make_semantic_predict`` and a warm
+    Seq2Seq from ``runtimes.make_seq2seq_predict``) until a shutdown; ``main``
+    calls this after loading. ``args`` is a namespace from ``build_parser``.
+    ``on_ready`` (optional) is called with the ready line of the socket
+    transport, which carries the bound port."""
     if semantic_predict is not None:
         args.semantic_predict = semantic_predict
+    if seq2seq_predict is not None:
+        args.seq2seq_predict = seq2seq_predict
     if args.warmup:
         warmup(pipe, args)
     stats = _Stats()
@@ -254,7 +304,12 @@ def main(argv=None):
         log.info("loading semantic predictor (hidden=%d%s)", args.hidden,
                  ", int8" if args.semantic_int8 else "")
         semantic_predict = _load_semantic(args)
-    return serve(pipe, args, semantic_predict)
+    seq2seq_predict = None
+    if args.seq2seq_ckpt or args.torch_seq2seq:
+        log.info("loading seq2seq predictor (frames=%d, latent=%s)",
+                 args.seq2seq_frames, args.seq2seq_latent)
+        seq2seq_predict = _load_seq2seq(args)
+    return serve(pipe, args, semantic_predict, seq2seq_predict=seq2seq_predict)
 
 
 if __name__ == "__main__":

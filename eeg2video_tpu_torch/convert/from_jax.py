@@ -1,7 +1,8 @@
 """JAX parameter trees -> the port's state dicts.
 
 The port's modules carry the diffusers / reference key names, so the
-numpy-only exporters in ``convert.export_diffusion`` give the mapping; this
+numpy-only exporters in ``convert.export_diffusion`` and
+``convert.export_torch`` give the mapping; this
 module turns their arrays into tensors. Flax trees arrive as nested dicts of
 numpy arrays (``jax.device_get`` of the parameters, or a restored orbax
 checkpoint converted by the caller): nothing here imports jax.
@@ -13,6 +14,7 @@ import numpy as np
 import torch
 
 from .export_diffusion import unet3d_to_torch, vae_to_torch
+from .export_torch import seq2seq_to_torch
 
 
 def _tensors(sd, dtype):
@@ -52,3 +54,13 @@ def semantic_state_dict_from_jax(params, dtype=torch.float32):
         sd[f"{name}.weight"] = np.transpose(np.asarray(leaf["kernel"]))
         sd[f"{name}.bias"] = np.asarray(leaf["bias"])
     return _tensors(sd, dtype)
+
+
+def seq2seq_state_dict_from_jax(variables):
+    """Flax Seq2SeqTransformer variables (``params`` and ``batch_stats``: the
+    EEGNet embedding's BatchNorm running statistics) -> ``Seq2SeqTransformer``
+    state dict in the reference's keys, float32 (``num_batches_tracked`` stays
+    an integer)."""
+    return {k: torch.from_numpy(np.array(v, dtype=np.int64 if v.dtype.kind == "i"
+                                         else np.float32))
+            for k, v in seq2seq_to_torch(variables).items()}

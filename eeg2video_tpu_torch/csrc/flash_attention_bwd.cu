@@ -1,398 +1,48 @@
 // flash_attention_bwd: backward of the packed multi-head attention over one
-// or two KV segments (flash_attention.cu), unbiased gradients.
+// or two KV segments (flash_attention.cu), with the optional gradient of
+// bias0. The kernels are flash_bwd.cuh, instantiated here for the packed
+// (., L, H*D) layout.
 //
 // Replaces (JAX package, eeg2video_tpu/ops/attention.py):
 //   _packed_dqkv_kernel (:1021), the combined backward _flash_bwd_packed
 //   (:1114) launches for unbiased attention; _packed_dq_kernel (:902) and
-//   _packed_dkv_kernel (:957), the same gradients as split passes; and the
-//   two-segment backward _flash_attention_dual_bwd (:789), which concatenates
-//   [K0 | K_prev] and sums dk0/dv0 over the m frames afterwards.
-//   The dbias output of the split passes is not computed here: a bias is
-//   read for the score recompute only.
-//
-// From q, k0/v0 (shared by the m query groups of a batch element), optional
-// k1/v1 (per query group), dout, out, the forward's lse (natural log) and an
-// optional bias0, per head:
-//   p  = exp(scale q k^T + bias - lse)           (recomputed, never stored)
-//   dv = p^T dout
-//   ds = p * (dout v^T - delta) * scale,          delta = rowsum(dout * out)
-//   dq = ds k,   dk = ds^T q
-// and dk0/dv0 add up the m query groups that shared K0/V0.
-//
-// Two passes, each owning its output tile, so every sum has a fixed order
-// and no float atomics are needed (same bits every run):
-//   dq pass : one block = 64 query rows of one head; it walks all KV tiles
-//             of both segments. It also computes delta for its rows and
-//             writes it to a (N, H, Lq) f32 scratch for the second pass.
-//   dkv pass: one block = 64 KV rows of one head of one segment; it walks
-//             every query tile that attended them (all m groups for segment
-//             0, one group for segment 1). Launched once per segment.
-// The TPU's combined body shares one score recompute between dq and dk/dv by
-// keeping a whole sequence resident; no SM holds that, so the split form (the
-// JAX package's own fallback) is the one carried over: five products in the
-// forward's units become seven (the scores and dout v^T are formed twice).
-// All products are bf16 WMMA tiles with f32 accumulation; gradients are
-// rounded to bf16 once, from the f32 accumulators, which live in registers
-// (DP/16 fragments in the dq pass, 2 DP/16 in the dkv pass). D is padded to
-// a multiple of 16 in shared memory only.
-#include "common.cuh"
+//   _packed_dkv_kernel (:957), the same gradients as split passes, with the
+//   bias in the score recompute and the dbias output of the biased variant
+//   (:1005-1007, :1017-1018, launched at :1253-1275); and the two-segment
+//   backward _flash_attention_dual_bwd (:789), which concatenates
+//   [K0 | K_prev] and sums dk0/dv0 (and dbias0) over the m frames afterwards.
+#include "flash_bwd.cuh"
 
 namespace e2v {
 namespace {
 
-constexpr int kBQ = 64;   // query rows per tile
-constexpr int kBKV = 64;  // KV rows per tile
-constexpr int kWarps = 4;
-constexpr int kThreads = kWarps * 32;
-constexpr int kLDS = 64 + 4;  // f32 score tile leading dim
-constexpr int kLDP = 64 + 8;  // bf16 probability tile leading dim
-
-struct BwdArgs {
-  const bf16 *q, *k0, *v0, *k1, *v1, *dout, *out;
-  const float* lse;    // (N, H, Lq) natural log
-  const float* bias0;  // (N / m, Lkv0) f32 or null
-  float* delta;        // (N, H, Lq) scratch: written by the dq pass
-  bf16 *dq, *dk0, *dv0, *dk1, *dv1;  // contiguous (N, Lq, hd), (N/m, Lkv0, hd), (N, Lkv1, hd)
-  long long q_so, q_si, do_so, do_si, o_so, o_si;  // strides of (n / m, n % m)
-  long long k0_so, v0_so, k1_so, k1_si, v1_so, v1_si;
-  int m, lq, lkv0, lkv1, head_dim, hd, heads;
-  float scale, scale_log2;
-};
-
-template <int DP>
-constexpr size_t bwd_smem_bytes(int bf16_tiles_per_warp) {
-  return (size_t)4 * 64 * (DP + 8) * sizeof(bf16) +
-         (size_t)kWarps * 16 * (2 * kLDS * sizeof(float) +
-                                bf16_tiles_per_warp * kLDP * sizeof(bf16)) +
-         (size_t)2 * 64 * sizeof(float);
-}
-
-// one 16x16 f32 accumulator tile -> bf16 rows of a packed gradient, through
-// a per-warp staging tile; rows past nrows and columns past D are dropped
-__device__ __forceinline__ void store_grad_tile(bf16* dst, int hd, const FragC& acc,
-                                                float* stage, int row0, int nrows, int d0,
-                                                int D, int lane) {
-  wmma::store_matrix_sync(stage, acc, 16, wmma::mem_row_major);
-  __syncwarp();
-  for (int e = lane; e < 256; e += 32) {
-    const int row = row0 + e / 16, d = d0 + e % 16;
-    if (row < nrows && d < D) dst[(long long)row * hd + d] = __float2bfloat16(stage[e]);
-  }
-  __syncwarp();
-}
-
-template <int DP>
-__global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(const BwdArgs a) {
-  constexpr int LDQ = DP + 8;
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem);
-  bf16* dOs = Qs + kBQ * LDQ;
-  bf16* Ks = dOs + kBQ * LDQ;
-  bf16* Vs = Ks + kBKV * LDQ;
-  float* Ss = reinterpret_cast<float*>(Vs + kBKV * LDQ);
-  float* dPs = Ss + kWarps * 16 * kLDS;
-  bf16* dSs = reinterpret_cast<bf16*>(dPs + kWarps * 16 * kLDS);
-  float* lse_s = reinterpret_cast<float*>(dSs + kWarps * 16 * kLDP);
-  float* delta_s = lse_s + 64;
-
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int q0 = blockIdx.x * kBQ;
-  const int h = blockIdx.y;
-  const int n = blockIdx.z;
-  const int nb = n / a.m, nj = n % a.m;
-  const int D = a.head_dim;
-  const long long hoff = (long long)h * D;
-  const long long stat = ((long long)n * a.heads + h) * a.lq;
-
-  load_rows<DP, kThreads>(Qs, a.q + nb * a.q_so + nj * a.q_si + hoff, a.hd, q0, a.lq, D);
-  load_rows<DP, kThreads>(dOs, a.dout + nb * a.do_so + nj * a.do_si + hoff, a.hd, q0, a.lq, D);
-  load_rows<DP, kThreads>(Ks, a.out + nb * a.o_so + nj * a.o_si + hoff, a.hd, q0, a.lq, D);
-  __syncthreads();
-  // delta = rowsum(dout * out) of this warp's 16 rows; lse in base-2 units,
-  // +inf for rows past Lq so that their recomputed probabilities are 0
-  for (int r = 0; r < 16; ++r) {
-    const int lr = warp * 16 + r;
-    float s = 0.0f;
-    for (int d = lane; d < DP; d += 32)
-      s += __bfloat162float(dOs[lr * LDQ + d]) * __bfloat162float(Ks[lr * LDQ + d]);
-    s = warp_sum(s);
-    if (lane == 0) {
-      const int row = q0 + lr;
-      delta_s[lr] = s;
-      lse_s[lr] = row < a.lq ? a.lse[stat + row] * kLog2e : INFINITY;
-      if (row < a.lq) a.delta[stat + row] = s;
-    }
-  }
-
-  float* Sw = Ss + warp * 16 * kLDS;
-  float* dPw = dPs + warp * 16 * kLDS;
-  bf16* dSw = dSs + warp * 16 * kLDP;
-  FragC acc[DP / 16];
-#pragma unroll
-  for (int j = 0; j < DP / 16; ++j) wmma::fill_fragment(acc[j], 0.0f);
-
-  for (int seg = 0; seg < 2; ++seg) {
-    const bf16 *kb, *vb;
-    const float* bias = nullptr;
-    int lkv;
-    if (seg == 0) {
-      kb = a.k0 + nb * a.k0_so + hoff;
-      vb = a.v0 + nb * a.v0_so + hoff;
-      lkv = a.lkv0;
-      if (a.bias0 != nullptr) bias = a.bias0 + (long long)nb * a.lkv0;
-    } else {
-      if (a.k1 == nullptr) break;
-      kb = a.k1 + nb * a.k1_so + nj * a.k1_si + hoff;
-      vb = a.v1 + nb * a.v1_so + nj * a.v1_si + hoff;
-      lkv = a.lkv1;
-    }
-    for (int kv0 = 0; kv0 < lkv; kv0 += kBKV) {
-      __syncthreads();  // the previous tile's K/V (first: the out tile) are done with
-      load_rows<DP, kThreads>(Ks, kb, a.hd, kv0, lkv, D);
-      load_rows<DP, kThreads>(Vs, vb, a.hd, kv0, lkv, D);
-      __syncthreads();
-
-      // S = Q K^T and dP = dO V^T for this warp's 16 query rows
-#pragma unroll
-      for (int j = 0; j < kBKV / 16; ++j) {
-        FragC cs, cp;
-        wmma::fill_fragment(cs, 0.0f);
-        wmma::fill_fragment(cp, 0.0f);
-#pragma unroll
-        for (int kk = 0; kk < DP / 16; ++kk) {
-          FragA fa;
-          FragBCol fb;
-          wmma::load_matrix_sync(fa, Qs + warp * 16 * LDQ + kk * 16, LDQ);
-          wmma::load_matrix_sync(fb, Ks + j * 16 * LDQ + kk * 16, LDQ);
-          wmma::mma_sync(cs, fa, fb, cs);
-          wmma::load_matrix_sync(fa, dOs + warp * 16 * LDQ + kk * 16, LDQ);
-          wmma::load_matrix_sync(fb, Vs + j * 16 * LDQ + kk * 16, LDQ);
-          wmma::mma_sync(cp, fa, fb, cp);
-        }
-        wmma::store_matrix_sync(Sw + j * 16, cs, kLDS, wmma::mem_row_major);
-        wmma::store_matrix_sync(dPw + j * 16, cp, kLDS, wmma::mem_row_major);
-      }
-      __syncwarp();
-
-      // dS = P * (dP - delta) * scale, P = exp2(S - lse)
-#pragma unroll
-      for (int r = 0; r < 16; ++r) {
-        const float l2 = lse_s[warp * 16 + r], dl = delta_s[warp * 16 + r];
-#pragma unroll
-        for (int t = 0; t < 2; ++t) {
-          const int c = lane + 32 * t;
-          const int col = kv0 + c;
-          float ds = 0.0f;
-          if (col < lkv) {
-            float s2 = Sw[r * kLDS + c] * a.scale_log2;
-            if (bias != nullptr) s2 += bias[col] * kLog2e;
-            ds = exp2f(s2 - l2) * (dPw[r * kLDS + c] - dl) * a.scale;
-          }
-          dSw[r * kLDP + c] = __float2bfloat16(ds);
-        }
-      }
-      __syncwarp();
-
-      // dQ += dS K
-#pragma unroll
-      for (int j = 0; j < DP / 16; ++j) {
-#pragma unroll
-        for (int kk = 0; kk < kBKV / 16; ++kk) {
-          FragA fa;
-          FragBRow fb;
-          wmma::load_matrix_sync(fa, dSw + kk * 16, kLDP);
-          wmma::load_matrix_sync(fb, Ks + kk * 16 * LDQ + j * 16, LDQ);
-          wmma::mma_sync(acc[j], fa, fb, acc[j]);
-        }
-      }
-      __syncwarp();
-    }
-  }
-
-  bf16* dqb = a.dq + (long long)n * a.lq * a.hd + hoff;
-#pragma unroll
-  for (int j = 0; j < DP / 16; ++j)
-    store_grad_tile(dqb, a.hd, acc[j], Sw, q0 + warp * 16, a.lq, j * 16, D, lane);
-}
-
-// seg 0: blockIdx.z is the batch element whose K0/V0 tile this block owns,
-// and the m query groups that shared it are walked in order; seg 1:
-// blockIdx.z is the query group n.
-template <int DP>
-__global__ void __launch_bounds__(kThreads)
-    flash_bwd_dkv_kernel(const BwdArgs a, const int seg) {
-  constexpr int LDQ = DP + 8;
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem);
-  bf16* dOs = Qs + kBQ * LDQ;
-  bf16* Ks = dOs + kBQ * LDQ;
-  bf16* Vs = Ks + kBKV * LDQ;
-  float* Ss = reinterpret_cast<float*>(Vs + kBKV * LDQ);
-  float* dPs = Ss + kWarps * 16 * kLDS;
-  bf16* Ps = reinterpret_cast<bf16*>(dPs + kWarps * 16 * kLDS);
-  bf16* dSs = Ps + kWarps * 16 * kLDP;
-  float* lse_s = reinterpret_cast<float*>(dSs + kWarps * 16 * kLDP);
-  float* delta_s = lse_s + 64;
-
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int kv0 = blockIdx.x * kBKV;
-  const int h = blockIdx.y;
-  const int owner = blockIdx.z;
-  const int D = a.head_dim;
-  const long long hoff = (long long)h * D;
-
-  const bf16 *kb, *vb;
-  const float* bias = nullptr;
-  bf16 *dkb, *dvb;
-  int lkv, n_first, n_count;
-  if (seg == 0) {
-    kb = a.k0 + owner * a.k0_so + hoff;
-    vb = a.v0 + owner * a.v0_so + hoff;
-    lkv = a.lkv0;
-    if (a.bias0 != nullptr) bias = a.bias0 + (long long)owner * a.lkv0;
-    dkb = a.dk0 + (long long)owner * lkv * a.hd + hoff;
-    dvb = a.dv0 + (long long)owner * lkv * a.hd + hoff;
-    n_first = owner * a.m;
-    n_count = a.m;
-  } else {
-    const int nb = owner / a.m, nj = owner % a.m;
-    kb = a.k1 + nb * a.k1_so + nj * a.k1_si + hoff;
-    vb = a.v1 + nb * a.v1_so + nj * a.v1_si + hoff;
-    lkv = a.lkv1;
-    dkb = a.dk1 + (long long)owner * lkv * a.hd + hoff;
-    dvb = a.dv1 + (long long)owner * lkv * a.hd + hoff;
-    n_first = owner;
-    n_count = 1;
-  }
-  load_rows<DP, kThreads>(Ks, kb, a.hd, kv0, lkv, D);
-  load_rows<DP, kThreads>(Vs, vb, a.hd, kv0, lkv, D);
-
-  float* Sw = Ss + warp * 16 * kLDS;
-  float* dPw = dPs + warp * 16 * kLDS;
-  bf16* Pw = Ps + warp * 16 * kLDP;
-  bf16* dSw = dSs + warp * 16 * kLDP;
-  FragC accK[DP / 16], accV[DP / 16];
-#pragma unroll
-  for (int j = 0; j < DP / 16; ++j) {
-    wmma::fill_fragment(accK[j], 0.0f);
-    wmma::fill_fragment(accV[j], 0.0f);
-  }
-
-  for (int n = n_first; n < n_first + n_count; ++n) {
-    const int nb = n / a.m, nj = n % a.m;
-    const bf16* qb = a.q + nb * a.q_so + nj * a.q_si + hoff;
-    const bf16* dob = a.dout + nb * a.do_so + nj * a.do_si + hoff;
-    const long long stat = ((long long)n * a.heads + h) * a.lq;
-    for (int q0 = 0; q0 < a.lq; q0 += kBQ) {
-      __syncthreads();  // the previous query tile is done with
-      load_rows<DP, kThreads>(Qs, qb, a.hd, q0, a.lq, D);
-      load_rows<DP, kThreads>(dOs, dob, a.hd, q0, a.lq, D);
-      if (threadIdx.x < 64) {
-        const int row = q0 + threadIdx.x;
-        lse_s[threadIdx.x] = row < a.lq ? a.lse[stat + row] * kLog2e : INFINITY;
-        delta_s[threadIdx.x] = row < a.lq ? a.delta[stat + row] : 0.0f;
-      }
-      __syncthreads();
-
-      // S^T = K Q^T and dP^T = V dO^T for this warp's 16 KV rows
-#pragma unroll
-      for (int j = 0; j < kBQ / 16; ++j) {
-        FragC cs, cp;
-        wmma::fill_fragment(cs, 0.0f);
-        wmma::fill_fragment(cp, 0.0f);
-#pragma unroll
-        for (int kk = 0; kk < DP / 16; ++kk) {
-          FragA fa;
-          FragBCol fb;
-          wmma::load_matrix_sync(fa, Ks + warp * 16 * LDQ + kk * 16, LDQ);
-          wmma::load_matrix_sync(fb, Qs + j * 16 * LDQ + kk * 16, LDQ);
-          wmma::mma_sync(cs, fa, fb, cs);
-          wmma::load_matrix_sync(fa, Vs + warp * 16 * LDQ + kk * 16, LDQ);
-          wmma::load_matrix_sync(fb, dOs + j * 16 * LDQ + kk * 16, LDQ);
-          wmma::mma_sync(cp, fa, fb, cp);
-        }
-        wmma::store_matrix_sync(Sw + j * 16, cs, kLDS, wmma::mem_row_major);
-        wmma::store_matrix_sync(dPw + j * 16, cp, kLDS, wmma::mem_row_major);
-      }
-      __syncwarp();
-
-#pragma unroll
-      for (int r = 0; r < 16; ++r) {
-        const int col = kv0 + warp * 16 + r;  // this KV row
-        const bool valid = col < lkv;
-        const float b2 = (valid && bias != nullptr) ? bias[col] * kLog2e : 0.0f;
-#pragma unroll
-        for (int t = 0; t < 2; ++t) {
-          const int c = lane + 32 * t;  // query row within the tile
-          float p = 0.0f;
-          if (valid) p = exp2f(Sw[r * kLDS + c] * a.scale_log2 + b2 - lse_s[c]);
-          const float ds = p * (dPw[r * kLDS + c] - delta_s[c]) * a.scale;
-          Pw[r * kLDP + c] = __float2bfloat16(p);
-          dSw[r * kLDP + c] = __float2bfloat16(ds);
-        }
-      }
-      __syncwarp();
-
-      // dV += P^T dO, dK += dS^T Q
-#pragma unroll
-      for (int j = 0; j < DP / 16; ++j) {
-#pragma unroll
-        for (int kk = 0; kk < kBQ / 16; ++kk) {
-          FragA fa;
-          FragBRow fb;
-          wmma::load_matrix_sync(fa, Pw + kk * 16, kLDP);
-          wmma::load_matrix_sync(fb, dOs + kk * 16 * LDQ + j * 16, LDQ);
-          wmma::mma_sync(accV[j], fa, fb, accV[j]);
-          wmma::load_matrix_sync(fa, dSw + kk * 16, kLDP);
-          wmma::load_matrix_sync(fb, Qs + kk * 16 * LDQ + j * 16, LDQ);
-          wmma::mma_sync(accK[j], fa, fb, accK[j]);
-        }
-      }
-      __syncwarp();
-    }
-  }
-
-#pragma unroll
-  for (int j = 0; j < DP / 16; ++j) {
-    store_grad_tile(dkb, a.hd, accK[j], Sw, kv0 + warp * 16, lkv, j * 16, D, lane);
-    store_grad_tile(dvb, a.hd, accV[j], Sw, kv0 + warp * 16, lkv, j * 16, D, lane);
-  }
-}
-
-template <int DP>
-int launch_bwd(const BwdArgs& a, int n_total, cudaStream_t stream) {
-  const size_t smem_dq = bwd_smem_bytes<DP>(1), smem_dkv = bwd_smem_bytes<DP>(2);
-  cudaError_t err = cudaFuncSetAttribute(flash_bwd_dq_kernel<DP>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)smem_dq);
-  if (err != cudaSuccess) return (int)err;
-  err = cudaFuncSetAttribute(flash_bwd_dkv_kernel<DP>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_dkv);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid_q((a.lq + kBQ - 1) / kBQ, a.heads, n_total);
-  flash_bwd_dq_kernel<DP><<<grid_q, kThreads, smem_dq, stream>>>(a);
-  const dim3 grid_0((a.lkv0 + kBKV - 1) / kBKV, a.heads, n_total / a.m);
-  flash_bwd_dkv_kernel<DP><<<grid_0, kThreads, smem_dkv, stream>>>(a, 0);
-  if (a.k1 != nullptr) {
-    const dim3 grid_1((a.lkv1 + kBKV - 1) / kBKV, a.heads, n_total);
-    flash_bwd_dkv_kernel<DP><<<grid_1, kThreads, smem_dkv, stream>>>(a, 1);
-  }
-  return (int)cudaGetLastError();
+// dbias0[b, col] = the H per-head partials of the segment-0 dkv pass, added
+// in head order (a fixed order: same bits every run)
+__global__ void flash_bwd_dbias_kernel(const float* part, float* dbias, int heads, int lkv,
+                                       int total) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= total) return;
+  const int b = i / lkv, col = i % lkv;
+  float s = 0.0f;
+  for (int h = 0; h < heads; ++h) s += part[((long long)b * heads + h) * lkv + col];
+  dbias[i] = s;
 }
 
 }  // namespace
 }  // namespace e2v
 
-// ptrs: q, k0, v0, k1, v1, dout, out, lse, bias0, delta, dq, dk0, dv0, dk1, dv1
-// (k1, v1, dk1, dv1 and bias0 may be null). strides, in elements: q_so, q_si,
-// do_so, do_si, o_so, o_si, k0_so, v0_so, k1_so, k1_si, v1_so, v1_si. dims:
-// n_total, m, lq, lkv0, lkv1, heads, head_dim. Every row is heads * head_dim
+// ptrs: q, k0, v0, k1, v1, dout, out, lse, bias0, delta, dq, dk0, dv0, dk1,
+// dv1, dbias_part, dbias (k1, v1, dk1, dv1 and bias0 may be null; dbias_part
+// (N / m, H, Lkv0) and dbias (N / m, Lkv0), both f32, are null unless the
+// gradient of bias0 is wanted). strides, in elements: q_so, q_si, do_so,
+// do_si, o_so, o_si, k0_so, v0_so, k1_so, k1_si, v1_so, v1_si. dims: n_total,
+// m, lq, lkv0, lkv1, heads, head_dim. Every row is heads * head_dim
 // contiguous bf16 values; the gradient outputs are contiguous. Returns the
 // CUDA launch status.
 extern "C" int e2v_flash_attention_bwd(void* const* ptrs, const long long* strides,
                                        const int* dims, float scale, void* stream) {
   using namespace e2v;
-  BwdArgs a;
+  BwdArgs a = {};
   a.q = static_cast<const bf16*>(ptrs[0]);
   a.k0 = static_cast<const bf16*>(ptrs[1]);
   a.v0 = static_cast<const bf16*>(ptrs[2]);
@@ -408,6 +58,8 @@ extern "C" int e2v_flash_attention_bwd(void* const* ptrs, const long long* strid
   a.dv0 = static_cast<bf16*>(ptrs[12]);
   a.dk1 = static_cast<bf16*>(ptrs[13]);
   a.dv1 = static_cast<bf16*>(ptrs[14]);
+  a.dbias_part = static_cast<float*>(ptrs[15]);
+  float* dbias = static_cast<float*>(ptrs[16]);
   a.q_so = strides[0];
   a.q_si = strides[1];
   a.do_so = strides[2];
@@ -431,17 +83,10 @@ extern "C" int e2v_flash_attention_bwd(void* const* ptrs, const long long* strid
   a.scale = scale;
   a.scale_log2 = scale * kLog2e;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch ((a.head_dim + 15) / 16) {
-    case 1: return launch_bwd<16>(a, n_total, s);
-    case 2: return launch_bwd<32>(a, n_total, s);
-    case 3: return launch_bwd<48>(a, n_total, s);
-    case 4: return launch_bwd<64>(a, n_total, s);
-    case 5: return launch_bwd<80>(a, n_total, s);
-    case 6: return launch_bwd<96>(a, n_total, s);
-    case 7: return launch_bwd<112>(a, n_total, s);
-    case 8: return launch_bwd<128>(a, n_total, s);
-    case 9: return launch_bwd<144>(a, n_total, s);
-    case 10: return launch_bwd<160>(a, n_total, s);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  const int rc = dispatch_bwd<false>(a, n_total, s);
+  if (rc != 0 || a.dbias_part == nullptr) return rc;
+  const int total = n_total / a.m * a.lkv0;
+  flash_bwd_dbias_kernel<<<(total + 255) / 256, 256, 0, s>>>(a.dbias_part, dbias, a.heads,
+                                                             a.lkv0, total);
+  return (int)cudaGetLastError();
 }

@@ -40,6 +40,10 @@ SIGNATURES = {
                                 P, P, LL, LL, I, I, I, I, I, I, I, F, P, P],
     "e2v_flash_attention_bwd": [ctypes.POINTER(P), ctypes.POINTER(LL),
                                 ctypes.POINTER(I), F, P],
+    "e2v_fused_attention_fwd": [P, LL, LL, P, LL, LL, P, LL, LL, P, LL, LL,
+                                I, I, I, I, I, F, P, P],
+    "e2v_fused_attention_bwd": [ctypes.POINTER(P), ctypes.POINTER(LL),
+                                ctypes.POINTER(I), F, P],
     "e2v_temporal_attention_fwd": [P, P, P, P, LL, LL, I, I, I, I, I, F, P],
     "e2v_temporal_attention_bwd": [P, P, P, P, P, P, P, LL, LL, I, I, I, I, I, F, P],
     "e2v_ff_ln": [P, P, P, P, P, P, P, P, I, I, I, F, P],
@@ -50,7 +54,11 @@ SIGNATURES = {
     "e2v_int8_dense": [P, P, P, P, P, P, P, I, I, I, I, I, I, P],
 }
 
+# "flash_attention_bwd_dbias" counts those launches of flash_attention_bwd
+# that also wrote the gradient of bias0 (it is no kernel of its own)
 launches = {"flash_attention_fwd": 0, "flash_attention_bwd": 0,
+            "flash_attention_bwd_dbias": 0,
+            "fused_attention_fwd": 0, "fused_attention_bwd": 0,
             "temporal_attention_fwd": 0, "temporal_attention_bwd": 0,
             "ff_ln": 0, "ff_ln_bwd": 0, "geglu_out": 0, "geglu_out_bwd": 0,
             "conv3x3_gn_silu": 0, "int8_dense": 0}

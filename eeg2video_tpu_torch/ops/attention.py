@@ -1,6 +1,8 @@
-"""Packed multi-head attention: ``flash_attention_fwd`` and
+"""Multi-head attention. Packed operands: ``flash_attention_fwd`` and
 ``flash_attention_bwd`` (CUDA kernels), their plain PyTorch versions, and the
-differentiable ``flash_attention`` over both.
+differentiable ``flash_attention`` over both. Head-major (B, H, L, D)
+operands: ``fused_attention_fwd`` / ``fused_attention_bwd``, their plain
+versions and the differentiable ``fused_attention`` (at the end of the file).
 
 Counterpart of ``eeg2video_tpu/ops/attention.py``: ``fused_attention_packed``
 (one KV segment) and ``fused_attention_dual`` (sparse-causal [K0 | K_prev])
@@ -20,8 +22,10 @@ accepted as long as each row is H*D contiguous values, so frame slices of a
 The backward takes what the forward saved (q, k, v, out and the row
 log-sum-exp ``lse`` (N, H, Lq), f32, natural log) and returns dq, dk0, dv0
 (summed over the m groups that shared K0/V0) and dk1, dv1. A bias is used in
-the score recompute; its own gradient is not computed (``flash_attention``
-raises if it requires one).
+the score recompute; with ``need_dbias`` its own gradient comes back too:
+dbias0 = the sum over the m groups, the heads and the query rows of
+p * (dout v^T - delta) on segment 0's columns (ds before the scale factor),
+in bias0's shape and dtype.
 """
 
 from __future__ import annotations
@@ -35,6 +39,9 @@ from . import _build
 
 KERNEL = "flash_attention_fwd"
 KERNEL_BWD = "flash_attention_bwd"
+KERNEL_BWD_DBIAS = "flash_attention_bwd_dbias"  # the launches of it that write dbias0
+KERNEL_BHLD = "fused_attention_fwd"
+KERNEL_BHLD_BWD = "fused_attention_bwd"
 
 
 def _as4(t, m):
@@ -90,12 +97,15 @@ def flash_attention_plain(q, k0, v0, heads, *, k1=None, v1=None, bias0=None,
 
 
 def flash_attention_bwd_plain(q, k0, v0, heads, dout, out, lse, *, k1=None,
-                              v1=None, bias0=None, scale=None):
+                              v1=None, bias0=None, scale=None, need_dbias=False):
     """The backward's written-out formula in plain PyTorch, f32, from the
     same residuals the kernel takes: p = exp(logits - lse), delta =
     rowsum(dout * out), dv = p^T dout, ds = p (dout v^T - delta) scale,
-    dq = ds k, dk = ds^T q; dk0/dv0 summed over the m groups. Returns
-    (dq, dk0, dv0, dk1, dv1) in the operands' dtype and shapes."""
+    dq = ds k, dk = ds^T q; dk0/dv0 summed over the m groups; dbias0 = ds /
+    scale summed over the m groups, heads and query rows on segment 0's
+    columns. Returns (dq, dk0, dv0, dk1, dv1, dbias0) in the operands' dtype
+    and shapes (dk1, dv1 None without segment 1, dbias0 None unless
+    ``need_dbias``)."""
     m = _groups(q)
     q4 = _as4(q, m)
     b, _, lq, hd = q4.shape
@@ -110,7 +120,11 @@ def flash_attention_bwd_plain(q, k0, v0, heads, dout, out, lse, *, k1=None,
     qh, kh, vh = (_heads_split(t, heads) for t in (q4.float(), k, v))
     doh = _heads_split(_as4(dout, m).float(), heads)
     delta = (doh * _heads_split(_as4(out, m).float(), heads)).sum(dim=-1, keepdim=True)
-    ds = p * (doh @ vh.transpose(-1, -2) - delta) * scale
+    ds_nat = p * (doh @ vh.transpose(-1, -2) - delta)
+    ds = ds_nat * scale
+    dbias0 = None
+    if need_dbias:
+        dbias0 = ds_nat[..., :lkv0].sum(dim=(1, 2, 3)).to(bias0.dtype).reshape(bias0.shape)
 
     def merge(t):  # (b, m, H, n, D) -> (b, m, n, H*D)
         return t.transpose(2, 3).reshape(b, m, t.shape[3], hd)
@@ -119,9 +133,9 @@ def flash_attention_bwd_plain(q, k0, v0, heads, dout, out, lse, *, k1=None,
     dk, dv = merge(ds.transpose(-1, -2) @ qh), merge(p.transpose(-1, -2) @ doh)
     dk0, dv0 = (t[:, :, :lkv0].sum(dim=1).to(k0.dtype) for t in (dk, dv))
     if k1 is None:
-        return dq, dk0, dv0, None, None
+        return dq, dk0, dv0, None, None, dbias0
     dk1, dv1 = (t[:, :, lkv0:].to(k1.dtype).reshape(k1.shape) for t in (dk, dv))
-    return dq, dk0, dv0, dk1, dv1
+    return dq, dk0, dv0, dk1, dv1, dbias0
 
 
 def _kernel_views(kernel, q, k0, v0, k1, v1, heads, extra=()):
@@ -205,14 +219,16 @@ def flash_attention_fwd(q, k0, v0, heads, *, k1=None, v1=None, bias0=None,
 
 
 def flash_attention_bwd(q, k0, v0, heads, dout, out, lse, *, k1=None, v1=None,
-                        bias0=None, scale=None):
-    """(dq, dk0, dv0, dk1, dv1) of ``flash_attention_fwd`` from its operands,
-    its output, its ``lse`` and the output's gradient. A CUDA tensor launches
-    the kernel (bf16 operands, f32 lse); a CPU tensor takes
-    ``flash_attention_bwd_plain``."""
+                        bias0=None, scale=None, need_dbias=False):
+    """(dq, dk0, dv0, dk1, dv1, dbias0) of ``flash_attention_fwd`` from its
+    operands, its output, its ``lse`` and the output's gradient; dbias0 is
+    None unless ``need_dbias``. A CUDA tensor launches the kernel (bf16
+    operands, f32 lse); a CPU tensor takes ``flash_attention_bwd_plain``."""
+    if need_dbias and bias0 is None:
+        raise ValueError("flash_attention_bwd: need_dbias without a bias0")
     if not q.is_cuda:
-        return flash_attention_bwd_plain(q, k0, v0, heads, dout, out, lse, k1=k1,
-                                         v1=v1, bias0=bias0, scale=scale)
+        return flash_attention_bwd_plain(q, k0, v0, heads, dout, out, lse, k1=k1, v1=v1,
+                                         bias0=bias0, scale=scale, need_dbias=need_dbias)
     if dout.stride(-1) != 1 or dout.stride(-2) != dout.shape[-1]:
         dout = dout.contiguous()
     m, b, lq, d, q4, k04, v04, k14, v14, (do4, o4) = _kernel_views(
@@ -233,7 +249,14 @@ def flash_attention_bwd(q, k0, v0, heads, dout, out, lse, *, k1=None, v1=None,
     if k1 is not None:
         dk1 = torch.empty(k1.shape, dtype=k1.dtype, device=dev)
         dv1 = torch.empty(v1.shape, dtype=v1.dtype, device=dev)
-    ptrs = [q4, k04, v04, k14, v14, do4, o4, lse, bias, delta, dq, dk0, dv0, dk1, dv1]
+    # dbias0: per-head partials (b, H, Lkv0) from the segment-0 dkv pass,
+    # added in head order by a short third pass into (b, Lkv0), both f32
+    dbias_part = dbias = None
+    if need_dbias:
+        dbias_part = torch.empty((b, heads, k0.shape[1]), dtype=torch.float32, device=dev)
+        dbias = torch.empty((b, k0.shape[1]), dtype=torch.float32, device=dev)
+    ptrs = [q4, k04, v04, k14, v14, do4, o4, lse, bias, delta, dq, dk0, dv0, dk1, dv1,
+            dbias_part, dbias]
     strides = [q4.stride(0), q4.stride(1), do4.stride(0), do4.stride(1),
                o4.stride(0), o4.stride(1), k04.stride(0), v04.stride(0)]
     strides += [0, 0, 0, 0] if k1 is None else [k14.stride(0), k14.stride(1),
@@ -245,7 +268,10 @@ def flash_attention_bwd(q, k0, v0, heads, dout, out, lse, *, k1=None, v1=None,
         (ctypes.c_int * len(dims))(*dims), float(scale), _build.stream_of(q))
     _build.check(rc, KERNEL_BWD)
     _build.launches[KERNEL_BWD] += 1
-    return dq, dk0, dv0, dk1, dv1
+    if need_dbias:
+        _build.launches[KERNEL_BWD_DBIAS] += 1
+        dbias = dbias.to(bias0.dtype).reshape(bias0.shape)
+    return dq, dk0, dv0, dk1, dv1, dbias
 
 
 class _FlashAttention(torch.autograd.Function):
@@ -262,21 +288,150 @@ class _FlashAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dout):
         q, k0, v0, k1, v1, bias0, out, lse = ctx.saved_tensors
-        dq, dk0, dv0, dk1, dv1 = flash_attention_bwd(
+        dq, dk0, dv0, dk1, dv1, dbias0 = flash_attention_bwd(
             q, k0, v0, ctx.heads, dout, out, lse, k1=k1, v1=v1, bias0=bias0,
-            scale=ctx.scale)
-        return dq, dk0, dv0, dk1, dv1, None, None, None
+            scale=ctx.scale, need_dbias=bias0 is not None and ctx.needs_input_grad[5])
+        return dq, dk0, dv0, dk1, dv1, dbias0, None, None
 
 
 def flash_attention(q, k0, v0, heads, *, k1=None, v1=None, bias0=None, scale=None):
     """Differentiable attention: ``flash_attention_fwd`` where no operand
-    asks for a gradient, else the forward with lse and the backward kernel
-    behind one ``autograd.Function``."""
-    operands = [t for t in (q, k0, v0, k1, v1) if t is not None]
+    (bias0 included) asks for a gradient, else the forward with lse and the
+    backward kernel behind one ``autograd.Function``."""
+    operands = [t for t in (q, k0, v0, k1, v1, bias0) if t is not None]
     if not (torch.is_grad_enabled() and any(t.requires_grad for t in operands)):
         return flash_attention_fwd(q, k0, v0, heads, k1=k1, v1=v1, bias0=bias0,
                                    scale=scale)
-    if bias0 is not None and bias0.requires_grad:
-        raise NotImplementedError(
-            "flash_attention: the gradient of bias0 (dbias) is not ported")
     return _FlashAttention.apply(q, k0, v0, k1, v1, bias0, heads, scale)
+
+
+# --- head-major (B, H, L, D) operands ---------------------------------------
+# Counterpart of ``fused_attention`` of the JAX package (ops/attention.py:386)
+# and the flash forward/backward behind it: q (B, H, Lq, D), k/v (B, H, Lkv,
+# D), no bias, default scale 1/sqrt(D). The kernels read the operands in
+# place (any batch and head strides; a row is D contiguous values) and the
+# gradients come back contiguous. The JAX dispatch sends Lq < 256 to plain
+# XLA; here every shape goes to the kernel.
+
+def fused_attention_plain(q, k, v, scale=None, return_lse=False):
+    """softmax(scale q k^T) v per (b, h) in plain PyTorch: f32 math, q's
+    dtype out (and, with ``return_lse``, the f32 (B, H, Lq) log-sum-exp)."""
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[-1])
+    logits = q.float() @ k.float().transpose(-1, -2) * scale
+    out = (torch.softmax(logits, dim=-1) @ v.float()).to(q.dtype)
+    return (out, torch.logsumexp(logits, dim=-1)) if return_lse else out
+
+
+def fused_attention_bwd_plain(q, k, v, dout, out, lse, scale=None):
+    """(dq, dk, dv) in plain PyTorch, f32, from the residuals the kernel
+    takes: p = exp(scale q k^T - lse), delta = rowsum(dout * out), dv = p^T
+    dout, ds = p (dout v^T - delta) scale, dq = ds k, dk = ds^T q."""
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[-1])
+    qf, kf, vf, dof = q.float(), k.float(), v.float(), dout.float()
+    p = torch.exp(qf @ kf.transpose(-1, -2) * scale - lse.float()[..., None])
+    delta = (dof * out.float()).sum(dim=-1, keepdim=True)
+    ds = p * (dof @ vf.transpose(-1, -2) - delta) * scale
+    return ((ds @ kf).to(q.dtype), (ds.transpose(-1, -2) @ qf).to(k.dtype),
+            (p.transpose(-1, -2) @ dof).to(v.dtype))
+
+
+def _bhld_checks(kernel, q, k, v, extra=()):
+    req = _build.require
+    req(q.dim() == 4 and k.dim() == 4 and v.shape == k.shape, kernel,
+        "operands must be (B, H, Lq, D) and (B, H, Lkv, D)")
+    b, h, lq, d = q.shape
+    req(k.shape[:2] == (b, h) and k.shape[3] == d, kernel,
+        "q and k/v must share batch, heads and head_dim")
+    # a row is D bf16 values: 16-byte vector loads need D * 2 % 16 == 0
+    req(d % 8 == 0 and d <= 160, kernel,
+        f"head_dim {d} must be a multiple of 8 and <= 160")
+    for t in (q, k, v, *extra):
+        req(t.is_cuda and t.dtype == torch.bfloat16, kernel,
+            "operands must be bf16 CUDA tensors")
+        req(t.stride(3) == 1 and t.stride(2) == d, kernel,
+            "rows must be D contiguous values with row stride D")
+        req(t.stride(0) % 8 == 0 and t.stride(1) % 8 == 0 and t.data_ptr() % 16 == 0,
+            kernel, "batch and head strides must keep 16-byte row alignment")
+    for t in extra:
+        req(t.shape == q.shape, kernel, "out and dout must have q's shape")
+    return b, h, lq, k.shape[2], d
+
+
+def fused_attention_fwd(q, k, v, scale=None, return_lse=False):
+    """softmax(scale q k^T) v over (B, H, L, D) operands, read in place. A
+    CUDA tensor launches the kernel (bf16); a CPU tensor takes
+    ``fused_attention_plain``. With ``return_lse`` the f32 (B, H, Lq) row
+    log-sum-exp comes back as well."""
+    if not q.is_cuda:
+        return fused_attention_plain(q, k, v, scale, return_lse)
+    b, h, lq, lkv, d = _bhld_checks(KERNEL_BHLD, q, k, v)
+    if scale is None:
+        scale = 1.0 / math.sqrt(d)
+    out = torch.empty((b, h, lq, d), dtype=q.dtype, device=q.device)
+    lse = (torch.empty((b, h, lq), dtype=torch.float32, device=q.device)
+           if return_lse else None)
+    rc = _build.library().e2v_fused_attention_fwd(
+        q.data_ptr(), q.stride(0), q.stride(1), k.data_ptr(), k.stride(0), k.stride(1),
+        v.data_ptr(), v.stride(0), v.stride(1), out.data_ptr(), out.stride(0), out.stride(1),
+        b, h, lq, lkv, d, float(scale), _build.ptr(lse), _build.stream_of(q))
+    _build.check(rc, KERNEL_BHLD)
+    _build.launches[KERNEL_BHLD] += 1
+    return (out, lse) if return_lse else out
+
+
+def fused_attention_bwd(q, k, v, dout, out, lse, scale=None):
+    """(dq, dk, dv) of ``fused_attention_fwd`` from its operands, its output,
+    its ``lse`` and the output's gradient. A CUDA tensor launches the kernel;
+    a CPU tensor takes ``fused_attention_bwd_plain``."""
+    if not q.is_cuda:
+        return fused_attention_bwd_plain(q, k, v, dout, out, lse, scale)
+    if dout.stride(3) != 1 or dout.stride(2) != dout.shape[3]:
+        dout = dout.contiguous()
+    b, h, lq, lkv, d = _bhld_checks(KERNEL_BHLD_BWD, q, k, v, extra=(dout, out))
+    if scale is None:
+        scale = 1.0 / math.sqrt(d)
+    _build.require(lse.is_cuda and lse.dtype == torch.float32 and lse.shape == (b, h, lq)
+                   and lse.is_contiguous(), KERNEL_BHLD_BWD,
+                   "lse must be a contiguous f32 (B, H, Lq)")
+    delta = torch.empty_like(lse)
+    dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    dk = torch.empty(k.shape, dtype=k.dtype, device=q.device)
+    dv = torch.empty(v.shape, dtype=v.dtype, device=q.device)
+    ptrs = [q, k, v, dout, out, lse, delta, dq, dk, dv]
+    strides = [s for t in (q, k, v, dout, out) for s in (t.stride(0), t.stride(1))]
+    dims = [b, h, lq, lkv, d]
+    rc = _build.library().e2v_fused_attention_bwd(
+        (ctypes.c_void_p * len(ptrs))(*[t.data_ptr() for t in ptrs]),
+        (ctypes.c_longlong * len(strides))(*strides),
+        (ctypes.c_int * len(dims))(*dims), float(scale), _build.stream_of(q))
+    _build.check(rc, KERNEL_BHLD_BWD)
+    _build.launches[KERNEL_BHLD_BWD] += 1
+    return dq, dk, dv
+
+
+class _FusedAttention(torch.autograd.Function):
+    """``fused_attention_fwd`` with lse saved, ``fused_attention_bwd`` behind."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale):
+        out, lse = fused_attention_fwd(q, k, v, scale, return_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.scale = scale
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        return (*fused_attention_bwd(q, k, v, dout, out, lse, ctx.scale), None)
+
+
+def fused_attention(q, k, v, scale=None):
+    """Differentiable (B, H, Lq, D) x (B, H, Lkv, D) -> (B, H, Lq, D)
+    attention: ``fused_attention_fwd`` where no operand asks for a gradient,
+    else the forward with lse and the backward kernel behind one
+    ``autograd.Function``."""
+    if not (torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v))):
+        return fused_attention_fwd(q, k, v, scale)
+    return _FusedAttention.apply(q, k, v, scale)

@@ -100,6 +100,116 @@ def test_flash_attention_lse_and_backward_match_plain(gen, n, m, lq, lkv0, lkv1,
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("n,m,lq,lkv0,lkv1,hd,heads", [
+    (2, 1, 300, 130, 0, 320, 8),   # one segment, D = 40, query and KV tails
+    (2, 3, 100, 100, 90, 128, 8),  # two segments: dbias0 summed over the m = 3 groups
+    (1, 2, 70, 77, 0, 320, 2),     # D = 160, two groups on one shared segment
+    (2, 1, 150, 150, 0, 640, 8),   # D = 80, one segment
+    (2, 2, 150, 150, 140, 640, 8),  # D = 80, two segments
+])
+def test_flash_attention_dbias_matches_plain(gen, n, m, lq, lkv0, lkv1, hd, heads):
+    """The gradient of bias0: mask-like values (0 / -1e4 holes) plus dense noise, so that
+    it is not trivially 0; the other gradients keep the bits of the call without dbias."""
+    q = _rand(gen, n, m, lq, hd) if m > 1 else _rand(gen, n, lq, hd)
+    k0, v0 = _rand(gen, n, lkv0, hd), _rand(gen, n, lkv0, hd)
+    k1 = _rand(gen, n, m, lkv1, hd) if lkv1 else None
+    v1 = _rand(gen, n, m, lkv1, hd) if lkv1 else None
+    b0 = _rand(gen, n, 1, lkv0, scale=0.5, dtype=torch.float32)
+    b0[:, :, ::7] = -1e4
+    dout = _rand(gen, *q.shape)
+    out, lse = attention.flash_attention_fwd(q, k0, v0, heads, k1=k1, v1=v1, bias0=b0,
+                                             return_lse=True)
+    got = attention.flash_attention_bwd(q, k0, v0, heads, dout, out, lse, k1=k1, v1=v1,
+                                        bias0=b0, need_dbias=True)
+    q32, k032, v032, k132, v132 = _f32([q, k0, v0, k1, v1])
+    ref = attention.flash_attention_bwd_plain(q32, k032, v032, heads, dout.float(),
+                                              out.float(), lse, k1=k132, v1=v132, bias0=b0,
+                                              need_dbias=True)
+    assert got[5].shape == b0.shape and got[5].dtype == b0.dtype
+    assert bool((got[5][:, :, ::7] == 0).all()) and float(got[5].abs().max()) > 0
+    for g, r in zip(got, ref):
+        assert (g is None) == (r is None)
+        if g is not None:
+            assert g.shape == r.shape and _err(g, r) < BOUND
+    again = attention.flash_attention_bwd(q, k0, v0, heads, dout, out, lse, k1=k1, v1=v1,
+                                          bias0=b0, need_dbias=True)
+    assert all(a is None or torch.equal(a, b) for a, b in zip(again, got))  # no atomics
+    without = attention.flash_attention_bwd(q, k0, v0, heads, dout, out, lse, k1=k1, v1=v1,
+                                            bias0=b0)
+    assert without[5] is None
+    assert all(a is None or torch.equal(a, b) for a, b in zip(without[:5], got[:5]))
+
+
+@pytest.mark.gpu
+def test_flash_attention_function_returns_the_bias_gradient(gen):
+    """The differentiable call with a bias that asks for a gradient, on a two-segment call:
+    all six gradients against autograd through the plain version."""
+    b, m, l, hd, heads = 2, 2, 70, 64, 8
+    q, k1, v1 = (_rand(gen, b, m, l, hd).requires_grad_() for _ in range(3))
+    k0, v0 = (_rand(gen, b, l, hd).requires_grad_() for _ in range(2))
+    bias = _rand(gen, b, 1, l, dtype=torch.float32).requires_grad_()
+    leaves = [q, k0, v0, k1, v1, bias]
+    ref = [t.detach().float().requires_grad_() for t in leaves]
+    out = attention.flash_attention(q, k0, v0, heads, k1=k1, v1=v1, bias0=bias)
+    want = attention.flash_attention_plain(ref[0], ref[1], ref[2], heads, k1=ref[3], v1=ref[4],
+                                           bias0=ref[5])
+    dout = _rand(gen, *out.shape)
+    got = torch.autograd.grad(out, leaves, dout)
+    wanted = torch.autograd.grad(want, ref, dout.float())
+    for g, w in zip(got, wanted):
+        assert g.shape == w.shape and _err(g, w) < BOUND
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,h,lq,lkv,d", [
+    (1, 2, 300, 450, 40),   # D = 40 (padded to 48), query and KV tails
+    (2, 8, 256, 512, 40),
+    (2, 3, 70, 77, 8),      # D = 8, short sequences
+    (1, 2, 130, 64, 160),   # D = 160
+])
+def test_fused_attention_matches_plain(gen, b, h, lq, lkv, d):
+    q, k, v, dout = _rand(gen, b, h, lq, d), _rand(gen, b, h, lkv, d), _rand(gen, b, h, lkv, d), \
+        _rand(gen, b, h, lq, d)
+    out, lse = attention.fused_attention_fwd(q, k, v, return_lse=True)
+    want, want_lse = attention.fused_attention_plain(*_f32([q, k, v]), return_lse=True)
+    assert out.shape == q.shape and out.is_contiguous() and _err(out, want) < BOUND
+    assert (lse - want_lse).abs().max().item() < 1e-3  # f32 both sides, absolute
+    assert torch.equal(attention.fused_attention_fwd(q, k, v), out)  # the no-lse instantiation
+    got = attention.fused_attention_bwd(q, k, v, dout, out, lse)
+    ref = attention.fused_attention_bwd_plain(*_f32([q, k, v, dout, out]), lse)
+    for g, r in zip(got, ref):
+        assert g.shape == r.shape and _err(g, r) < BOUND
+    again = attention.fused_attention_bwd(q, k, v, dout, out, lse)
+    assert all(torch.equal(a, b_) for a, b_ in zip(again, got))  # no atomics
+
+
+@pytest.mark.gpu
+def test_fused_attention_function_reads_strided_heads_in_place(gen):
+    """The differentiable call on head slices of a wider (B, 2H, L, D) tensor (batch and
+    head strides that are not the contiguous ones) and a custom scale, against autograd
+    through the plain version; what the kernel does not take raises."""
+    b, h, lq, lkv, d = 2, 3, 100, 90, 40
+    wide_q, wide_k, wide_v = (_rand(gen, b, 2 * h, l, d).requires_grad_() for l in (lq, lkv, lkv))
+    ref = [t.detach().float().requires_grad_() for t in (wide_q, wide_k, wide_v)]
+    out = attention.fused_attention(wide_q[:, ::2], wide_k[:, h:], wide_v[:, :h], scale=0.2)
+    want = attention.fused_attention_plain(ref[0][:, ::2], ref[1][:, h:], ref[2][:, :h], scale=0.2)
+    dout = _rand(gen, *out.shape)
+    got = torch.autograd.grad(out, [wide_q, wide_k, wide_v], dout)
+    wanted = torch.autograd.grad(want, ref, dout.float())
+    assert _err(out, want) < BOUND
+    for g, w in zip(got, wanted):
+        assert _err(g, w) < BOUND
+    q = wide_q.detach()
+    with pytest.raises(ValueError, match="row stride"):
+        attention.fused_attention(q.transpose(1, 2), q.transpose(1, 2), q.transpose(1, 2))
+    with pytest.raises(ValueError, match="bf16"):
+        attention.fused_attention(q.float(), q.float(), q.float())
+    with pytest.raises(ValueError, match="multiple of 8"):
+        attention.fused_attention(q[..., :4].contiguous(), q[..., :4].contiguous(),
+                                  q[..., :4].contiguous())
+
+
+@pytest.mark.gpu
 def test_flash_attention_function_takes_strided_frame_slices(gen):
     """The differentiable call on frame slices of one (B, F, L, H*D) projection, as the
     sparse-causal attention makes it: gradients against autograd through the plain version."""

@@ -196,6 +196,44 @@ def test_tiny_unet_parity(tiny_unet):
     np.testing.assert_allclose(out.numpy(), ref, **MODEL_TOL)
 
 
+def test_micro_unet_mask_gradient_parity():
+    """The gradient of a loss with respect to a soft ``attention_mask`` through the
+    training layouts (``train=True``), at the two-level micro config (every block
+    class, a quarter of tiny's compile time): in the JAX package it is the dbias of
+    the biased Pallas backward (interpret mode) carried back through the per-level
+    mask resampling; in the port the bias gradient of ``flash_attention`` (its plain
+    version here) through the same resampling."""
+    rng = np.random.default_rng(17)
+    hw = (20, 32)
+    sample, w = rand(rng, 1, 3, *hw, 4), rand(rng, 1, 3, *hw, 4)
+    ctx = rand(rng, 1, 7, 16)
+    t = np.asarray([500], np.int32)
+    mask = (0.2 + 0.8 * rng.random((1,) + hw)).astype(np.float32)
+    mask[:, :6, :9] = 0.0  # a hole: bias -1e4 there
+
+    jcfg = JUNetConfig.micro()
+    cfg = UNet3DConfig(**{f.name: getattr(jcfg, f.name)
+                          for f in dataclasses.fields(UNet3DConfig)})
+    jmodel = JUNet(jcfg)
+    params = random_params(jmodel, 18, sample, jnp.asarray(t), ctx)
+
+    def jloss(m):
+        out = jmodel.apply({"params": params}, sample, t, ctx, attention_mask=m, train=True)
+        return jnp.sum(out * w)
+
+    want = np.asarray(jax.jit(jax.grad(jloss))(jnp.asarray(mask)))
+    mod = _port_unet(params, cfg)
+    m = torch.from_numpy(mask).requires_grad_()
+    out = mod(torch.from_numpy(sample), torch.from_numpy(t), torch.from_numpy(ctx),
+              attention_mask=m, train=True)
+    (out * torch.from_numpy(w)).sum().backward()
+    assert m.grad.shape == mask.shape and np.abs(want).max() > 0
+    # the bias is (1 - m) * -1e4, so the entries span many orders of magnitude: the
+    # model tolerance is taken relative to the gradient's largest entry
+    scale = np.abs(want).max()
+    np.testing.assert_allclose(m.grad.numpy() / scale, want / scale, **MODEL_TOL)
+
+
 @pytest.fixture(scope="module")
 def tiny_vae():
     return random_params(JVAE(JVAEConfig.tiny()), 8, np.zeros((1, 16, 16, 3), np.float32))

@@ -227,24 +227,34 @@ def test_server_matches_jax_server(monkeypatch, world, mode, extra):
 
 
 def test_raw_requests_get_a_not_ported_reply(monkeypatch, world):
+    """A raw request to a server started without the predictor it needs gets a
+    per-request error reply, and the server keeps going (the test's name dates from
+    when every raw request was refused; the raw-EEG stages themselves are held in
+    tests/test_torch_raw.py)."""
     monkeypatch.setattr(serve, "load_pipeline", lambda *a, **k: world.pipe)
+    feats, emb = str(world.tmp / "feats.npy"), str(world.tmp / "emb.npy")
     replies = _run_stdin(monkeypatch, serve.main, [*SIZE, "--device", "cpu"], [
-        json.dumps({"id": "r", "raw": str(world.tmp / "feats.npy")}),
-        json.dumps({"id": "f", "features": str(world.tmp / "feats.npy")}),
+        json.dumps({"id": "r", "raw": feats}),
+        json.dumps({"id": "re", "raw": feats, "embeddings": emb}),
+        json.dumps({"id": "f", "features": feats}),
         json.dumps({"cmd": "shutdown"})])
     assert replies[0] == {"ok": True, "ready": True}
-    assert not replies[1]["ok"] and "not ported yet" in replies[1]["error"]
-    assert "raw-EEG requests" in replies[1]["error"]
-    # no semantic checkpoint loaded: per-request error, the server keeps going
-    assert not replies[2]["ok"] and "--semantic_ckpt" in replies[2]["error"]
-    assert replies[3]["bye"]
+    assert not replies[1]["ok"] and "not ported" not in replies[1]["error"]
+    assert "deriving embeddings from 'raw' needs the semantic predictor" in replies[1]["error"]
+    assert not replies[2]["ok"] and "--seq2seq_ckpt/--torch_seq2seq" in replies[2]["error"]
+    assert not replies[3]["ok"] and "--semantic_ckpt" in replies[3]["error"]
+    assert replies[4]["bye"]
 
 
 def test_parser_rejects_flags_of_modules_not_ported():
-    for flag in (["--seq2seq_ckpt", "x"], ["--flow_scores", "x"], ["--dana_seed", "1"],
-                 ["--dp", "2"], ["--tp", "2"], ["--sp", "2"]):
+    """The multi-GPU flags are refused; the raw-EEG flags parse with the JAX defaults."""
+    for flag in (["--dp", "2"], ["--tp", "2"], ["--sp", "2"]):
         with pytest.raises(SystemExit):
             serve.build_parser().parse_args(flag)
+    # the raw-EEG flags are ported and parse
+    args = serve.build_parser().parse_args(["--seq2seq_ckpt", "x", "--flow_scores", "y",
+                                            "--dana_seed", "1"])
+    assert (args.seq2seq_ckpt, args.flow_scores, args.dana_seed) == ("x", "y", 1)
     jax_defaults = vars(SimpleNamespace(
         num_inference_steps=100, sampler="ddim", guidance_scale=12.5, height=288, width=512,
         video_length=6, seed=114514, gif_encoder="native", max_batch=1, max_queue=256,
@@ -415,7 +425,11 @@ def test_no_module_of_the_port_imports_jax():
             "eeg2video_tpu_torch.ops.int8_dense", "eeg2video_tpu_torch.ops.temporal",
             "eeg2video_tpu_torch.train.videodiffusion", "eeg2video_tpu_torch.train.checkpoint",
             "eeg2video_tpu_torch.cli.train_tuneavideo",
-            "eeg2video_tpu_torch.utils.metrics_logger"} <= set(names)
+            "eeg2video_tpu_torch.utils.metrics_logger",
+            "eeg2video_tpu_torch.dsp.de_psd", "eeg2video_tpu_torch.dsp.segment",
+            "eeg2video_tpu_torch.models.seq2seq", "eeg2video_tpu_torch.train.seq2seq",
+            "eeg2video_tpu_torch.diffusion.dana",
+            "eeg2video_tpu_torch.convert.export_torch"} <= set(names)
     code = "\n".join([
         "import importlib, sys",
         "before = set(sys.modules)",

@@ -14,7 +14,7 @@ chip_smoke.py).
 Tolerances: 2e-5 absolute for forward outputs and lse (float32 summation
 order); gradients 5e-5 relative to the gradient's largest entry (the Pallas
 backward bodies recompute base-2 scores and use a rational erf, each good to
-about 1e-6 relative).
+about 1e-6 relative), 2e-5 for the bias gradient and the head-major op.
 """
 
 import math
@@ -62,7 +62,7 @@ def test_one_segment_lse_and_backward_match_pallas(n, lq, lkv, heads, d):
     np.testing.assert_allclose(out.numpy(), np.asarray(jout), atol=FWD_TOL, rtol=0)
     np.testing.assert_allclose(lse.numpy(), np.asarray(jlse), atol=FWD_TOL, rtol=0)
     jgrads = ja._flash_bwd_packed(q, k, v, do, jout, jlse, scale, heads, interpret=True)
-    dq, dk0, dv0, dk1, dv1 = attention.flash_attention_bwd(
+    dq, dk0, dv0, dk1, dv1, _ = attention.flash_attention_bwd(
         tt(q), tt(k), tt(v), heads, tt(do), tt(np.asarray(jout)), tt(np.asarray(jlse)))
     assert dk1 is None and dv1 is None
     for got, want in zip((dq, dk0, dv0), jgrads):
@@ -188,13 +188,141 @@ def test_flash_attention_function_is_consistent_with_its_plain_forward(two_segme
 
 
 def test_flash_attention_refuses_a_bias_that_asks_for_a_gradient():
+    """The one refusal left is ``need_dbias`` without a ``bias0`` to differentiate
+    (the test's name dates from when every bias gradient was refused). A bias
+    that asks for a gradient gets it, equal to
+    autograd through the plain forward, and under ``no_grad`` the forward alone
+    runs."""
     rng = np.random.default_rng(6)
     q, k0, v0 = _leaves(rng, (1, 4, 16), (1, 4, 16), (1, 4, 16))
     b0 = tt(rand(rng, 1, 1, 4)).requires_grad_()
-    with pytest.raises(NotImplementedError, match="dbias"):
-        attention.flash_attention(q, k0, v0, 2, bias0=b0)
+    out = attention.flash_attention(q, k0, v0, 2, bias0=b0)
+    lse = attention.flash_attention_fwd(q, k0, v0, 2, bias0=b0, return_lse=True)[1]
+    with pytest.raises(ValueError, match="need_dbias without a bias0"):
+        attention.flash_attention_bwd(q, k0, v0, 2, out, out, lse, need_dbias=True)
+    want = attention.flash_attention_plain(q, k0, v0, 2, bias0=b0)
+    dout = tt(rand(rng, 1, 4, 16))
+    for g, w in zip(torch.autograd.grad(out, [q, k0, v0, b0], dout),
+                    torch.autograd.grad(want, [q, k0, v0, b0], dout)):
+        assert_grad_close(g.numpy(), w.numpy(), rtol=1e-5)
     with torch.no_grad():  # the forward alone takes it
         assert attention.flash_attention(q, k0, v0, 2, bias0=b0).shape == q.shape
+
+
+# --- the gradient of the bias (dbias0) against the Pallas biased backward ------
+
+def _mask_bias(rng, *shape):
+    """The mask contract's values (0 / -1e4 holes) plus small dense noise, so
+    that the gradient of the bias is not trivially 0."""
+    holes = (rng.random(shape) < 0.2).astype(np.float32) * -1e4
+    return holes + rand(rng, *shape, scale=0.5)
+
+
+@pytest.mark.parametrize("n,lq,lkv,heads,d", [(2, 256, 512, 4, 40), (1, 300, 450, 2, 40)])
+def test_one_segment_dbias_matches_jax_grad_of_the_packed_call(n, lq, lkv, heads, d):
+    """All four gradients of the biased call against ``jax.grad`` of
+    ``fused_attention_packed`` (its split dq / dkv Pallas passes in interpret
+    mode, dbias from the dkv pass); 2e-5 of the gradient's largest entry."""
+    rng = np.random.default_rng(9)
+    hd = heads * d
+    q, k, v, w = rand(rng, n, lq, hd), rand(rng, n, lkv, hd), rand(rng, n, lkv, hd), \
+        rand(rng, n, lq, hd)
+    bias = _mask_bias(rng, n, 1, lkv)
+
+    def jloss(q, k, v, b):
+        return jnp.sum(ja.fused_attention_packed(q, k, v, heads, bias=b) * w)
+
+    jgrads = jax.grad(jloss, argnums=(0, 1, 2, 3))(q, k, v, bias)
+    ops = [tt(a).requires_grad_() for a in (q, k, v, bias)]
+    out = attention.flash_attention(ops[0], ops[1], ops[2], heads, bias0=ops[3])
+    grads = torch.autograd.grad(out, ops, tt(w))
+    assert grads[3].shape == bias.shape and float(grads[3].abs().max()) > 0
+    for got, want in zip(grads, jgrads):
+        assert_grad_close(got.numpy(), want, rtol=2e-5)
+    # the same gradient from the backward's own entry point and residuals
+    o, lse = attention.flash_attention_fwd(ops[0], ops[1], ops[2], heads, bias0=ops[3],
+                                           return_lse=True)
+    dbias = attention.flash_attention_bwd(
+        *(t.detach() for t in ops[:3]), heads, tt(w), o.detach(), lse.detach(),
+        bias0=ops[3].detach(), need_dbias=True)[5]
+    assert_grad_close(dbias.numpy(), jgrads[3], rtol=2e-5)
+
+
+@pytest.mark.parametrize("b,l,lkv,heads,d", [(2, 256, 256, 4, 40), (1, 300, 225, 2, 40)])
+def test_two_segment_dbias0_is_summed_over_the_frames_as_jax_sums_it(b, l, lkv, heads, d):
+    """m = 2 query groups share K0 and bias0. The JAX model's masked training
+    path is the concat formulation (``fused_attention_packed`` over [K0 | K1]
+    with the bias [bias0 | 0] repeated per frame, models/attention3d.py:258-269):
+    ``jax.grad`` with respect to bias0 adds the frames' contributions."""
+    rng = np.random.default_rng(10)
+    m, hd = 2, heads * d
+    q, w = rand(rng, b * m, l, hd), rand(rng, b * m, l, hd)
+    k1, v1 = rand(rng, b * m, lkv, hd), rand(rng, b * m, lkv, hd)
+    k0, v0 = rand(rng, b, lkv, hd), rand(rng, b, lkv, hd)
+    bias0 = _mask_bias(rng, b, 1, lkv)
+
+    def jloss(q, k0, v0, k1, v1, b0):
+        rep = lambda t: jnp.repeat(t, m, axis=0)
+        kg, vg = jnp.concatenate([rep(k0), k1], axis=1), jnp.concatenate([rep(v0), v1], axis=1)
+        bias = rep(jnp.concatenate([b0, jnp.zeros_like(b0)], axis=-1))
+        return jnp.sum(ja.fused_attention_packed(q, kg, vg, heads, bias=bias) * w)
+
+    jgrads = jax.grad(jloss, argnums=(0, 1, 2, 3, 4, 5))(q, k0, v0, k1, v1, bias0)
+    # the port takes the m groups as an axis: (b, m, L, H*D)
+    grouped = lambda a: tt(a).unflatten(0, (b, m))
+    ops = [t.requires_grad_() for t in (grouped(q), tt(k0), tt(v0), grouped(k1), grouped(v1),
+                                        tt(bias0))]
+    out = attention.flash_attention(ops[0], ops[1], ops[2], heads, k1=ops[3], v1=ops[4],
+                                    bias0=ops[5])
+    grads = torch.autograd.grad(out, ops, grouped(w))
+    assert grads[5].shape == bias0.shape
+    for got, want in zip(grads, jgrads):
+        assert_grad_close(got.numpy().reshape(want.shape), want, rtol=2e-5)
+
+
+# --- head-major (B, H, L, D) attention against the JAX package's flash kernels --
+
+@pytest.mark.parametrize("b,h,lq,lkv,d", [
+    (1, 2, 256, 512, 40),   # padded head dim on the TPU
+    (2, 2, 300, 600, 64),   # lengths off the kernel's blocks
+    (1, 2, 300, 450, 40),   # the ragged backward case
+])
+def test_fused_attention_matches_the_pallas_flash_kernels(b, h, lq, lkv, d):
+    """``fused_attention`` (plain version on the CPU) and its gradients against
+    ``_flash_attention`` and ``jax.grad`` of it (Pallas forward, dq and dk/dv
+    kernels in interpret mode), and the backward's own entry point against the
+    same gradients from the forward's residuals; 2e-5."""
+    rng = np.random.default_rng(11)
+    q, k, v, w = rand(rng, b, h, lq, d), rand(rng, b, h, lkv, d), rand(rng, b, h, lkv, d), \
+        rand(rng, b, h, lq, d)
+    scale = 1.0 / math.sqrt(d)
+    jout = ja._flash_attention(q, k, v, scale)
+    jgrads = jax.grad(lambda q, k, v: jnp.sum(ja._flash_attention(q, k, v, scale) * w),
+                      argnums=(0, 1, 2))(q, k, v)
+    ops = [tt(a).requires_grad_() for a in (q, k, v)]
+    out = attention.fused_attention(*ops)
+    np.testing.assert_allclose(out.detach().numpy(), np.asarray(jout), atol=FWD_TOL, rtol=0)
+    for got, want in zip(torch.autograd.grad(out, ops, tt(w)), jgrads):
+        assert_grad_close(got.numpy(), want, rtol=2e-5)
+    o, lse = attention.fused_attention_fwd(tt(q), tt(k), tt(v), return_lse=True)
+    assert lse.shape == (b, h, lq) and lse.dtype == torch.float32
+    for got, want in zip(attention.fused_attention_bwd(tt(q), tt(k), tt(v), tt(w), o, lse),
+                         jgrads):
+        assert_grad_close(got.numpy(), want, rtol=2e-5)
+
+
+def test_fused_attention_matches_mha_reference_on_short_sequences():
+    """Lq = 6 (the temporal-attention shape): the JAX dispatch sends it to
+    ``mha_reference``; the port has one route for every length. A custom scale
+    goes through both."""
+    rng = np.random.default_rng(12)
+    q, k, v = (rand(rng, 2, 4, 6, 40) for _ in range(3))
+    for scale in (None, 0.3):
+        want = ja.fused_attention(q, k, v, scale)
+        got = attention.fused_attention(tt(q), tt(k), tt(v), scale)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=FWD_TOL, rtol=0)
+    from eeg2video_tpu_torch import ops
+    assert ops.fused_attention is attention.fused_attention
 
 
 def test_temporal_attention_function_is_consistent_with_its_plain_forward():
