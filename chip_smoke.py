@@ -179,6 +179,16 @@ def phase_build(build):
         fail(f"build: {e}")
     say(f"build: ok, kernels {t1 - t0:.1f} s (nvcc), GIF encoder {time.perf_counter() - t1:.1f} s "
         f"(g++)")
+    log = build.build_log()
+    secs = sorted(build.source_seconds(log).items(), key=lambda kv: -kv[1])
+    say(f"build: seconds to each source's end, slowest first: "
+        f"{', '.join(f'{name} {s:.1f}' for name, s in secs)}")
+    # the attention kernels' registers and spills (-Xptxas -v)
+    res = {k: v for k, v in build.kernel_resources(log).items() if k.startswith("flash_")}
+    spilled = {k: v for k, v in res.items() if v[1] or v[2]}
+    say(f"build: {len(res)} attention kernels, registers (spill stores, loads in bytes): "
+        f"{'; '.join(f'{k} {r} ({st}, {ld})' for k, (r, st, ld) in sorted(res.items()))}; "
+        f"{len(spilled)} spill")
 
 
 def kernel_cases(torch, dev):
@@ -433,6 +443,23 @@ def kernel_cases(torch, dev):
     fused(f"D=160 ({tb},8,144,160)x144", tb, 8, 144, 144, 160)
     fused("ragged (1,2,300,40)x450", 1, 2, 300, 450, 40)
 
+    # the tile edges of the redesigned attention kernels: Lq and Lkv that are
+    # not multiples of the 64- and 128-row tiles (77, 40, 144, the ragged
+    # case above), at every head dim the dispatch pads differently (D = 8, 40,
+    # 80, 160); forward without and with lse, backward, and a bias gradient
+    attn("edge D=40 Lq=40 (2,40,320)x77", r(2, 40, 320), r(2, 77, 320), r(2, 77, 320))
+    attn_train("edge D=8 (2,77,64)x40", r(2, 77, 64), r(2, 40, 64), r(2, 40, 64))
+    attn_train("edge D=80 (2,2,144,640)x[144|144]", r(2, 2, 144, 640), r(2, 144, 640),
+               r(2, 144, 640), k1=r(2, 2, 144, 640), v1=r(2, 2, 144, 640))
+    attn_train("edge D=160 (2,4,40,1280)x[40|40]", r(2, 4, 40, 1280), r(2, 40, 1280),
+               r(2, 40, 1280), k1=r(2, 4, 40, 1280), v1=r(2, 4, 40, 1280))
+    attn_train("edge D=160 (2,144,1280)x77", r(2, 144, 1280), r(2, 77, 1280), r(2, 77, 1280))
+    attn_dbias("edge D=40 +dbias (2,2,144,320)x[77|77] bias0 (2,1,77)", r(2, 2, 144, 320),
+               r(2, 77, 320), r(2, 77, 320), k1=r(2, 2, 77, 320), v1=r(2, 2, 77, 320))
+    fused("edge D=8 (2,8,77,8)x40", 2, 8, 77, 40, 8)
+    fused("edge D=80 (2,8,144,80)x77", 2, 8, 144, 77, 80)
+    fused("edge D=160 (2,8,40,160)x144", 2, 8, 40, 144, 160)
+
     # temporal attention: bound by memory, 4 tensors forward and 7 backward;
     # operations: the F*F dot products and weighted sums per token and head.
     # The yardstick: one scaled_dot_product_attention call over the frames on
@@ -516,6 +543,11 @@ def phase_kernels(torch):
                                             ("kernel", "label", "kern", "plain", "args"))
         got = [t for t in _outputs(kern()) if t is not None]
         torch.cuda.synchronize()
+        if kernel.endswith("_bwd"):  # every sum in a fixed order: the same bits twice
+            again = [t for t in _outputs(kern()) if t is not None]
+            if not all(torch.equal(a, b) for a, b in zip(got, again)):
+                fail(f"kernels: {kernel} [{label}]: two runs gave different bits")
+            del again
         # the plain version on f32 copies of the bf16 operands (int8_dense
         # takes f32 activations and int8 weights as they are)
         want = [t for t in _outputs(plain(
@@ -667,6 +699,16 @@ def phase_slice(torch, build):
         f"{statistics.median(step_ms):.2f} ms, all {[round(s, 2) for s in step_ms]}; "
         f"per request {[round(s, 3) for s in req_s]} s; peak memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+
+    # one UNet forward of 4 samples (a --max_batch 2 dispatch: 2 clips x the
+    # CFG pair) under the profiler, after one unprofiled warm-up
+    sample = torch.randn(4, 6, 36, 64, 4, generator=g, device=dev).bfloat16()
+    ctx = torch.randn(4, 77, 768, generator=g, device=dev).bfloat16()
+    t = torch.full((4,), 500, device=dev)
+    with torch.inference_mode():
+        pipe.unet(sample, t, ctx)
+        _profile_step(torch, lambda: pipe.unet(sample, t, ctx),
+                      "slice: one UNet forward of 4 samples")
     return pipe, launches
 
 
@@ -1365,20 +1407,21 @@ def phase_train(torch, build, vae, dana_latents):
     return {k: sum(s[2][k] for s in steps) for k in EXPECTED_PER_TRAIN_STEP}, dbias_launches
 
 
-# device kernels of a train step, grouped by what launched them (substrings
-# of the kernel names; the port's own kernels first)
+# device kernels of a train step or a generation forward, grouped by what
+# launched them (substrings of the kernel names; the port's own kernels first)
 _KERNEL_GROUPS = (
     ("flash_attention_bwd", ("flash_bwd_",)), ("flash_attention_fwd", ("flash_fwd_",)),
     ("temporal_attention", ("temporal_",)), ("ff_ln_bwd", ("ff_ln_bwd_",)), ("ff_ln", ("ff_ln_",)),
     ("geglu_out_bwd", ("geglu_out_bwd_",)), ("geglu_out", ("geglu_out_",)),
+    ("conv3x3_gn_silu", ("conv3x3_",)),
     ("library conv / GEMM", ("cudnn", "cutlass", "gemm", "nvjet", "xmma", "wgrad", "dgrad",
                              "conv", "cublas", "gemv")),
     ("optimizer", ("multi_tensor", "adam", "foreach")),
 )
 
 
-def _profile_step(torch, step):
-    """One more train step under torch.profiler: where the device time goes."""
+def _profile_step(torch, step, what="train: one step"):
+    """One call of ``step`` under torch.profiler: where the device time goes."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1388,10 +1431,11 @@ def _profile_step(torch, step):
         step()
         torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3
-    groups, n_kernels = {}, 0
+    groups, n_kernels, first, last = {}, 0, float("inf"), 0.0
     for e in prof.events():
         if e.device_type != DeviceType.CUDA:
             continue
+        first, last = min(first, e.time_range.start), max(last, e.time_range.end)
         name = e.name.lower()
         if name.startswith("memcpy") or name.startswith("memset"):
             group = "memcpy / memset"
@@ -1401,12 +1445,16 @@ def _profile_step(torch, step):
         groups[group] = groups.get(group, 0.0) + e.time_range.elapsed_us() / 1e3
         n_kernels += 1
     if not groups:
-        say("train: profile: the profiler recorded no device activity (not measured)")
+        say(f"{what}: profile: the profiler recorded no device activity (not measured)")
         return
     busy = sum(groups.values())
     table = ", ".join(f"{g} {ms:.1f}" for g, ms in sorted(groups.items(), key=lambda kv: -kv[1]))
-    say(f"train: one step under torch.profiler: {wall_ms:.0f} ms on the host clock, device busy "
-        f"{busy:.0f} ms in {n_kernels} kernels and copies (ms by group: {table})")
+    # the idle share of the device between its first and its last kernel
+    # (the host clock also holds the profiler's own start-up)
+    window = (last - first) / 1e3
+    say(f"{what} under torch.profiler: {wall_ms:.1f} ms on the host clock, device busy "
+        f"{busy:.1f} ms in {n_kernels} kernels and copies over a {window:.1f} ms window from the "
+        f"first to the last, idle share {max(0.0, 1 - busy / window):.3f} (ms by group: {table})")
 
 
 def main():

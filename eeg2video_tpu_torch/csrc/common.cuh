@@ -1,8 +1,11 @@
 // Shared helpers for the port's Hopper kernels (sm_90a).
 //
-// Every kernel here is a first, simple version: bf16 WMMA tiles (16x16x16,
-// f32 accumulation) staged through shared memory. wgmma, TMA and warp
-// specialisation are later work.
+// The attention kernels (flash_fwd.cuh, flash_bwd.cuh) keep their tiles in
+// registers: mma.sync.m16n8k16 with f32 accumulators, operands by ldmatrix,
+// tiles streamed by cp.async (flash_tiles.cuh). The other kernels are still
+// the first, simple version: bf16 WMMA tiles (16x16x16, f32 accumulation)
+// staged through shared memory. wgmma, TMA and warp specialisation are later
+// work.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -45,28 +48,6 @@ __device__ __forceinline__ Vec8 load_vec8(const bf16* p) {
 
 __device__ __forceinline__ void store_vec8(bf16* p, const Vec8& v) {
   *reinterpret_cast<uint4*>(p) = v.u;
-}
-
-// Attention tiles: rows [row0, row0 + 64) x head columns [0, D) of a packed
-// (rows, hd) matrix into a (64, DP + 8) bf16 shared-memory tile; rows past
-// nrows and columns past D are zero.
-template <int DP, int THREADS>
-__device__ __forceinline__ void load_rows(bf16* dst, const bf16* src, int hd, int row0,
-                                          int nrows, int D) {
-  constexpr int kVPR = DP / 8;
-  for (int i = threadIdx.x; i < 64 * kVPR; i += THREADS) {
-    const int r = i / kVPR, d = (i % kVPR) * 8;
-    const int row = row0 + r;
-    Vec8 v = zero_vec8();
-    if (row < nrows && d < D) v = load_vec8(src + (long long)row * hd + d);
-    store_vec8(dst + r * (DP + 8) + d, v);
-  }
-}
-
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
 }
 
 __device__ __forceinline__ float warp_sum(float v) {

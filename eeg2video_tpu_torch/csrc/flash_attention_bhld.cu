@@ -17,10 +17,12 @@
 // addressing does. The operands are read in place: head h of batch element b
 // starts at b * batch stride + h * head stride and a row is D contiguous
 // values (80 bytes at D = 40, so rows stay 16-byte aligned for the vector
-// loads when D % 8 == 0). The TPU wrapper pads D to 128 in HBM (:223-225);
+// copies when D % 8 == 0). The TPU wrapper pads D to 128 in HBM (:223-225);
 // here D is padded to a multiple of 16 in shared memory only.
-// What bounds it on the H100: as the packed op, the softmax's exponentials
-// and shared-memory traffic of small-K (D = 40) WMMA tiles, not HBM.
+// What bounds it on the H100: as the packed op, the products and, at D = 40,
+// the softmax's exponentials and the shared-memory reads of the operand
+// tiles, not HBM. The instantiations are compiled in flash_fwd_d*.cu and
+// flash_bwd_d*.cu; this file only dispatches.
 #include "flash_bwd.cuh"
 #include "flash_fwd.cuh"
 

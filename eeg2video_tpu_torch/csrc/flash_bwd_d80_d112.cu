@@ -1,0 +1,10 @@
+// Instantiations of the attention backward (flash_bwd.cuh) for head dims
+// padded to 80, 96, 112, in both layouts. The head dims are spread over
+// flash_bwd_d*.cu so that the build compiles them in parallel.
+#include "flash_bwd.cuh"
+
+namespace e2v {
+E2V_BWD_INSTANTIATE(80)
+E2V_BWD_INSTANTIATE(96)
+E2V_BWD_INSTANTIATE(112)
+}  // namespace e2v

@@ -3,7 +3,9 @@
 //   flash_attention_bhld.cu  head-major (B, H, L, D) operands, one segment
 // The operand layout is the template parameter HEAD_MAJOR, so each entry
 // point compiles only its own addressing and the packed instantiations carry
-// nothing of the other layout.
+// nothing of the other layout. The instantiations themselves are compiled in
+// flash_fwd_d*.cu, a few head dims per file, so that the build runs them in
+// parallel; the entry points only dispatch.
 //
 // Computes, per head h:
 //   out = softmax(scale * q [K0 | K1]^T + [bias0 | 0]) [V0 | V1]
@@ -16,30 +18,42 @@
 // stride, and a row is D contiguous values (row stride D); m = 1, no K1, no
 // bias.
 //
-// What bounds it on the H100: at the generation shapes the score GEMMs are
-// small-K (D = 40/80/160) and the kernel is bound by the softmax's
-// exponentials and shared-memory traffic, not by HBM: q/k/v are read once
-// per (query tile, head) and nothing of size Lq x Lkv leaves the SM.
-// Design: one block = 64 query rows of one head (4 warps x 16 rows); KV is
-// streamed in 64-row tiles through shared memory; QK^T and PV run on bf16
-// WMMA tiles with f32 accumulation; the online softmax keeps the TRUE
-// running max per row (the Pallas kernel instead clamps base-2 scores to
-// +-100, which is exact only while the row max stays <= 100 base-2 units;
-// that shortcut is not carried over). D is padded to a multiple of 16 inside
-// shared memory only; KV tails (Lkv = 77) are masked to -inf.
+// What bounds it on the H100: the two products, 4 Lq Lkv D operations per
+// head, against bytes that are read once per (query block, head); at D = 40
+// the softmax's exponentials (one per score) and the shared-memory reads of
+// the operand tiles come close to the products' own time.
+// Design (the FlashAttention-2 form, on mma.sync.m16n8k16):
+//   - one block = 128 query rows of one head (8 warps x 16 rows), or 64 rows
+//     (4 warps) where 128-row blocks would leave SMs idle or fewer warps
+//     resident (block_warps in flash_tiles.cuh); a warp whose 16 rows all lie
+//     past Lq skips the products (the short level-2/3 calls);
+//   - K and V stream in 64-row tiles through a two-stage ring in shared
+//     memory, filled by cp.async: tile t+1's K and V are in flight while tile
+//     t computes, and V is its own copy group, so that Q K^T starts before V
+//     has landed;
+//   - S = Q K^T stays in the C fragments; a row's 64 scores sit on the 4
+//     lanes of a quad, so its max and sum cost 2 shuffles each; P is rounded
+//     to bf16 in registers into the A fragments of P V; O lives in
+//     registers and is rescaled there;
+//   - the online softmax keeps the TRUE running max per row (the Pallas
+//     kernel instead clamps base-2 scores to +-100, which is exact only while
+//     the row max stays <= 100 base-2 units; that shortcut is not carried
+//     over); scores are in base-2 units (scale_log2);
+//   - D is padded to a multiple of 16 in shared memory only (the k-depth of
+//     Q K^T): the copies zero-fill columns D .. DP and never read them from
+//     device memory; P V skips its last n8 tile where it lies past D (D = 40:
+//     5 of 6); KV tails are masked to -inf on the last tile of each segment
+//     only; rows past Lq are not written.
 // An optional f32 output lse (N, H, Lq) holds, in natural-log units, the
 // log-sum-exp of each row's scaled (and biased) scores, m + log(l) of the
 // running softmax: the residual the backward recomputes the probabilities
 // from. It is a template parameter, so that the kernel the inference paths
-// launch (no lse) carries nothing of it: keeping the running max alive to the
-// epilogue costs registers, and the short cross-attention calls are bound by
-// how many blocks fit an SM.
+// launch (no lse) carries nothing of it.
 #pragma once
 
 #include "flash_tiles.cuh"
 
 namespace e2v {
-namespace {
 
 struct AttnArgs {
   const bf16* q;
@@ -61,176 +75,246 @@ struct AttnArgs {
   long long q_hs, k_hs, v_hs, o_hs;  // head-major: head strides (*_so: batch strides)
 };
 
+// Q (16 rows a warp), the K and V rings, the bias ring
 template <int DP>
-constexpr size_t attn_smem_bytes() {
-  return (size_t)(kBQ + 2 * kBKV) * (DP + 8) * sizeof(bf16) +
-         (size_t)kWarps * 16 * (kLDS * sizeof(float) + kLDP * sizeof(bf16) +
-                                (DP + 4) * sizeof(float));
+constexpr size_t fwd_smem_bytes(int warps) {
+  return (size_t)(warps * 16 + 4 * kTileKV) * tile_ld<DP>() * sizeof(bf16) +
+         (size_t)2 * kTileKV * sizeof(float);
 }
 
 template <int DP, bool LSE, bool HEAD_MAJOR>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kMaxThreads, (DP <= 64 ? 2 : 1))
     flash_fwd_kernel(const AttnArgs a) {
-  constexpr int LDQ = DP + 8;
-  constexpr int LDO = DP + 4;
+  constexpr int LD = tile_ld<DP>();
+  constexpr int KT = DP / 16;  // k-steps of Q K^T
+  constexpr int NT = DP / 8;   // n8 tiles of O
   extern __shared__ __align__(128) unsigned char smem[];
+  const int bq = blockDim.x / 2;  // 16 rows a warp
   bf16* Qs = reinterpret_cast<bf16*>(smem);
-  bf16* Ks = Qs + kBQ * LDQ;
-  bf16* Vs = Ks + kBKV * LDQ;
-  float* Ss = reinterpret_cast<float*>(Vs + kBKV * LDQ);
-  bf16* Ps = reinterpret_cast<bf16*>(Ss + kWarps * 16 * kLDS);
-  float* Os = reinterpret_cast<float*>(Ps + kWarps * 16 * kLDP);
+  bf16* Ks = Qs + bq * LD;
+  bf16* Vs = Ks + 2 * kTileKV * LD;
+  float* Bs = reinterpret_cast<float*>(Vs + 2 * kTileKV * LD);
 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int q0 = blockIdx.x * kBQ;
+  const int g = lane >> 2, tq = lane & 3;
+  const int q0 = blockIdx.x * bq;
   const int h = blockIdx.y;
   const int n = blockIdx.z;
   const int nb = n / a.m, nj = n % a.m;
   const int D = a.head_dim;
   const long long hoff = (long long)h * D;
+  const long long rs = HEAD_MAJOR ? D : a.hd;
 
-  load_rows<DP, kThreads>(
-      Qs, a.q + (HEAD_MAJOR ? n * a.q_so + h * a.q_hs : nb * a.q_so + nj * a.q_si + hoff),
-      HEAD_MAJOR ? D : a.hd, q0, a.lq, D);
-  float* Sw = Ss + warp * 16 * kLDS;
-  bf16* Pw = Ps + warp * 16 * kLDP;
-  float* Ow = Os + warp * 16 * LDO;
-  for (int i = lane; i < 16 * LDO; i += 32) Ow[i] = 0.0f;
-  float mrow[16], lrow[16];
+  const bf16* kb0 = a.k0 + (HEAD_MAJOR ? n * a.k0_so + h * a.k_hs : nb * a.k0_so + hoff);
+  const bf16* vb0 = a.v0 + (HEAD_MAJOR ? n * a.v0_so + h * a.v_hs : nb * a.v0_so + hoff);
+  const bool two = !HEAD_MAJOR && a.k1 != nullptr;
+  const bf16* kb1 = two ? a.k1 + nb * a.k1_so + nj * a.k1_si + hoff : nullptr;
+  const bf16* vb1 = two ? a.v1 + nb * a.v1_so + nj * a.v1_si + hoff : nullptr;
+  const float* bias =
+      (!HEAD_MAJOR && a.bias0 != nullptr) ? a.bias0 + (long long)nb * a.lkv0 : nullptr;
+  // KV tiles of both segments in one sequence: tiles [0, t0n) are segment 0
+  const int t0n = (a.lkv0 + kTileKV - 1) / kTileKV;
+  const int tn = t0n + (two ? (a.lkv1 + kTileKV - 1) / kTileKV : 0);
+
+  auto issue_k = [&](int t) {
+    const bool s1 = t >= t0n;
+    const int kv0 = (s1 ? t - t0n : t) * kTileKV;
+    copy_rows<DP, LD>(Ks + (t & 1) * kTileKV * LD, s1 ? kb1 : kb0, rs, kv0, kTileKV,
+                      s1 ? a.lkv1 : a.lkv0, D);
+    if (bias != nullptr && !s1) copy_floats(Bs + (t & 1) * kTileKV, bias, kv0, kTileKV, a.lkv0);
+    cp_async_commit();
+  };
+  auto issue_v = [&](int t) {
+    const bool s1 = t >= t0n;
+    const int kv0 = (s1 ? t - t0n : t) * kTileKV;
+    copy_rows<DP, LD>(Vs + (t & 1) * kTileKV * LD, s1 ? vb1 : vb0, rs, kv0, kTileKV,
+                      s1 ? a.lkv1 : a.lkv0, D);
+    cp_async_commit();
+  };
+
+  // copy groups in order: Q, K0, V0, then K(t+1), V(t+1) at the top of tile t
+  copy_rows<DP, LD>(
+      Qs, a.q + (HEAD_MAJOR ? n * a.q_so + h * a.q_hs : nb * a.q_so + nj * a.q_si + hoff), rs,
+      q0, bq, a.lq, D);
+  cp_async_commit();
+  issue_k(0);
+  issue_v(0);
+
+  const bf16* Qw = Qs + warp * 16 * LD;
+  const bool active = q0 + warp * 16 < a.lq;  // else the warp's rows all lie past Lq
+  const bool half_last = D <= DP - 8;  // O's last n8 tile lies past D: skipped
+  float o[NT][4];
 #pragma unroll
-  for (int r = 0; r < 16; ++r) {
-    mrow[r] = -INFINITY;
-    lrow[r] = 0.0f;
-  }
+  for (int j = 0; j < NT; ++j) o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.0f;
+  float mrow[2] = {-INFINITY, -INFINITY}, lrow[2] = {0.0f, 0.0f};
 
-  for (int seg = 0; seg < 2; ++seg) {
-    const bf16 *kb, *vb;
-    const float* bias = nullptr;
-    int lkv;
-    if (seg == 0) {
-      kb = a.k0 + (HEAD_MAJOR ? n * a.k0_so + h * a.k_hs : nb * a.k0_so + hoff);
-      vb = a.v0 + (HEAD_MAJOR ? n * a.v0_so + h * a.v_hs : nb * a.v0_so + hoff);
-      lkv = a.lkv0;
-      if (!HEAD_MAJOR && a.bias0 != nullptr) bias = a.bias0 + (long long)nb * a.lkv0;
+  for (int t = 0; t < tn; ++t) {
+    const int st = t & 1;
+    const bool s1 = t >= t0n;
+    const int kv0 = (s1 ? t - t0n : t) * kTileKV;
+    const int lkv = s1 ? a.lkv1 : a.lkv0;
+    cp_async_wait<1>();  // Q and K(t) have landed; V(t) may still be in flight
+    __syncthreads();     // ... for every thread; and tile t-1's ring slot is free
+    if (t + 1 < tn) {
+      issue_k(t + 1);
+      issue_v(t + 1);
     } else {
-      if (HEAD_MAJOR || a.k1 == nullptr) break;
-      kb = a.k1 + nb * a.k1_so + nj * a.k1_si + hoff;
-      vb = a.v1 + nb * a.v1_so + nj * a.v1_si + hoff;
-      lkv = a.lkv1;
+      cp_async_commit();  // empty groups keep the wait counts uniform
+      cp_async_commit();
     }
-    for (int kv0 = 0; kv0 < lkv; kv0 += kBKV) {
-      __syncthreads();  // previous tile's K/V (and the Q load) are settled
-      load_rows<DP, kThreads>(Ks, kb, HEAD_MAJOR ? D : a.hd, kv0, lkv, D);
-      load_rows<DP, kThreads>(Vs, vb, HEAD_MAJOR ? D : a.hd, kv0, lkv, D);
+    if (!active) {  // no products; the block's second barrier all the same
+      cp_async_wait<2>();
       __syncthreads();
+      continue;
+    }
 
-      // S = Q K^T for this warp's 16 query rows
+    // S = Q K^T: this warp's 16 rows x 64 columns
+    const bf16* Kt = Ks + st * kTileKV * LD;
+    float s[8][4];
 #pragma unroll
-      for (int j = 0; j < kBKV / 16; ++j) {
-        FragC c;
-        wmma::fill_fragment(c, 0.0f);
+    for (int j = 0; j < 8; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.0f;
 #pragma unroll
-        for (int kk = 0; kk < DP / 16; ++kk) {
-          FragA fa;
-          FragBCol fb;
-          wmma::load_matrix_sync(fa, Qs + warp * 16 * LDQ + kk * 16, LDQ);
-          wmma::load_matrix_sync(fb, Ks + j * 16 * LDQ + kk * 16, LDQ);
-          wmma::mma_sync(c, fa, fb, c);
-        }
-        wmma::store_matrix_sync(Sw + j * 16, c, kLDS, wmma::mem_row_major);
+    for (int kk = 0; kk < KT; ++kk) {
+      uint32_t qa[4];
+      load_a<LD>(qa, Qw, kk * 16, lane);
+#pragma unroll
+      for (int np = 0; np < 4; ++np) {
+        uint32_t kb[4];
+        load_b_rows<LD>(kb, Kt, np * 16, kk * 16, lane);
+        mma_16816(s[2 * np], qa, kb[0], kb[1]);
+        mma_16816(s[2 * np + 1], qa, kb[2], kb[3]);
       }
-      __syncwarp();
+    }
 
-      // online softmax with the true running max, base 2
+    // base-2 logits are sc * s: without a bias the scale is folded into the
+    // exponent below (the max commutes with sc > 0); with one, or a negative
+    // scale, it is applied here
+    float sc = a.scale_log2;
+    if (bias != nullptr && !s1) {
+      const float* bt = Bs + st * kTileKV;
 #pragma unroll
-      for (int r = 0; r < 16; ++r) {
-        float s[2];
+      for (int j = 0; j < 8; ++j)
 #pragma unroll
-        for (int t = 0; t < 2; ++t) {
-          const int c = lane + 32 * t;
-          const int col = kv0 + c;
-          if (col < lkv) {
-            float v = Sw[r * kLDS + c] * a.scale_log2;
-            if (bias != nullptr) v += bias[col] * kLog2e;
-            s[t] = v;
-          } else {
-            s[t] = -INFINITY;
-          }
-        }
-        const float m_old = mrow[r];
-        const float m_new = fmaxf(m_old, warp_max(fmaxf(s[0], s[1])));
-        const float alpha = (m_old == -INFINITY) ? 0.0f : exp2f(m_old - m_new);
-        const float p0 = (s[0] == -INFINITY) ? 0.0f : exp2f(s[0] - m_new);
-        const float p1 = (s[1] == -INFINITY) ? 0.0f : exp2f(s[1] - m_new);
-        lrow[r] = lrow[r] * alpha + warp_sum(p0 + p1);
-        mrow[r] = m_new;
-        Pw[r * kLDP + lane] = __float2bfloat16(p0);
-        Pw[r * kLDP + lane + 32] = __float2bfloat16(p1);
-        for (int d = lane; d < DP; d += 32) Ow[r * LDO + d] *= alpha;
-      }
-      __syncwarp();
+        for (int e = 0; e < 4; ++e)
+          s[j][e] = fmaf(s[j][e], sc, bt[j * 8 + 2 * tq + (e & 1)] * kLog2e);
+      sc = 1.0f;
+    } else if (sc < 0.0f) {
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[j][e] *= sc;
+      sc = 1.0f;
+    }
+    if (kv0 + kTileKV > lkv) {  // the segment's last tile: -inf past its end
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (kv0 + j * 8 + 2 * tq + (e & 1) >= lkv) s[j][e] = -INFINITY;
+    }
 
-      // O = O + P V
+    // online softmax, true running max (base-2 units); row r of the thread: g + 8 r
 #pragma unroll
-      for (int j = 0; j < DP / 16; ++j) {
-        FragC c;
-        wmma::load_matrix_sync(c, Ow + j * 16, LDO, wmma::mem_row_major);
+    for (int r = 0; r < 2; ++r) {
+      float mx = -INFINITY;
 #pragma unroll
-        for (int kk = 0; kk < kBKV / 16; ++kk) {
-          FragA fa;
-          FragBRow fb;
-          wmma::load_matrix_sync(fa, Pw + kk * 16, kLDP);
-          wmma::load_matrix_sync(fb, Vs + kk * 16 * LDQ + j * 16, LDQ);
-          wmma::mma_sync(c, fa, fb, c);
-        }
-        wmma::store_matrix_sync(Ow + j * 16, c, LDO, wmma::mem_row_major);
+      for (int j = 0; j < 8; ++j) mx = fmaxf(mx, fmaxf(s[j][2 * r], s[j][2 * r + 1]));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      const float m_new = fmaxf(mrow[r], mx * sc);
+      const float m_use = m_new == -INFINITY ? 0.0f : m_new;
+      const float alpha = fast_exp2(mrow[r] - m_use);
+      mrow[r] = m_new;
+      float sum = 0.0f;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        s[j][2 * r] = fast_exp2(fmaf(s[j][2 * r], sc, -m_use));
+        s[j][2 * r + 1] = fast_exp2(fmaf(s[j][2 * r + 1], sc, -m_use));
+        sum += s[j][2 * r] + s[j][2 * r + 1];
       }
-      __syncwarp();
+      lrow[r] = lrow[r] * alpha + sum;  // this lane's share of the row sum
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        o[j][2 * r] *= alpha;
+        o[j][2 * r + 1] *= alpha;
+      }
+    }
+
+    // P as the A fragments of P V (4 k-steps of 16 KV columns)
+    uint32_t p[4][4];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      p[kk][0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
+      p[kk][1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
+      p[kk][2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
+      p[kk][3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
+    }
+
+    cp_async_wait<2>();  // V(t) has landed (K(t+1), V(t+1) may be in flight)
+    __syncthreads();
+    const bf16* Vt = Vs + st * kTileKV * LD;
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+#pragma unroll
+      for (int np = 0; np < NT / 2; ++np) {
+        uint32_t vb[4];
+        load_b_cols<LD>(vb, Vt, kk * 16, np * 16, lane);
+        mma_16816(o[2 * np], p[kk], vb[0], vb[1]);
+        if (np < NT / 2 - 1 || !half_last) mma_16816(o[2 * np + 1], p[kk], vb[2], vb[3]);
+      }
     }
   }
 
-  bf16* ob = a.out + (HEAD_MAJOR ? n * a.o_so + h * a.o_hs
-                                 : nb * a.o_so + nj * a.o_si + hoff);
 #pragma unroll
-  for (int r = 0; r < 16; ++r) {
-    const int row = q0 + warp * 16 + r;
-    if (row < a.lq) {
-      const float inv = 1.0f / lrow[r];
-      for (int d = lane; d < D; d += 32)
-        ob[(long long)row * (HEAD_MAJOR ? D : a.hd) + d] = __float2bfloat16(Ow[r * LDO + d] * inv);
-      if (LSE && lane == 0)
-        a.lse[((long long)n * gridDim.y + h) * a.lq + row] =
-            (mrow[r] + log2f(lrow[r])) * kLn2;
+  for (int r = 0; r < 2; ++r) {
+    lrow[r] += __shfl_xor_sync(0xffffffffu, lrow[r], 1);
+    lrow[r] += __shfl_xor_sync(0xffffffffu, lrow[r], 2);
+  }
+  const float inv[2] = {1.0f / lrow[0], 1.0f / lrow[1]};
+  bf16* ob = a.out + (HEAD_MAJOR ? n * a.o_so + h * a.o_hs : nb * a.o_so + nj * a.o_si + hoff);
+  // the warp's own Q rows are free now: they stage its output rows
+  store_tile<NT, LD>(ob, rs, o, inv, Qs + warp * 16 * LD, q0 + warp * 16, a.lq, 0, D, lane);
+  if (LSE && tq == 0) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = q0 + warp * 16 + g + 8 * r;
+      if (row < a.lq)
+        a.lse[((long long)n * gridDim.y + h) * a.lq + row] = (mrow[r] + log2f(lrow[r])) * kLn2;
     }
   }
 }
 
 template <int DP, bool HEAD_MAJOR>
 int launch_flash(const AttnArgs& a, int heads, int n_total, void* stream) {
-  const dim3 grid((a.lq + kBQ - 1) / kBQ, heads, n_total);
-  const size_t smem = attn_smem_bytes<DP>();
   void (*kernel)(const AttnArgs) = a.lse != nullptr ? flash_fwd_kernel<DP, true, HEAD_MAJOR>
                                                     : flash_fwd_kernel<DP, false, HEAD_MAJOR>;
-  E2V_LAUNCH(kernel, grid, kThreads, smem, stream, a);
+  const int warps = block_warps(kernel, fwd_smem_bytes<DP>, a.lq, heads * n_total);
+  if (warps == 0) return (int)cudaErrorInvalidValue;
+  const dim3 grid((a.lq + warps * 16 - 1) / (warps * 16), heads, n_total);
+  kernel<<<grid, warps * 32, fwd_smem_bytes<DP>(warps), (cudaStream_t)stream>>>(a);
+  return (int)cudaGetLastError();
 }
+
+// the instantiations live in flash_fwd_d*.cu
+#define E2V_FWD_EXTERN(DP)                                                            \
+  extern template int launch_flash<DP, false>(const AttnArgs&, int, int, void*);     \
+  extern template int launch_flash<DP, true>(const AttnArgs&, int, int, void*);
+E2V_ATTN_DPS(E2V_FWD_EXTERN)
+#undef E2V_FWD_EXTERN
+#define E2V_FWD_INSTANTIATE(DP)                                                \
+  template int launch_flash<DP, false>(const AttnArgs&, int, int, void*);     \
+  template int launch_flash<DP, true>(const AttnArgs&, int, int, void*);
 
 // head_dim -> the instantiation padded to the next multiple of 16
 template <bool HEAD_MAJOR>
 int dispatch_flash(const AttnArgs& a, int heads, int n_total, void* stream) {
   switch ((a.head_dim + 15) / 16) {
-    case 1: return launch_flash<16, HEAD_MAJOR>(a, heads, n_total, stream);
-    case 2: return launch_flash<32, HEAD_MAJOR>(a, heads, n_total, stream);
-    case 3: return launch_flash<48, HEAD_MAJOR>(a, heads, n_total, stream);
-    case 4: return launch_flash<64, HEAD_MAJOR>(a, heads, n_total, stream);
-    case 5: return launch_flash<80, HEAD_MAJOR>(a, heads, n_total, stream);
-    case 6: return launch_flash<96, HEAD_MAJOR>(a, heads, n_total, stream);
-    case 7: return launch_flash<112, HEAD_MAJOR>(a, heads, n_total, stream);
-    case 8: return launch_flash<128, HEAD_MAJOR>(a, heads, n_total, stream);
-    case 9: return launch_flash<144, HEAD_MAJOR>(a, heads, n_total, stream);
-    case 10: return launch_flash<160, HEAD_MAJOR>(a, heads, n_total, stream);
+#define E2V_FWD_CASE(DP) \
+  case DP / 16: return launch_flash<DP, HEAD_MAJOR>(a, heads, n_total, stream);
+    E2V_ATTN_DPS(E2V_FWD_CASE)
+#undef E2V_FWD_CASE
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
-}  // namespace
 }  // namespace e2v

@@ -19,8 +19,11 @@ import ctypes
 import glob
 import hashlib
 import os
+import re
 import shutil
 import subprocess
+import time
+from concurrent.futures import ThreadPoolExecutor
 
 import torch
 
@@ -110,15 +113,23 @@ def library():
         cus = [p for p in _sources() if p.endswith(".cu")]
         objs = [os.path.join(out_dir, f"{os.path.basename(p)}.{os.getpid()}.o") for p in cus]
         cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", obj, cu] for cu, obj in zip(cus, objs)]
+        t0 = time.perf_counter()
         procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                                   text=True) for cmd in cmds]
-        results = [(cmd, proc.communicate()[0], proc.returncode)
-                   for cmd, proc in zip(cmds, procs)]
+
+        def finish(proc):  # its output, and its end in seconds from the build's start
+            out = proc.communicate()[0]
+            return f"[{time.perf_counter() - t0:.1f} s]\n{out}"
+
+        with ThreadPoolExecutor(len(procs)) as pool:  # every pipe drained at once
+            outs = list(pool.map(finish, procs))
+        results = [(cmd, out, proc.returncode) for cmd, proc, out in zip(cmds, procs, outs)]
         if all(rc == 0 for _, _, rc in results):
             link = [nvcc, "-shared", "-o", tmp, *objs]
             res = subprocess.run(link, capture_output=True, text=True)
             results.append((link, res.stdout + res.stderr, res.returncode))
-        # -Xptxas -v: each kernel's registers, shared memory and spills
+        # -Xptxas -v: each kernel's registers, shared memory and spills;
+        # [n s]: the seconds from the start of the build to that source's end
         build_log = "".join(" ".join(cmd) + "\n" + out for cmd, out, _ in results)
         with open(os.path.join(out_dir, "build.log"), "w") as f:
             f.write(build_log)
@@ -136,6 +147,49 @@ def library():
         fn.restype = ctypes.c_int
     _lib = lib
     return _lib
+
+
+def build_log():
+    """The text of the loaded library's build.log (compiler output per source)."""
+    with open(os.path.join(BUILD_ROOT, _digest(), "build.log")) as f:
+        return f.read()
+
+
+def kernel_resources(log: str):
+    """{kernel: (registers, spill stores, spill loads)} from ``-Xptxas -v``
+    output; a kernel is named by its function and template arguments, e.g.
+    ``flash_fwd_kernel<48,1,0>``."""
+    out, name = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            name = _short_name(m.group(1))
+            spills = (0, 0)
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m and name:
+            spills = (int(m.group(1)), int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            out[name] = (int(m.group(1)), *spills)
+            name = None
+    return out
+
+
+def source_seconds(log: str):
+    """{source file: seconds from the start of the build to its end}."""
+    return {os.path.basename(m.group(1)): float(m.group(2)) for m in
+            re.finditer(r"-c -o \S+ (\S+\.cu)\n\[([\d.]+) s\]", log)}
+
+
+def _short_name(mangled: str) -> str:
+    m = re.match(r"_ZN3e2v(?:12_GLOBAL__N_1)?(\d+)", mangled)
+    if not m:
+        return mangled
+    ln = int(m.group(1))
+    base = mangled[m.end():m.end() + ln]
+    args = re.findall(r"L[ib](\d+)E", mangled[m.end() + ln:])
+    return f"{base}<{','.join(args)}>" if args else base
 
 
 def check(rc: int, kernel: str):

@@ -1,0 +1,133 @@
+"""Time the attention kernels of one or more checkouts on one GPU.
+
+    python -m eeg2video_tpu_torch.utils.attention_ab --tree PARENT --tree . --tree . --tree PARENT
+
+Each ``--tree`` is the root of a checkout. Its ``eeg2video_tpu_torch`` is
+imported in a process of its own (two versions never share a process), its
+kernels are built at first use, and every case below runs 10 times after one
+warm-up call, timed with CUDA events (the median is kept). One JSON line per
+tree: the tree, the card's name and power limit, and ms per case. Given in the
+order parent, change, change, parent, the trees compare two versions in one
+call on one card. The cases are the attention forward and backward calls of
+the generation and train paths at full width (batch 2 and 10), with and
+without the gradient of a mask's bias, and ``fused_attention`` at the train
+scale; the inputs are random from a seed.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import statistics
+import subprocess
+import sys
+
+
+def _cases(torch, attention):
+    g = torch.Generator(device="cuda").manual_seed(0)
+
+    def r(*shape):
+        return torch.randn(*shape, generator=g, device="cuda").bfloat16()
+
+    heads, cases = 8, {}
+
+    def packed(label, q, k0, v0, k1=None, v1=None, bias=False):
+        b0 = None
+        if bias:
+            b0 = 0.5 * torch.randn(k0.shape[0], 1, k0.shape[1], generator=g, device="cuda")
+            b0[:, :, ::9] = -1e4
+        out, lse = attention.flash_attention_fwd(q, k0, v0, heads, k1=k1, v1=v1, bias0=b0,
+                                                 return_lse=True)
+        dout = r(*q.shape)
+        if not bias:
+            cases[f"fwd {label}"] = lambda: attention.flash_attention_fwd(
+                q, k0, v0, heads, k1=k1, v1=v1)
+            cases[f"fwd {label} +lse"] = lambda: attention.flash_attention_fwd(
+                q, k0, v0, heads, k1=k1, v1=v1, return_lse=True)
+        cases[f"bwd {label}{' +dbias' if bias else ''}"] = lambda: attention.flash_attention_bwd(
+            q, k0, v0, heads, dout, out, lse, k1=k1, v1=v1, bias0=b0, need_dbias=bias)
+
+    for b in (2, 10):
+        packed(f"self ({b},2,2304,320)x2304", r(b, 2, 2304, 320), r(b, 2304, 320),
+               r(b, 2304, 320))
+        packed(f"dual ({b},4,2304,320)x[2304|2304]", r(b, 4, 2304, 320), r(b, 2304, 320),
+               r(b, 2304, 320), r(b, 4, 2304, 320), r(b, 4, 2304, 320))
+    packed("self (10,2,2304,320)x2304", r(10, 2, 2304, 320), r(10, 2304, 320), r(10, 2304, 320),
+           bias=True)
+    packed("dual (10,4,2304,320)x[2304|2304]", r(10, 4, 2304, 320), r(10, 2304, 320),
+           r(10, 2304, 320), r(10, 4, 2304, 320), r(10, 4, 2304, 320), bias=True)
+    packed("dual D=80 (10,4,576,640)x[576|576]", r(10, 4, 576, 640), r(10, 576, 640),
+           r(10, 576, 640), r(10, 4, 576, 640), r(10, 4, 576, 640))
+    packed("dual D=160 (10,4,144,1280)x[144|144]", r(10, 4, 144, 1280), r(10, 144, 1280),
+           r(10, 144, 1280), r(10, 4, 144, 1280), r(10, 4, 144, 1280))
+    packed("dual D=160 (10,4,40,1280)x[40|40]", r(10, 4, 40, 1280), r(10, 40, 1280),
+           r(10, 40, 1280), r(10, 4, 40, 1280), r(10, 4, 40, 1280))
+    packed("cross (2,13824,320)x77", r(2, 13824, 320), r(2, 77, 320), r(2, 77, 320))
+
+    q, k, v, dout = r(10, 8, 2304, 40), r(10, 8, 4608, 40), r(10, 8, 4608, 40), \
+        r(10, 8, 2304, 40)
+    out, lse = attention.fused_attention_fwd(q, k, v, return_lse=True)
+    cases["fwd fused (10,8,2304,40)x4608 +lse"] = lambda: attention.fused_attention_fwd(
+        q, k, v, return_lse=True)
+    cases["bwd fused (10,8,2304,40)x4608"] = lambda: attention.fused_attention_bwd(
+        q, k, v, dout, out, lse)
+    return cases
+
+
+def _time(torch, fn, reps=10):
+    fn()
+    times = []
+    for _ in range(reps):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def _one(tree):
+    import torch
+
+    from eeg2video_tpu_torch.ops import _build, attention
+
+    if not torch.cuda.is_available():
+        sys.exit("attention_ab: no GPU")
+    _build.library()
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60).stdout.strip().splitlines()
+    ms = {label: _time(torch, fn) for label, fn in _cases(torch, attention).items()}
+    print(json.dumps({"tree": tree, "package": os.path.dirname(attention.__file__),
+                      "device": torch.cuda.get_device_name(0), "smi": smi[0] if smi else None,
+                      "ms": ms}), flush=True)
+
+
+# a child process: the tree's package first on the path, this file's
+# functions loaded by path (the other tree may not have this module)
+_CHILD = """
+import importlib.util, sys
+tree, path = sys.argv[1], sys.argv[2]
+sys.path.insert(0, tree)
+spec = importlib.util.spec_from_file_location("attention_ab_child", path)
+mod = importlib.util.module_from_spec(spec)
+spec.loader.exec_module(mod)
+mod._one(tree)
+"""
+
+
+def main(argv=None):
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--tree", action="append", required=True,
+                        help="root of a checkout (repeat: one process each, in order)")
+    args = parser.parse_args(argv)
+    rc = 0
+    for tree in args.tree:
+        rc |= subprocess.run([sys.executable, "-c", _CHILD, os.path.abspath(tree),
+                              os.path.abspath(__file__)]).returncode
+    return rc
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -32,7 +32,9 @@ from eeg2video_tpu_torch.diffusion.schedulers import DDIMSchedule, DPMSolverPPSc
 from eeg2video_tpu_torch.models.unet3d import UNet3DConfig
 from eeg2video_tpu_torch.models.vae import VAEConfig
 
-from test_torch_models import MODEL_TOL, rand, random_params
+from test_torch_models import MODEL_TOL, capped_threads, rand, random_params
+
+_threads = capped_threads()
 
 TABLES = ("alphas_cumprod", "alpha_s", "sigma_s", "alpha_t", "sigma_t", "h", "r")
 

@@ -25,7 +25,9 @@ from eeg2video_tpu_torch.cli import add_noise
 from eeg2video_tpu_torch.diffusion import dana
 from eeg2video_tpu_torch.dsp import segment
 
-from test_torch_models import rand
+from test_torch_models import capped_threads, rand
+
+_threads = capped_threads()
 
 # the modules, not the functions of the same name that the packages export
 jde = importlib.import_module("eeg2video_tpu.dsp.de_psd")

@@ -7,8 +7,8 @@ imports torch and the port only, so it runs on a machine without jax:
 
 (``--noconftest`` because tests/conftest.py sets up the JAX CPU mesh).
 The shapes are small and ragged on purpose: KV and query tails, head dims
-8 and 40 (padded to 16 and 48 in shared memory), channel counts that do not
-fill a tile. chip_smoke.py checks the main paths' own shapes.
+8, 40, 80 and 160 (padded to 16, 48, 80 and 160 in shared memory), channel
+counts that do not fill a tile. chip_smoke.py checks the main paths' own shapes.
 Bound: max |kernel - plain| / max |plain| < 1e-2, the plain version in f32
 on the same bf16 inputs (bf16 rounding of the output and of the in-kernel
 bf16 intermediates). The backward kernels are held to the same bound, each
@@ -228,6 +228,98 @@ def test_flash_attention_function_takes_strided_frame_slices(gen):
     assert _err(out, want) < BOUND
     for g, w in zip(got, wanted):
         assert _err(g, w) < BOUND
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,m,lq,lkv0,lkv1,hd,heads,bias", [
+    (2, 1, 77, 40, 0, 64, 8, False),        # D = 8: one n8 tile of P V; 80- and 48-row blocks
+    (2, 1, 40, 77, 0, 320, 8, True),        # D = 40 (5 of 6 n8 tiles), level-3 Lq, cross Lkv
+    (2, 2, 144, 144, 144, 640, 8, True),    # D = 80, two segments, both tails at 16 of 64
+    (2, 4, 40, 40, 40, 1280, 8, True),      # D = 160, four groups on one shared segment
+    (2, 1, 1100, 1100, 0, 320, 8, True),    # 128-row blocks in every pass, ragged last block
+    (2, 2, 600, 600, 590, 320, 8, False),   # 128-row dq and segment-1 dkv, 64-row segment 0
+])
+def test_flash_attention_tile_edges_match_plain(gen, n, m, lq, lkv0, lkv1, hd, heads, bias):
+    """Lq and Lkv that are not multiples of the 64- and 128-row tiles, every head dim the
+    model uses: out and lse against the plain version, the backward (with dbias0 where a
+    bias is given) against the plain backward, and two backward runs give the same bits."""
+    q = _rand(gen, n, m, lq, hd) if m > 1 else _rand(gen, n, lq, hd)
+    k0, v0 = _rand(gen, n, lkv0, hd), _rand(gen, n, lkv0, hd)
+    k1 = _rand(gen, n, m, lkv1, hd) if lkv1 else None
+    v1 = _rand(gen, n, m, lkv1, hd) if lkv1 else None
+    b0 = None
+    if bias:
+        b0 = _rand(gen, n, 1, lkv0, scale=0.5, dtype=torch.float32)
+        b0[:, :, ::5] = -1e4
+    dout = _rand(gen, *q.shape)
+    out, lse = attention.flash_attention_fwd(q, k0, v0, heads, k1=k1, v1=v1, bias0=b0,
+                                             return_lse=True)
+    q32, k032, v032, k132, v132 = _f32([q, k0, v0, k1, v1])
+    want, want_lse = attention.flash_attention_plain(q32, k032, v032, heads, k1=k132, v1=v132,
+                                                     bias0=b0, return_lse=True)
+    assert _err(out, want) < BOUND
+    assert (lse - want_lse).abs().max().item() < 1e-3
+    assert torch.equal(attention.flash_attention_fwd(q, k0, v0, heads, k1=k1, v1=v1, bias0=b0),
+                       out)  # the no-lse instantiation
+    got = attention.flash_attention_bwd(q, k0, v0, heads, dout, out, lse, k1=k1, v1=v1,
+                                        bias0=b0, need_dbias=bias)
+    ref = attention.flash_attention_bwd_plain(q32, k032, v032, heads, dout.float(), out.float(),
+                                              lse, k1=k132, v1=v132, bias0=b0, need_dbias=bias)
+    for g, r in zip(got, ref):
+        assert (g is None) == (r is None)
+        if g is not None:
+            assert g.shape == r.shape and _err(g, r) < BOUND
+    again = attention.flash_attention_bwd(q, k0, v0, heads, dout, out, lse, k1=k1, v1=v1,
+                                          bias0=b0, need_dbias=bias)
+    assert all(a is None or torch.equal(a, b) for a, b in zip(again, got))  # no atomics
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,h,lq,lkv,d", [
+    (1, 2, 300, 450, 40),    # the ragged case of chip_smoke.py
+    (2, 8, 77, 40, 8),       # D = 8
+    (2, 8, 144, 77, 80),     # D = 80
+    (2, 8, 40, 144, 160),    # D = 160
+    (2, 8, 1100, 1100, 40),  # 128-row blocks in every pass
+])
+def test_fused_attention_tile_edges_match_plain(gen, b, h, lq, lkv, d):
+    q, k, v, dout = _rand(gen, b, h, lq, d), _rand(gen, b, h, lkv, d), _rand(gen, b, h, lkv, d), \
+        _rand(gen, b, h, lq, d)
+    out, lse = attention.fused_attention_fwd(q, k, v, return_lse=True)
+    want, want_lse = attention.fused_attention_plain(*_f32([q, k, v]), return_lse=True)
+    assert _err(out, want) < BOUND and (lse - want_lse).abs().max().item() < 1e-3
+    got = attention.fused_attention_bwd(q, k, v, dout, out, lse)
+    ref = attention.fused_attention_bwd_plain(*_f32([q, k, v, dout, out]), lse)
+    for g, r in zip(got, ref):
+        assert g.shape == r.shape and _err(g, r) < BOUND
+    again = attention.fused_attention_bwd(q, k, v, dout, out, lse)
+    assert all(torch.equal(a, b_) for a, b_ in zip(again, got))  # no atomics
+
+
+@pytest.mark.gpu
+def test_flash_attention_mask_gradient_at_tile_edges(gen):
+    """A mask that asks for a gradient on a two-segment call at D = 40 with KV and query
+    tails: the bias gradient through the differentiable call against autograd through the
+    plain version, and the same bits from a second backward."""
+    b, m, lq, lkv, hd, heads = 2, 4, 144, 77, 320, 8
+    q, k1, v1 = (_rand(gen, b, m, l, hd).requires_grad_() for l in (lq, lkv, lkv))
+    k0, v0 = (_rand(gen, b, lkv, hd).requires_grad_() for _ in range(2))
+    bias = (0.5 * torch.randn(b, 1, lkv, generator=gen, device="cuda"))
+    bias[:, :, ::6] = -1e4
+    bias.requires_grad_()
+    leaves = [q, k0, v0, k1, v1, bias]
+    ref = [t.detach().float().requires_grad_() for t in leaves]
+    out = attention.flash_attention(q, k0, v0, heads, k1=k1, v1=v1, bias0=bias)
+    want = attention.flash_attention_plain(ref[0], ref[1], ref[2], heads, k1=ref[3], v1=ref[4],
+                                           bias0=ref[5])
+    dout = _rand(gen, *out.shape)
+    got = torch.autograd.grad(out, leaves, dout, retain_graph=True)
+    again = torch.autograd.grad(out, leaves, dout)
+    wanted = torch.autograd.grad(want, ref, dout.float())
+    for g, w in zip(got, wanted):
+        assert g.shape == w.shape and _err(g, w) < BOUND
+    assert all(torch.equal(a, c) for a, c in zip(got, again))
+    assert bool((got[5][:, :, ::6] == 0).all()) and float(got[5].abs().max()) > 0
 
 
 @pytest.mark.gpu

@@ -33,6 +33,10 @@ from eeg2video_tpu_torch.ops import _build, int8_dense
 from eeg2video_tpu_torch.serving import runtimes
 from eeg2video_tpu_torch.utils import StandardScaler
 
+from test_torch_models import capped_threads
+
+_threads = capped_threads()
+
 INT8_BOUND = 2e-5
 
 

@@ -43,6 +43,28 @@ MODEL_TOL = dict(rtol=1e-3, atol=1e-4)
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
+def capped_threads():
+    """A module-scoped autouse fixture: the module's torch ops run on the
+    cores divided among the pytest-xdist workers (rounded up), and the thread
+    count before is restored after it. At torch's default, one thread per
+    core in every worker, six workers on eight cores wait on each other far
+    longer than they compute. In one process the count stays at one thread
+    per core."""
+
+    @pytest.fixture(autouse=True, scope="module")
+    def _capped_threads():
+        workers = int(os.environ.get("PYTEST_XDIST_WORKER_COUNT", "1"))
+        before = torch.get_num_threads()
+        torch.set_num_threads(max(1, -(-(os.cpu_count() or 1) // workers)))
+        yield
+        torch.set_num_threads(before)
+
+    return _capped_threads
+
+
+_threads = capped_threads()
+
+
 def random_params(module, seed, *args, **kwargs):
     """Random float32 values for ``module``'s flax parameter tree (shapes from
     jax.eval_shape, so nothing runs): matrices N(0, 1/fan_in), norm scales

@@ -21,6 +21,10 @@ from eeg2video_tpu.ops import geglu as jgeglu
 from eeg2video_tpu_torch.ops import _build
 from eeg2video_tpu_torch.ops import attention, conv2d, geglu
 
+from test_torch_models import capped_threads
+
+_threads = capped_threads()
+
 TOL = dict(rtol=2e-5, atol=2e-5)
 
 

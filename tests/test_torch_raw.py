@@ -47,10 +47,12 @@ from eeg2video_tpu_torch.models.unet3d import UNet3DConfig
 from eeg2video_tpu_torch.models.vae import VAEConfig
 from eeg2video_tpu_torch.serving import runtimes
 
-from test_torch_models import rand, random_params
+from test_torch_models import capped_threads, rand, random_params
 from test_torch_seq2seq import _variables
 from test_torch_serving import (ARRAY_TOL, HIDDEN, SIZE, _comparable, _record_writes,
                                 _run_listen, _run_stdin)
+
+_threads = capped_threads()
 
 S2S = ("--seq2seq_frames", "2", "--seq2seq_latent", "4,4,4")
 

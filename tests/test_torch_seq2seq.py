@@ -26,7 +26,9 @@ from eeg2video_tpu_torch.convert.from_jax import seq2seq_state_dict_from_jax
 from eeg2video_tpu_torch.models import seq2seq as tseq
 from eeg2video_tpu_torch.train import seq2seq as ttrain
 
-from test_torch_models import rand, random_params
+from test_torch_models import capped_threads, rand, random_params
+
+_threads = capped_threads()
 
 BLOCK_TOL = dict(rtol=0, atol=2e-5)
 MODEL_TOL = dict(rtol=1e-3, atol=1e-4)

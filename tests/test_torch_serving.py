@@ -55,7 +55,9 @@ from eeg2video_tpu_torch.serving import batching, runtimes, transport
 from eeg2video_tpu_torch.serving.runtimes import _check_request_knobs, _knob_key
 from eeg2video_tpu_torch.serving.transport import _Stats, _serve_queue
 
-from test_torch_models import REPO, rand, random_params
+from test_torch_models import REPO, capped_threads, rand, random_params
+
+_threads = capped_threads()
 
 ARRAY_TOL = dict(rtol=0, atol=2e-3)
 HIDDEN = 16

@@ -49,6 +49,10 @@ from eeg2video_tpu_torch.models.vae import AutoencoderKL, VAEConfig
 from eeg2video_tpu_torch.train import checkpoint as ckpt
 from eeg2video_tpu_torch.train import videodiffusion as vd
 
+from test_torch_models import capped_threads
+
+_threads = capped_threads()
+
 BLOCK_TOL = dict(rtol=2e-5, atol=2e-5)
 MODEL_TOL = dict(rtol=1e-3, atol=1e-4)
 GRAD_RTOL = 2e-3

@@ -31,6 +31,10 @@ from eeg2video_tpu.ops import geglu as jg
 from eeg2video_tpu.ops import temporal as jt
 from eeg2video_tpu_torch.ops import attention, geglu, temporal
 
+from test_torch_models import capped_threads
+
+_threads = capped_threads()
+
 FWD_TOL = 2e-5
 GRAD_RTOL = 5e-5
 
