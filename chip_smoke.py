@@ -183,12 +183,17 @@ def phase_build(build):
     secs = sorted(build.source_seconds(log).items(), key=lambda kv: -kv[1])
     say(f"build: seconds to each source's end, slowest first: "
         f"{', '.join(f'{name} {s:.1f}' for name, s in secs)}")
-    # the attention kernels' registers and spills (-Xptxas -v)
-    res = {k: v for k, v in build.kernel_resources(log).items() if k.startswith("flash_")}
+    # the attention and ff_ln kernels' registers and spills (-Xptxas -v)
+    res = {k: v for k, v in build.kernel_resources(log).items()
+           if k.startswith(("flash_", "ff_ln_kernel<"))}
     spilled = {k: v for k, v in res.items() if v[1] or v[2]}
-    say(f"build: {len(res)} attention kernels, registers (spill stores, loads in bytes): "
-        f"{'; '.join(f'{k} {r} ({st}, {ld})' for k, (r, st, ld) in sorted(res.items()))}; "
+    say(f"build: {len(res)} attention and ff_ln kernels, registers (spill stores, loads in "
+        f"bytes): {'; '.join(f'{k} {r} ({st}, {ld})' for k, (r, st, ld) in sorted(res.items()))}; "
         f"{len(spilled)} spill")
+    # ff_ln_kernel<CT> serves C = 64 CT: the model's C = 320 and 640 must not spill
+    for ct in (5, 10):
+        if f"ff_ln_kernel<{ct}>" not in res or f"ff_ln_kernel<{ct}>" in spilled:
+            fail(f"build: ff_ln_kernel<{ct}> (C = {64 * ct}) missing from build.log or spills")
 
 
 def kernel_cases(torch, dev):
@@ -253,8 +258,15 @@ def kernel_cases(torch, dev):
     attn("cross (2,864,1280)x77", r(2, 864, 1280), r(2, 77, 1280), r(2, 77, 1280))
 
     # ff_ln, geglu_out and conv3x3_gn_silu fuse several PyTorch calls: no
-    # single call computes the same function, so their library_ms is null
-    for t, c, primary in ((27648, 320, True), (6912, 640, False)):
+    # single call computes the same function, so their library_ms is null.
+    # ff_ln at the generation shapes of levels 0 / 1 (batch 2 with CFG), the
+    # train step's (batch 10), and row counts that end inside a 64-row block;
+    # each run twice and compared bit for bit
+    tb6 = TRAIN_BATCH * 6
+    for t, c, primary in ((27648, 320, True), (6912, 640, False), (tb6 * 2304, 320, False),
+                          (tb6 * 576, 640, False), (1, 320, False), (37, 320, False),
+                          (130, 320, False), (1, 640, False), (37, 640, False),
+                          (130, 640, False)):
         i = 4 * c
         args = [r(t, c), 1.0 + 0.05 * r(c).float(), 0.02 * r(c).float(),
                 r(2 * i, c, scale=c ** -0.5), 0.02 * r(2 * i).float(),
@@ -543,7 +555,7 @@ def phase_kernels(torch):
                                             ("kernel", "label", "kern", "plain", "args"))
         got = [t for t in _outputs(kern()) if t is not None]
         torch.cuda.synchronize()
-        if kernel.endswith("_bwd"):  # every sum in a fixed order: the same bits twice
+        if kernel.endswith("_bwd") or kernel == "ff_ln":  # sums in a fixed order: same bits
             again = [t for t in _outputs(kern()) if t is not None]
             if not all(torch.equal(a, b) for a, b in zip(got, again)):
                 fail(f"kernels: {kernel} [{label}]: two runs gave different bits")

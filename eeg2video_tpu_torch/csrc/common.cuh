@@ -1,11 +1,14 @@
 // Shared helpers for the port's Hopper kernels (sm_90a).
 //
-// The attention kernels (flash_fwd.cuh, flash_bwd.cuh) keep their tiles in
-// registers: mma.sync.m16n8k16 with f32 accumulators, operands by ldmatrix,
-// tiles streamed by cp.async (flash_tiles.cuh). The other kernels are still
-// the first, simple version: bf16 WMMA tiles (16x16x16, f32 accumulation)
-// staged through shared memory. wgmma, TMA and warp specialisation are later
-// work.
+// The attention kernels (flash_fwd.cuh, flash_bwd.cuh) and the feed-forward
+// forward ff_ln (ff_ln.cu) keep their accumulators in registers:
+// mma.sync.m16n8k16 with f32 accumulators, operands by ldmatrix, tiles (for
+// ff_ln the weight slabs, through a three-stage ring) streamed by cp.async
+// (flash_tiles.cuh). ff_ln_bwd, geglu_out, geglu_out_bwd, conv3x3 and
+// int8_dense are still the first, simple version: bf16 WMMA tiles (16x16x16,
+// f32 accumulation) staged through shared memory (temporal_attention is a
+// warp-per-token f32 kernel without tensor cores). wgmma, TMA and warp
+// specialisation are later work.
 #pragma once
 
 #include <cuda_bf16.h>

@@ -183,12 +183,19 @@ def source_seconds(log: str):
 
 
 def _short_name(mangled: str) -> str:
-    m = re.match(r"_ZN3e2v(?:12_GLOBAL__N_1)?(\d+)", mangled)
-    if not m:
+    """``e2v::[anonymous namespace]::name<args>`` of a mangled kernel name (an
+    anonymous namespace may be mangled with a per-file suffix)."""
+    if not mangled.startswith("_ZN3e2v"):
         return mangled
-    ln = int(m.group(1))
-    base = mangled[m.end():m.end() + ln]
-    args = re.findall(r"L[ib](\d+)E", mangled[m.end() + ln:])
+    pos, base = len("_ZN3e2v"), None
+    while base is None or base.startswith("_GLOBAL__N"):
+        m = re.match(r"\d+", mangled[pos:])
+        if not m:
+            return mangled
+        ln = int(m.group(0))
+        base = mangled[pos + m.end():pos + m.end() + ln]
+        pos += m.end() + ln
+    args = re.findall(r"L[ib](\d+)E", mangled[pos:])
     return f"{base}<{','.join(args)}>" if args else base
 
 

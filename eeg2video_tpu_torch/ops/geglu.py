@@ -94,6 +94,12 @@ def _f32(t):
     return t.float().contiguous()
 
 
+def _aligned16(t):
+    """``t`` (contiguous) at a 16-byte aligned address: a copy where a view's
+    offset puts it elsewhere (the kernel reads it in 16-byte vectors)."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
 def _param_grads(plain, inputs, params, needs, g):
     """Gradients of ``plain(*inputs, *params)`` for the parameters whose
     ``needs`` flag is set (None for the others): autograd through the plain
@@ -125,9 +131,9 @@ def ff_ln(x, gamma, beta, wp, bp, wo, bo, eps=1e-5):
     for t in (x, wp, wo):
         req(t.is_cuda and t.dtype == torch.bfloat16, kernel,
             "x, wp and wo must be bf16 CUDA tensors")
-    xc = x.reshape(-1, c).contiguous()
-    wp, wo = wp.contiguous(), wo.contiguous()
-    vecs = [_f32(v) for v in (gamma, beta, bp, bo)]
+    xc = _aligned16(x.reshape(-1, c).contiguous())
+    wp, wo = _aligned16(wp.contiguous()), _aligned16(wo.contiguous())
+    vecs = [_aligned16(_f32(v)) for v in (gamma, beta, bp, bo)]
     out = torch.empty_like(xc)
     rc = _build.library().e2v_ff_ln(
         xc.data_ptr(), vecs[0].data_ptr(), vecs[1].data_ptr(), wp.data_ptr(),

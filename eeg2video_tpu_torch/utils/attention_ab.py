@@ -1,6 +1,7 @@
-"""Time the attention kernels of one or more checkouts on one GPU.
+"""Time the attention kernels (or ``ff_ln``) of one or more checkouts on one GPU.
 
     python -m eeg2video_tpu_torch.utils.attention_ab --tree PARENT --tree . --tree . --tree PARENT
+    python -m eeg2video_tpu_torch.utils.attention_ab --cases ff_ln --tree PARENT --tree . ...
 
 Each ``--tree`` is the root of a checkout. Its ``eeg2video_tpu_torch`` is
 imported in a process of its own (two versions never share a process), its
@@ -11,7 +12,11 @@ order parent, change, change, parent, the trees compare two versions in one
 call on one card. The cases are the attention forward and backward calls of
 the generation and train paths at full width (batch 2 and 10), with and
 without the gradient of a mask's bias, and ``fused_attention`` at the train
-scale; the inputs are random from a seed.
+scale; the inputs are random from a seed. ``--cases ff_ln`` times ``ff_ln``
+instead, at the generation and train shapes of levels 0 and 1 (T = 27648 /
+6912 and 138240 / 34560 at C = 320 / 640), and beside each case, as
+``composed_ms``, the cuBLAS composition layer_norm -> F.linear -> h gelu(g) ->
+F.linear + x on the same inputs: a reference only, which the port never calls.
 """
 
 from __future__ import annotations
@@ -75,6 +80,32 @@ def _cases(torch, attention):
     return cases
 
 
+def _ff_cases(torch, geglu):
+    """{label: (ff_ln call, composed cuBLAS call)} on the inputs chip_smoke.py uses."""
+    import torch.nn.functional as F
+
+    g = torch.Generator(device="cuda").manual_seed(0)
+
+    def r(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=g, device="cuda") * scale).bfloat16()
+
+    cases = {}
+    for t, c in ((27648, 320), (6912, 640), (138240, 320), (34560, 640)):
+        i = 4 * c
+        args = [r(t, c), 1.0 + 0.05 * r(c).float(), 0.02 * r(c).float(),
+                r(2 * i, c, scale=c ** -0.5), 0.02 * r(2 * i).float(),
+                r(c, i, scale=i ** -0.5), 0.02 * r(c).float()]
+        x, gamma, beta, wp, bp, wo, bo = args
+        vb = [v.bfloat16() for v in (gamma, beta, bp, bo)]
+
+        def composed(x=x, wp=wp, wo=wo, vb=vb, c=c):
+            h, gate = F.linear(F.layer_norm(x, (c,), vb[0], vb[1]), wp, vb[2]).chunk(2, dim=-1)
+            return F.linear(h * F.gelu(gate), wo, vb[3]) + x
+
+        cases[f"ff_ln T={t} C={c}"] = (lambda a=args: geglu.ff_ln(*a), composed)
+    return cases
+
+
 def _time(torch, fn, reps=10):
     fn()
     times = []
@@ -88,32 +119,37 @@ def _time(torch, fn, reps=10):
     return statistics.median(times)
 
 
-def _one(tree):
+def _one(tree, which="attention"):
     import torch
 
-    from eeg2video_tpu_torch.ops import _build, attention
+    from eeg2video_tpu_torch.ops import _build, attention, geglu
 
     if not torch.cuda.is_available():
         sys.exit("attention_ab: no GPU")
     _build.library()
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60).stdout.strip().splitlines()
-    ms = {label: _time(torch, fn) for label, fn in _cases(torch, attention).items()}
-    print(json.dumps({"tree": tree, "package": os.path.dirname(attention.__file__),
-                      "device": torch.cuda.get_device_name(0), "smi": smi[0] if smi else None,
-                      "ms": ms}), flush=True)
+    line = {"tree": tree, "package": os.path.dirname(attention.__file__),
+            "device": torch.cuda.get_device_name(0), "smi": smi[0] if smi else None}
+    if which == "ff_ln":
+        cases = _ff_cases(torch, geglu)
+        line["ms"] = {label: _time(torch, fn) for label, (fn, _) in cases.items()}
+        line["composed_ms"] = {label: _time(torch, ref) for label, (_, ref) in cases.items()}
+    else:
+        line["ms"] = {label: _time(torch, fn) for label, fn in _cases(torch, attention).items()}
+    print(json.dumps(line), flush=True)
 
 
 # a child process: the tree's package first on the path, this file's
 # functions loaded by path (the other tree may not have this module)
 _CHILD = """
 import importlib.util, sys
-tree, path = sys.argv[1], sys.argv[2]
+tree, path, which = sys.argv[1], sys.argv[2], sys.argv[3]
 sys.path.insert(0, tree)
 spec = importlib.util.spec_from_file_location("attention_ab_child", path)
 mod = importlib.util.module_from_spec(spec)
 spec.loader.exec_module(mod)
-mod._one(tree)
+mod._one(tree, which)
 """
 
 
@@ -121,11 +157,13 @@ def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--tree", action="append", required=True,
                         help="root of a checkout (repeat: one process each, in order)")
+    parser.add_argument("--cases", choices=("attention", "ff_ln"), default="attention",
+                        help="the kernels to time (default: the attention cases)")
     args = parser.parse_args(argv)
     rc = 0
     for tree in args.tree:
         rc |= subprocess.run([sys.executable, "-c", _CHILD, os.path.abspath(tree),
-                              os.path.abspath(__file__)]).returncode
+                              os.path.abspath(__file__), args.cases]).returncode
     return rc
 
 

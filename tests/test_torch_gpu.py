@@ -376,14 +376,19 @@ def test_feed_forward_functions_give_parameter_gradients_on_request(gen):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("t,c", [(100, 64), (37, 128)])
+@pytest.mark.parametrize("t,c", [(100, 64), (37, 128),
+                                 # one row, and row counts that end inside a 64-row block
+                                 (1, 64), (130, 64), (1, 320), (37, 320), (130, 320),
+                                 (1, 640), (37, 640), (130, 640)])
 def test_ff_ln_matches_plain(gen, t, c):
     i = 4 * c
     args = [_rand(gen, t, c), 1.0 + 0.05 * _rand(gen, c, dtype=torch.float32),
             0.02 * _rand(gen, c, dtype=torch.float32), _rand(gen, 2 * i, c, scale=c ** -0.5),
             0.02 * _rand(gen, 2 * i, dtype=torch.float32), _rand(gen, c, i, scale=i ** -0.5),
             0.02 * _rand(gen, c, dtype=torch.float32)]
-    assert _err(geglu.ff_ln(*args), geglu.ff_ln_plain(*_f32(args))) < BOUND
+    got = geglu.ff_ln(*args)
+    assert _err(got, geglu.ff_ln_plain(*_f32(args))) < BOUND
+    assert torch.equal(got, geglu.ff_ln(*args))  # every sum in a fixed order
 
 
 @pytest.mark.gpu

@@ -167,3 +167,20 @@ def test_cpu_tensors_take_plain_versions_and_count_no_launch():
                            torch.ones(1, 8), torch.zeros(1, 8))
     assert _build.launches == before
     assert _build._lib is None  # nothing was built
+
+
+def test_kernel_resources_name_kernels_in_anonymous_namespaces():
+    """build.log's ``-Xptxas -v`` lines give registers and spills per kernel, named by function
+    and template arguments; nvcc mangles a file's anonymous namespace with a per-file suffix."""
+    log = "\n".join([
+        "ptxas info    : Compiling entry function '_ZN3e2v40_GLOBAL__N__a77dbe88_8_ff_ln_cu_"
+        "49e8f03d12ff_ln_kernelILi10EEEvPK13__nv_bfloat16PKfS6_S4_S6_S4_S6_PS2_iif' for 'sm_90a'",
+        "    0 bytes stack frame, 8 bytes spill stores, 4 bytes spill loads",
+        "ptxas info    : Used 128 registers, used 1 barriers",
+        "ptxas info    : Compiling entry function '_ZN3e2v16flash_fwd_kernelILi48ELb1ELb0EEEvNS_"
+        "8AttnArgsE' for 'sm_90a'",
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "ptxas info    : Used 122 registers, used 1 barriers",
+    ])
+    assert _build.kernel_resources(log) == {"ff_ln_kernel<10>": (128, 8, 4),
+                                            "flash_fwd_kernel<48,1,0>": (122, 0, 0)}
