@@ -183,17 +183,20 @@ def phase_build(build):
     secs = sorted(build.source_seconds(log).items(), key=lambda kv: -kv[1])
     say(f"build: seconds to each source's end, slowest first: "
         f"{', '.join(f'{name} {s:.1f}' for name, s in secs)}")
-    # the attention and ff_ln kernels' registers and spills (-Xptxas -v)
+    # the attention and feed-forward kernels' registers and spills (-Xptxas -v)
     res = {k: v for k, v in build.kernel_resources(log).items()
-           if k.startswith(("flash_", "ff_ln_kernel<"))}
+           if k.startswith(("flash_", "ff_ln_kernel<", "ff_ln_bwd_kernel<"))}
     spilled = {k: v for k, v in res.items() if v[1] or v[2]}
-    say(f"build: {len(res)} attention and ff_ln kernels, registers (spill stores, loads in "
-        f"bytes): {'; '.join(f'{k} {r} ({st}, {ld})' for k, (r, st, ld) in sorted(res.items()))}; "
+    say(f"build: {len(res)} attention, ff_ln and ff_ln_bwd kernels, registers (spill stores, "
+        f"loads in bytes): "
+        f"{'; '.join(f'{k} {r} ({st}, {ld})' for k, (r, st, ld) in sorted(res.items()))}; "
         f"{len(spilled)} spill")
-    # ff_ln_kernel<CT> serves C = 64 CT: the model's C = 320 and 640 must not spill
-    for ct in (5, 10):
-        if f"ff_ln_kernel<{ct}>" not in res or f"ff_ln_kernel<{ct}>" in spilled:
-            fail(f"build: ff_ln_kernel<{ct}> (C = {64 * ct}) missing from build.log or spills")
+    # ff_ln_kernel<CT> and ff_ln_bwd_kernel<CT> serve C = 64 CT: the model's
+    # C = 320 and 640 must not spill
+    for name in ("ff_ln_kernel", "ff_ln_bwd_kernel"):
+        for ct in (5, 10):
+            if f"{name}<{ct}>" not in res or f"{name}<{ct}>" in spilled:
+                fail(f"build: {name}<{ct}> (C = {64 * ct}) missing from build.log or spills")
 
 
 def kernel_cases(torch, dev):
@@ -201,7 +204,7 @@ def kernel_cases(torch, dev):
     f32 copies of ``args``, operations, an optional library call, primary?"""
     import torch.nn.functional as F
 
-    from eeg2video_tpu_torch.ops import attention, conv2d, geglu, int8_dense, temporal
+    from eeg2video_tpu_torch.ops import _build, attention, conv2d, geglu, int8_dense, temporal
 
     g = torch.Generator(device=dev).manual_seed(0)
 
@@ -211,10 +214,10 @@ def kernel_cases(torch, dev):
     cases = []
 
     def add(kernel, label, kern, plain, args, flops, library=None, primary=False,
-            plain_takes_args=False):
+            plain_takes_args=False, l2_bytes=None):
         cases.append(dict(kernel=kernel, label=label, kern=kern, plain=plain, args=args,
                           flops=flops, library=library, primary=primary,
-                          plain_takes_args=plain_takes_args))
+                          plain_takes_args=plain_takes_args, l2_bytes=l2_bytes))
 
     heads = 8
 
@@ -498,13 +501,18 @@ def kernel_cases(torch, dev):
 
     # ff_ln_bwd: 10*T*C*I operations (h2, dgated, dh2 Wp); geglu_out_bwd: one
     # 2*T*C*I product. As their forwards, no single PyTorch call computes them.
-    for t, c, primary in ((tb * 6 * 2304, 320, True), (tb * 6 * 576, 640, False)):
+    # ff_ln_bwd at the train step's shapes of levels 0 / 1 and at row counts
+    # that end inside a block, with the weight bytes its blocks copy from L2
+    for t, c, primary in ((tb * 6 * 2304, 320, True), (tb * 6 * 576, 640, False),
+                          (1, 320, False), (37, 320, False), (130, 320, False),
+                          (1, 640, False), (37, 640, False), (130, 640, False)):
         i = 4 * c
         args = [r(t, c), r(t, c), 1.0 + 0.05 * r(c).float(), 0.02 * r(c).float(),
                 r(2 * i, c, scale=c ** -0.5), 0.02 * r(2 * i).float(),
                 r(c, i, scale=i ** -0.5)]
         add("ff_ln_bwd", f"T={t} C={c}", lambda a=args: geglu.ff_ln_bwd(*a),
-            lambda ts: geglu.ff_ln_bwd_plain(*ts), args, flops=10 * t * c * i, primary=primary)
+            lambda ts: geglu.ff_ln_bwd_plain(*ts), args, flops=10 * t * c * i, primary=primary,
+            l2_bytes=ff_ln_bwd_weight_bytes(_build, t, c, i))
     for t, primary in ((tb * 6 * 144, True), (tb * 6 * 40, False)):
         args = [r(t, 10240), r(t, 1280), r(1280, 5120, scale=5120 ** -0.5)]
         add("geglu_out_bwd", f"T={t} I=5120 C=1280", lambda a=args: geglu.geglu_out_bwd(*a),
@@ -537,6 +545,13 @@ def kernel_cases(torch, dev):
     int8("fc1-3 M=1 (10000->10000)", 1, 10000, 10000)
     int8("out M=100 (10000->59136)", 100, 10000, 77 * 768)
     return cases
+
+
+def ff_ln_bwd_weight_bytes(build, t, c, inner):
+    """Weight bytes ff_ln_bwd's blocks copy from L2 for t rows: each block
+    of the kernel's rows copies Wp (2I x C) twice and Wo (C x I) once, bf16."""
+    rows = build.library().e2v_ff_ln_bwd_block_rows(c)
+    return -(-t // rows) * (2 * 2 * inner * c + c * inner) * 2
 
 
 def _outputs(res):
@@ -583,9 +598,12 @@ def phase_kernels(torch):
         library_ms = timed_ms(case["library"], torch, 10) if case["library"] else None
         ok = rel_err < KERNEL_BOUND
         lib = "no single call" if library_ms is None else f"{library_ms:.3f} ms"
+        l2 = case["l2_bytes"]
+        l2 = "" if l2 is None else (f", weights from L2 {l2} bytes a call "
+                                    f"({l2 / ms / 1e9:.2f} TB/s at this time)")
         say(f"kernel {kernel} [{label}]: max_rel_err {rel_err:.3e} (bound {KERNEL_BOUND:.0e}) "
             f"max_abs_err {abs_err:.3e}, {ms:.3f} ms, bound {bound_ms:.4f} ms by {bound_by} "
-            f"({bound_ms / ms:.3f} of it; {nbytes} bytes, {case['flops']} operations), "
+            f"({bound_ms / ms:.3f} of it; {nbytes} bytes, {case['flops']} operations{l2}), "
             f"library {lib}, plain {plain_ms:.3f} ms {'ok' if ok else 'FAILED'}")
         if not ok:
             fail(f"kernels: {kernel} [{label}] disagrees with its plain version")

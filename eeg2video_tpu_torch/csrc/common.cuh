@@ -1,14 +1,14 @@
 // Shared helpers for the port's Hopper kernels (sm_90a).
 //
 // The attention kernels (flash_fwd.cuh, flash_bwd.cuh) and the feed-forward
-// forward ff_ln (ff_ln.cu) keep their accumulators in registers:
-// mma.sync.m16n8k16 with f32 accumulators, operands by ldmatrix, tiles (for
-// ff_ln the weight slabs, through a three-stage ring) streamed by cp.async
-// (flash_tiles.cuh). ff_ln_bwd, geglu_out, geglu_out_bwd, conv3x3 and
-// int8_dense are still the first, simple version: bf16 WMMA tiles (16x16x16,
-// f32 accumulation) staged through shared memory (temporal_attention is a
-// warp-per-token f32 kernel without tensor cores). wgmma, TMA and warp
-// specialisation are later work.
+// kernels ff_ln and ff_ln_bwd (ff_ln.cu, ff_ln_bwd.cu) keep their
+// accumulators in registers: mma.sync.m16n8k16 with f32 accumulators,
+// operands by ldmatrix, tiles (for the feed-forward the weight slabs, through
+// a three-stage ring: ff_tiles.cuh) streamed by cp.async (flash_tiles.cuh).
+// geglu_out, geglu_out_bwd, conv3x3 and int8_dense are still the first,
+// simple version: bf16 WMMA tiles (16x16x16, f32 accumulation) staged through
+// shared memory (temporal_attention is a warp-per-token f32 kernel without
+// tensor cores). wgmma, TMA and warp specialisation are later work.
 #pragma once
 
 #include <cuda_bf16.h>

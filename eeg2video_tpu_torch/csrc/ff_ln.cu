@@ -21,7 +21,8 @@
 // Design (the first version, 32-row WMMA blocks that read every weight
 // fragment straight from device memory and staged f32 tiles through shared
 // memory, took 25x its bound; this one follows the attention kernels'
-// recipe, flash_tiles.cuh):
+// recipe, flash_tiles.cuh, with the slab ring of ff_tiles.cuh that ff_ln_bwd
+// shares):
 //   - one block = 64 token rows, two 32-row halves x NG column groups of
 //     warps (NG = 4 at C = 320: 8 warps; NG = 8 at C = 640: 16 warps; 2 up to
 //     C = 128). A warp's GEMM2 accumulator, 32 rows x C/NG columns (32 x 80
@@ -59,21 +60,13 @@
 // Every output element's sum runs in one fixed order (chunks in order, k16
 // steps in order, one warp): no atomics, no split of the inner dimension
 // across blocks, the same bits on every run.
-#include "flash_tiles.cuh"
+#include "ff_tiles.cuh"
 
 namespace e2v {
 namespace {
 
 constexpr int kBM = 64;             // token rows per block
-constexpr int kIC = 64;             // inner-dimension chunk
 constexpr int kLDG = kIC + 8;       // row stride of the bf16 gated chunk
-
-// k-width of a Wp slab: the widest multiple of 16 up to 160 that divides C
-__host__ __device__ constexpr int wp_slab_k(int c) {
-  int k = 160;
-  while (c % k != 0) k -= 16;
-  return k;
-}
 
 template <int CT>
 struct FfShape {
@@ -105,48 +98,19 @@ struct FfShape {
   static_assert(CW % 16 == 0 && HW % 8 == 0, "warp tiles of whole n16 / n8 steps");
 };
 
-// N bf16 values moved as one 2N-byte vector
-template <int N>
-struct alignas(2 * N) Bf16s {
-  bf16 h[N];
-};
-
-// B fragments of h tile n0 .. n0+7 (r[0], r[1]) and of the g tile kIC rows
-// further down (r[2], r[3]) of a Wp slab, over k = columns k0 .. k0+15
-template <int LD>
-__device__ __forceinline__ void load_b_hg(uint32_t (&r)[4], const bf16* slab, int n0, int k0,
-                                          int lane) {
-  ldmatrix_x4(r, slab + ((lane >> 4) * kIC + n0 + (lane & 7)) * LD + k0 +
-                     ((lane >> 3) & 1) * 8);
-}
-
-// Start the copies of ring step s (of nsteps) into its slot and commit them
-// as one group; past the last step an empty group keeps the count even.
+// Ring step s of nsteps: per chunk NP Wp slabs, then NW Wo slabs
 template <int CT>
 __device__ __forceinline__ void load_step(bf16* ring, const bf16* __restrict__ wp,
                                           const bf16* __restrict__ wo, int I, int s,
                                           int nsteps) {
   using S = FfShape<CT>;
-  if (s < nsteps) {
-    bf16* slot = ring + (s % S::kStages) * S::kSlot;
-    const int j0 = (s / S::kSteps) * kIC, i = s % S::kSteps;
-    if (i < S::NP) {  // Wp: h rows j0.., g rows I + j0.., columns i KP ..
-      constexpr int kCPR = S::KP / 8;
-      for (int e = threadIdx.x; e < 2 * kIC * kCPR; e += S::kThreads) {
-        const int r = e / kCPR, c = (e % kCPR) * 8;
-        const int wrow = r < kIC ? j0 + r : I + j0 + r - kIC;
-        cp_async16(slot + r * S::LDP + c, wp + (long long)wrow * S::C + i * S::KP + c, true);
-      }
-    } else {  // Wo: all C rows, columns j0 + KW (i - NP) .. + KW
-      constexpr int kCPR = S::KW / 8;
-      const int k0 = j0 + (i - S::NP) * S::KW;
-      for (int e = threadIdx.x; e < S::C * kCPR; e += S::kThreads) {
-        const int n = e / kCPR, c = (e % kCPR) * 8;
-        cp_async16(slot + n * S::LDO + c, wo + (long long)n * I + k0 + c, true);
-      }
-    }
-  }
-  cp_async_commit();
+  ring_step<S::kStages, S::kSlot>(ring, s, nsteps, [&](bf16* slot, int step) {
+    const int j0 = (step / S::kSteps) * kIC, i = step % S::kSteps;
+    if (i < S::NP)  // Wp: h rows j0.., g rows I + j0.., columns i KP ..
+      copy_wp_hg<S::C, S::KP, S::LDP, S::kThreads>(slot, wp, I, j0, i * S::KP);
+    else  // Wo: all C rows, columns j0 + KW (i - NP) .. + KW
+      copy_block<S::C, S::KW, S::LDO, S::kThreads>(slot, wo, I, 0, j0 + (i - S::NP) * S::KW);
+  });
 }
 
 // out[idx], out[idx + 1] = x + acc + bo, in f32, rounded once

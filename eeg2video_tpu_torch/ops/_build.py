@@ -51,6 +51,7 @@ SIGNATURES = {
     "e2v_temporal_attention_bwd": [P, P, P, P, P, P, P, LL, LL, I, I, I, I, I, F, P],
     "e2v_ff_ln": [P, P, P, P, P, P, P, P, I, I, I, F, P],
     "e2v_ff_ln_bwd": [P, P, P, P, P, P, P, P, I, I, I, F, P],
+    "e2v_ff_ln_bwd_block_rows": [I],
     "e2v_geglu_out": [P, P, P, P, I, I, I, P],
     "e2v_geglu_out_bwd": [P, P, P, P, I, I, I, P],
     "e2v_conv3x3": [P, P, P, P, P, P, P, P, I, I, I, I, I, P],

@@ -161,9 +161,10 @@ def ff_ln_bwd(x, g, gamma, beta, wp, bp, wo, eps=1e-5):
     for t in (x, g, wp, wo):
         req(t.is_cuda and t.dtype == torch.bfloat16, kernel,
             "x, g, wp and wo must be bf16 CUDA tensors")
-    xc, gc = x.reshape(-1, c).contiguous(), g.reshape(-1, c).contiguous()
-    wp, wo = wp.contiguous(), wo.contiguous()
-    vecs = [_f32(v) for v in (gamma, beta, bp)]
+    xc = _aligned16(x.reshape(-1, c).contiguous())
+    gc = _aligned16(g.reshape(-1, c).contiguous())
+    wp, wo = _aligned16(wp.contiguous()), _aligned16(wo.contiguous())
+    vecs = [_aligned16(_f32(v)) for v in (gamma, beta, bp)]
     dx = torch.empty_like(xc)
     rc = _build.library().e2v_ff_ln_bwd(
         xc.data_ptr(), gc.data_ptr(), vecs[0].data_ptr(), vecs[1].data_ptr(),

@@ -1,7 +1,8 @@
-"""Time the attention kernels (or ``ff_ln``) of one or more checkouts on one GPU.
+"""Time the attention kernels (or ``ff_ln``, ``ff_ln_bwd``) of one or more checkouts on one GPU.
 
     python -m eeg2video_tpu_torch.utils.attention_ab --tree PARENT --tree . --tree . --tree PARENT
     python -m eeg2video_tpu_torch.utils.attention_ab --cases ff_ln --tree PARENT --tree . ...
+    python -m eeg2video_tpu_torch.utils.attention_ab --cases ff_ln_bwd --tree PARENT --tree . ...
 
 Each ``--tree`` is the root of a checkout. Its ``eeg2video_tpu_torch`` is
 imported in a process of its own (two versions never share a process), its
@@ -17,11 +18,19 @@ instead, at the generation and train shapes of levels 0 and 1 (T = 27648 /
 6912 and 138240 / 34560 at C = 320 / 640), and beside each case, as
 ``composed_ms``, the cuBLAS composition layer_norm -> F.linear -> h gelu(g) ->
 F.linear + x on the same inputs: a reference only, which the port never calls.
+``--cases ff_ln_bwd`` times ``ff_ln_bwd`` at the train shapes of levels 0
+and 1 (T = 138240 / 34560 at C = 320 / 640), and as ``composed_ms`` the
+gradient with respect to x (``torch.autograd.grad``) of that composition,
+its forward included, as the kernel recomputes the forward. For both, the
+line also gives a digest of the kernel's output bits (``digest``) at each
+timed shape and at T = 1, 37 and 130 for C = 320 and 640, so that two
+versions can be held to the same bits.
 """
 
 from __future__ import annotations
 
 import argparse
+import hashlib
 import json
 import os
 import statistics
@@ -80,7 +89,11 @@ def _cases(torch, attention):
     return cases
 
 
-def _ff_cases(torch, geglu):
+# row counts that end inside a block, whose outputs are compared bit for bit only
+_FF_EDGES = ((1, 320), (37, 320), (130, 320), (1, 640), (37, 640), (130, 640))
+
+
+def _ff_cases(torch, geglu, shapes=((27648, 320), (6912, 640), (138240, 320), (34560, 640))):
     """{label: (ff_ln call, composed cuBLAS call)} on the inputs chip_smoke.py uses."""
     import torch.nn.functional as F
 
@@ -90,7 +103,7 @@ def _ff_cases(torch, geglu):
         return (torch.randn(*shape, generator=g, device="cuda") * scale).bfloat16()
 
     cases = {}
-    for t, c in ((27648, 320), (6912, 640), (138240, 320), (34560, 640)):
+    for t, c in shapes:
         i = 4 * c
         args = [r(t, c), 1.0 + 0.05 * r(c).float(), 0.02 * r(c).float(),
                 r(2 * i, c, scale=c ** -0.5), 0.02 * r(2 * i).float(),
@@ -104,6 +117,42 @@ def _ff_cases(torch, geglu):
 
         cases[f"ff_ln T={t} C={c}"] = (lambda a=args: geglu.ff_ln(*a), composed)
     return cases
+
+
+def _ff_bwd_cases(torch, geglu, shapes=((138240, 320), (34560, 640))):
+    """{label: (ff_ln_bwd call, autograd through the composed cuBLAS forward)}
+    on the inputs chip_smoke.py uses."""
+    import torch.nn.functional as F
+
+    g = torch.Generator(device="cuda").manual_seed(0)
+
+    def r(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=g, device="cuda") * scale).bfloat16()
+
+    cases = {}
+    for t, c in shapes:
+        i = 4 * c
+        args = [r(t, c), r(t, c), 1.0 + 0.05 * r(c).float(), 0.02 * r(c).float(),
+                r(2 * i, c, scale=c ** -0.5), 0.02 * r(2 * i).float(),
+                r(c, i, scale=i ** -0.5)]
+        x, dout, gamma, beta, wp, bp, wo = args
+        vb = [v.bfloat16() for v in (gamma, beta, bp)]
+        bo = torch.zeros(c, dtype=torch.bfloat16, device="cuda")
+
+        def composed(x=x, dout=dout, wp=wp, wo=wo, vb=vb, bo=bo, c=c):
+            xl = x.detach().requires_grad_()
+            h, gate = F.linear(F.layer_norm(xl, (c,), vb[0], vb[1]), wp, vb[2]).chunk(2, dim=-1)
+            out = F.linear(h * F.gelu(gate), wo, bo) + xl
+            return torch.autograd.grad(out, xl, dout)
+
+        cases[f"ff_ln_bwd T={t} C={c}"] = (lambda a=args: geglu.ff_ln_bwd(*a), composed)
+    return cases
+
+
+def _digest(torch, out):
+    """The first 16 hex digits of the sha256 of a bf16 tensor's bits."""
+    bits = out.contiguous().view(torch.int16).cpu().numpy().tobytes()
+    return hashlib.sha256(bits).hexdigest()[:16]
 
 
 def _time(torch, fn, reps=10):
@@ -131,10 +180,14 @@ def _one(tree, which="attention"):
                          capture_output=True, text=True, timeout=60).stdout.strip().splitlines()
     line = {"tree": tree, "package": os.path.dirname(attention.__file__),
             "device": torch.cuda.get_device_name(0), "smi": smi[0] if smi else None}
-    if which == "ff_ln":
-        cases = _ff_cases(torch, geglu)
+    if which in ("ff_ln", "ff_ln_bwd"):
+        make = _ff_cases if which == "ff_ln" else _ff_bwd_cases
+        cases = make(torch, geglu)
         line["ms"] = {label: _time(torch, fn) for label, (fn, _) in cases.items()}
         line["composed_ms"] = {label: _time(torch, ref) for label, (_, ref) in cases.items()}
+        # the output's bits at the timed shapes and at row counts that end inside a block
+        every = {**cases, **make(torch, geglu, _FF_EDGES)}
+        line["digest"] = {label: _digest(torch, fn()) for label, (fn, _) in every.items()}
     else:
         line["ms"] = {label: _time(torch, fn) for label, fn in _cases(torch, attention).items()}
     print(json.dumps(line), flush=True)
@@ -157,7 +210,7 @@ def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--tree", action="append", required=True,
                         help="root of a checkout (repeat: one process each, in order)")
-    parser.add_argument("--cases", choices=("attention", "ff_ln"), default="attention",
+    parser.add_argument("--cases", choices=("attention", "ff_ln", "ff_ln_bwd"), default="attention",
                         help="the kernels to time (default: the attention cases)")
     args = parser.parse_args(argv)
     rc = 0

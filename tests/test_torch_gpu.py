@@ -340,13 +340,18 @@ def test_temporal_attention_matches_plain(gen, b, f, l, hd, heads):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("t,c", [(100, 64), (37, 128), (70, 640)])
+@pytest.mark.parametrize("t,c", [(100, 64), (37, 128), (70, 640),
+                                 # the model's widths: one row, and row counts that end
+                                 # inside a 64-row (C = 320) or 32-row (C = 640) block
+                                 (1, 320), (37, 320), (130, 320), (1, 640), (130, 640)])
 def test_ff_ln_bwd_matches_plain(gen, t, c):
     i = 4 * c
     args = [_rand(gen, t, c), _rand(gen, t, c), 1.0 + 0.05 * _rand(gen, c, dtype=torch.float32),
             0.02 * _rand(gen, c, dtype=torch.float32), _rand(gen, 2 * i, c, scale=c ** -0.5),
             0.02 * _rand(gen, 2 * i, dtype=torch.float32), _rand(gen, c, i, scale=i ** -0.5)]
-    assert _err(geglu.ff_ln_bwd(*args), geglu.ff_ln_bwd_plain(*_f32(args))) < BOUND
+    got = geglu.ff_ln_bwd(*args)
+    assert _err(got, geglu.ff_ln_bwd_plain(*_f32(args))) < BOUND
+    assert torch.equal(got, geglu.ff_ln_bwd(*args))  # every sum in a fixed order
 
 
 @pytest.mark.gpu

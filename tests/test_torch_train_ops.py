@@ -119,11 +119,13 @@ def _ff_operands(rng, t, c):
                 bo=rand(rng, c, scale=0.1))
 
 
-def test_ff_ln_backward_matches_pallas_and_the_reference_vjp():
+@pytest.mark.parametrize("t,c", [(256, 32),
+                                 (130, 64)])  # T not a multiple of a row block
+def test_ff_ln_backward_matches_pallas_and_the_reference_vjp(t, c):
     """dx against the Pallas backward kernel; the parameter gradients of the
     autograd.Function against jax.vjp of the XLA reference (as _ff_fused_bwd
     forms them). JAX weights are (in, out): transposed for the port."""
-    o = _ff_operands(np.random.default_rng(3), 256, 32)
+    o = _ff_operands(np.random.default_rng(3), t, c)
     eps = 1e-5
     jdx = jg._ff_bwd_pallas(o["x"], o["g"], o["gamma"], o["beta"], o["wp"], o["bp"], o["wo"],
                             eps, interpret=True)
