@@ -17,7 +17,9 @@ printed on its own line; any failure prints ``FAIL ...`` and exits 1:
    the larger of operations / 989 TFLOP/s and bytes / 3.35 TB/s, each input
    read once and each output written once) and, where one PyTorch call
    computes the same function, that call's time (``library_ms``, a yardstick
-   the port never calls);
+   the port never calls); for the level-0 conv, which no single call
+   computes, the cuDNN composition it fuses (``composed_ms``) and the bytes
+   its blocks copy from L2, and every conv case run twice, bit for bit;
 4. UNet parity: a narrow UNet3D in bf16 with kernels on the card against the
    same weights through the plain versions in f32 on the CPU;
 5. slice: two generation requests through ``EEG2VideoPipeline`` at full
@@ -139,11 +141,16 @@ def say(msg):
 
 
 def timed_ms(fn, torch, reps):
-    """Median of ``reps`` synchronized runs, CUDA events, after one warm-up."""
+    """Median of ``reps`` synchronized runs, CUDA events, after one warm-up;
+    each run behind a spin of the device (attention_ab.PAD_CYCLES), so that
+    the events time the device's work and not the host's enqueue."""
+    from eeg2video_tpu_torch.utils.attention_ab import PAD_CYCLES
+
     fn()
     times = []
     for _ in range(reps):
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(PAD_CYCLES)
         start.record()
         fn()
         end.record()
@@ -183,11 +190,11 @@ def phase_build(build):
     secs = sorted(build.source_seconds(log).items(), key=lambda kv: -kv[1])
     say(f"build: seconds to each source's end, slowest first: "
         f"{', '.join(f'{name} {s:.1f}' for name, s in secs)}")
-    # the attention and feed-forward kernels' registers and spills (-Xptxas -v)
+    # the attention, feed-forward and conv kernels' registers and spills (-Xptxas -v)
     res = {k: v for k, v in build.kernel_resources(log).items()
-           if k.startswith(("flash_", "ff_ln_kernel<", "ff_ln_bwd_kernel<"))}
+           if k.startswith(("flash_", "ff_ln_kernel<", "ff_ln_bwd_kernel<", "conv3x3_"))}
     spilled = {k: v for k, v in res.items() if v[1] or v[2]}
-    say(f"build: {len(res)} attention, ff_ln and ff_ln_bwd kernels, registers (spill stores, "
+    say(f"build: {len(res)} attention, ff_ln, ff_ln_bwd and conv3x3 kernels, registers (spill stores, "
         f"loads in bytes): "
         f"{'; '.join(f'{k} {r} ({st}, {ld})' for k, (r, st, ld) in sorted(res.items()))}; "
         f"{len(spilled)} spill")
@@ -197,6 +204,9 @@ def phase_build(build):
         for ct in (5, 10):
             if f"{name}<{ct}>" not in res or f"{name}<{ct}>" in spilled:
                 fail(f"build: {name}<{ct}> (C = {64 * ct}) missing from build.log or spills")
+    conv = [k for k in res if k.split("<")[0] == "conv3x3_kernel"]
+    if len(conv) != 1 or conv[0] in spilled:
+        fail(f"build: the conv3x3 kernel is missing from build.log or spills: {conv}")
 
 
 def kernel_cases(torch, dev):
@@ -205,6 +215,7 @@ def kernel_cases(torch, dev):
     import torch.nn.functional as F
 
     from eeg2video_tpu_torch.ops import _build, attention, conv2d, geglu, int8_dense, temporal
+    from eeg2video_tpu_torch.utils.attention_ab import conv_args, conv_composed
 
     g = torch.Generator(device=dev).manual_seed(0)
 
@@ -214,10 +225,11 @@ def kernel_cases(torch, dev):
     cases = []
 
     def add(kernel, label, kern, plain, args, flops, library=None, primary=False,
-            plain_takes_args=False, l2_bytes=None):
+            plain_takes_args=False, l2_bytes=None, composed=None):
         cases.append(dict(kernel=kernel, label=label, kern=kern, plain=plain, args=args,
                           flops=flops, library=library, primary=primary,
-                          plain_takes_args=plain_takes_args, l2_bytes=l2_bytes))
+                          plain_takes_args=plain_takes_args, l2_bytes=l2_bytes,
+                          composed=composed))
 
     heads = 8
 
@@ -283,20 +295,22 @@ def kernel_cases(torch, dev):
             lambda ts: geglu.geglu_out_plain(*ts), args, flops=2 * t * 5120 * 1280,
             primary=primary)
 
-    def conv(label, cin, stats, temb, primary=False):
-        n = 12
-        args = [r(n, 36, 64, cin), r(320, cin, 3, 3, scale=(9 * cin) ** -0.5),
-                0.02 * r(320).float(), torch.rand(n, cin, generator=g, device=dev) + 0.5,
-                torch.randn(n, cin, generator=g, device=dev) * 0.5,
-                torch.randn(n, 320, generator=g, device=dev) if temb else None]
+    # the level-0 convolutions: one clip's guidance pair (N = 12 images) and
+    # a two-clip dispatch (24); the yardstick composed_ms is the cuDNN
+    # composition (attention_ab.conv_composed), with the L2 bytes the kernel's
+    # blocks copy (weights and halo tiles, computed from its tiling)
+    def conv(label, n, cin, stats, temb, zero_bias=False, primary=False):
+        args = conv_args(torch, r, g, n, cin, temb, zero_bias, dev)
         add("conv3x3_gn_silu", label,
             lambda: conv2d.conv3x3_gn_silu(*args, with_stats=stats),
             lambda ts: conv2d.conv3x3_gn_silu_plain(*ts, with_stats=stats),
-            args, flops=2 * n * 36 * 64 * 9 * cin * 320, primary=primary)
+            args, flops=2 * n * 36 * 64 * 9 * cin * 320, primary=primary,
+            l2_bytes=(conv2d.l2_read_bytes(n, 36, 64, cin, 320), "weights and halo tiles"),
+            composed=conv_composed(torch, args, stats))
 
-    conv("Cin=320 (12,36,64) +stats +temb", 320, True, True, primary=True)
-    conv("Cin=320 (12,36,64)", 320, False, False)
-    conv("Cin=640 (12,36,64) +temb", 640, False, True)
+    conv("Cin=320 (12,36,64) +stats +temb", 12, 320, True, True, primary=True)
+    conv("Cin=320 (12,36,64)", 12, 320, False, False)
+    conv("Cin=640 (12,36,64) +temb", 12, 640, False, True)
 
     # --- the train step's shapes: batch 10, 6 frames, bf16 ---------------------
     # The plain attention versions hold (N, H, Lq, Lkv) f32 tensors, several
@@ -512,7 +526,7 @@ def kernel_cases(torch, dev):
                 r(c, i, scale=i ** -0.5)]
         add("ff_ln_bwd", f"T={t} C={c}", lambda a=args: geglu.ff_ln_bwd(*a),
             lambda ts: geglu.ff_ln_bwd_plain(*ts), args, flops=10 * t * c * i, primary=primary,
-            l2_bytes=ff_ln_bwd_weight_bytes(_build, t, c, i))
+            l2_bytes=(ff_ln_bwd_weight_bytes(_build, t, c, i), "weights"))
     for t, primary in ((tb * 6 * 144, True), (tb * 6 * 40, False)):
         args = [r(t, 10240), r(t, 1280), r(1280, 5120, scale=5120 ** -0.5)]
         add("geglu_out_bwd", f"T={t} I=5120 C=1280", lambda a=args: geglu.geglu_out_bwd(*a),
@@ -544,6 +558,9 @@ def kernel_cases(torch, dev):
     int8("fc1-3 M=100 (10000->10000)", 100, 10000, 10000, primary=True)
     int8("fc1-3 M=1 (10000->10000)", 1, 10000, 10000)
     int8("out M=100 (10000->59136)", 100, 10000, 77 * 768)
+    # drawn last, so that the inputs of the cases above stay as they were
+    conv("Cin=320 (24,36,64) +stats +temb", 24, 320, True, True)
+    conv("Cin=320 (12,36,64) skip half, zero bias", 12, 320, False, False, zero_bias=True)
     return cases
 
 
@@ -570,7 +587,7 @@ def phase_kernels(torch):
                                             ("kernel", "label", "kern", "plain", "args"))
         got = [t for t in _outputs(kern()) if t is not None]
         torch.cuda.synchronize()
-        if kernel.endswith("_bwd") or kernel == "ff_ln":  # sums in a fixed order: same bits
+        if kernel.endswith("_bwd") or kernel in ("ff_ln", "conv3x3_gn_silu"):  # fixed order
             again = [t for t in _outputs(kern()) if t is not None]
             if not all(torch.equal(a, b) for a, b in zip(got, again)):
                 fail(f"kernels: {kernel} [{label}]: two runs gave different bits")
@@ -596,11 +613,14 @@ def phase_kernels(torch):
         ms = timed_ms(kern, torch, 10)
         plain_ms = timed_ms(lambda: plain(args), torch, 3)
         library_ms = timed_ms(case["library"], torch, 10) if case["library"] else None
+        composed_ms = timed_ms(case["composed"], torch, 10) if case["composed"] else None
         ok = rel_err < KERNEL_BOUND
         lib = "no single call" if library_ms is None else f"{library_ms:.3f} ms"
+        if composed_ms is not None:
+            lib += f", composed {composed_ms:.3f} ms"
         l2 = case["l2_bytes"]
-        l2 = "" if l2 is None else (f", weights from L2 {l2} bytes a call "
-                                    f"({l2 / ms / 1e9:.2f} TB/s at this time)")
+        l2 = "" if l2 is None else (f", {l2[1]} from L2 {l2[0]} bytes a call "
+                                    f"({l2[0] / ms / 1e9:.2f} TB/s at this time)")
         say(f"kernel {kernel} [{label}]: max_rel_err {rel_err:.3e} (bound {KERNEL_BOUND:.0e}) "
             f"max_abs_err {abs_err:.3e}, {ms:.3f} ms, bound {bound_ms:.4f} ms by {bound_by} "
             f"({bound_ms / ms:.3f} of it; {nbytes} bytes, {case['flops']} operations{l2}), "
@@ -612,7 +632,7 @@ def phase_kernels(torch):
         rep["max_rel_err"] = max(rep["max_rel_err"], rel_err)
         if case["primary"]:
             rep.update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-                       library_ms=library_ms, shape=label)
+                       library_ms=library_ms, composed_ms=composed_ms, shape=label)
     torch.cuda.empty_cache()
     return report
 
@@ -1544,7 +1564,8 @@ def main():
                         "max_abs_err": rep["max_abs_err"], "max_rel_err": rep["max_rel_err"],
                         "ms": rep["ms"], "plain_ms": rep["plain_ms"],
                         "bound_ms": rep["bound_ms"], "bound_by": rep["bound_by"],
-                        "library_ms": rep["library_ms"], "shape": rep["shape"]})
+                        "library_ms": rep["library_ms"], "composed_ms": rep["composed_ms"],
+                        "shape": rep["shape"]})
     print(json.dumps({"kernels": kernels}))
     print(smi_line)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -5,10 +5,13 @@
 // accumulators in registers: mma.sync.m16n8k16 with f32 accumulators,
 // operands by ldmatrix, tiles (for the feed-forward the weight slabs, through
 // a three-stage ring: ff_tiles.cuh) streamed by cp.async (flash_tiles.cuh).
-// geglu_out, geglu_out_bwd, conv3x3 and int8_dense are still the first,
-// simple version: bf16 WMMA tiles (16x16x16, f32 accumulation) staged through
-// shared memory (temporal_attention is a warp-per-token f32 kernel without
-// tensor cores). wgmma, TMA and warp specialisation are later work.
+// The level-0 conv (conv3x3.cu) does the same on wgmma.mma_async: A by
+// ldmatrix into registers, B (its weight slabs, a four-stage cp.async ring)
+// from shared memory by descriptor. geglu_out, geglu_out_bwd and int8_dense
+// are still the first, simple version: bf16 WMMA tiles (16x16x16, f32
+// accumulation) staged through shared memory (temporal_attention is a
+// warp-per-token f32 kernel without tensor cores). TMA and warp
+// specialisation are later work.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -70,8 +73,6 @@ __device__ __forceinline__ void gelu_erf_grad(float g, float& gelu, float& dgelu
   gelu = g * Phi;
   dgelu = Phi + g * kInvSqrt2Pi * expf(-0.5f * g * g);
 }
-
-__device__ __forceinline__ float silu(float f) { return f / (1.0f + expf(-f)); }
 
 }  // namespace e2v
 

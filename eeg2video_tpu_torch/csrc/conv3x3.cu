@@ -12,170 +12,425 @@
 // (ops/conv2d.py:67-79 zeroes the plane before writing the interior).
 // Optional stats: (sum, sum of squares) over pixels of the STORED bf16 output
 // per (image, channel), the partials the following GroupNorm needs
-// (ops/conv2d.py:115-121). Output tiles of different blocks share an image,
-// so each block writes its own partial into a (pixel blocks, 2, Cout) buffer
-// and the wrapper adds an image's partials in a fixed order: no atomics, the
-// same bits every run (a served clip must not depend on what ran beside it).
-// This needs H*W % 64 == 0, so that a block's pixels are of one image.
+// (ops/conv2d.py:115-121).
 //
-// What bounds it on the H100: 2*N*H*W*9*Cin*Cout FLOPs (12 x 36 x 64 pixels,
-// Cin = Cout = 320: 32 GFLOP), compute-bound; the prologue's expf per input
-// element is recomputed for each of the 9 taps.
-// Design: GEMM with M = pixels, N = Cout, K = 9 taps x Cin. A block owns a
-// 64-pixel x 64-channel output tile (4 warps of 32x32, 2x2 WMMA fragments);
-// the K loop walks taps and 32-channel slices: each step gathers the shifted
-// pixels (zero outside the image), applies the prologue in f32 and stores
-// the bf16 A tile; the B tile comes from the weight laid out (Cout, 3, 3, Cin)
-// (the wrapper permutes the PyTorch (Cout, Cin, 3, 3) weight once per call).
-#include "common.cuh"
+// What bounds it on the H100: 2*N*H*W*9*Cin*Cout operations (12 x 36 x 64
+// pixels, Cin = Cout = 320: 51 GFLOP, 0.0515 ms at 989 TFLOP/s) against
+// 35 MB of x and out, so the tensor cores; behind them the L2 path, since
+// every block reads its slice of the weights (9 Cin x 160 bf16) whole.
+//
+// Design (the first version, 64 x 64 WMMA tiles that gathered and re-ran the
+// prologue for each of the 9 taps and each Cout block, took 26x its bound):
+//   - a block owns a 4-row x 64-column tile of one image (256 output
+//     pixels; tiles never cross an image, so an image's bits do not depend
+//     on N or on what else is in the launch) and 160 output channels. The
+//     GEMM is M = pixels, N = Cout, K = 9 taps x Cin, walked as Cin chunks
+//     of 64 channels x the 9 taps (a ring step each);
+//   - the input of a chunk is staged once as a halo tile of 6 x 66 pixels x
+//     64 channels (cp.async, zero-filled outside the image and past Cin);
+//     the prologue bf16(silu(x * scale + shift)) then runs once per element,
+//     in place, on the pixels inside the image only, so the border stays 0.
+//     Scale and shift of the chunk come with the copy into shared memory.
+//     All 9 taps read shifted ldmatrix views of that tile: output pixel
+//     (r, c) of tap (dy, dx) is halo pixel (r + dy, c + dx), rows of
+//     64 + 8 bf16 (an odd multiple of 16 bytes: conflict-free ldmatrix);
+//   - the halo tile is double-buffered: the next chunk's copy is in the
+//     commit group of the ring step 4 taps before the chunk starts, and its
+//     prologue runs in 16 parts, one behind each group of products of those
+//     4 steps, while the tensor cores work on the group;
+//   - the weights come as slab images (the wrapper lays the PyTorch (Cout,
+//     Cin, 3, 3) weight out once per call): per (Cout block, chunk, tap) the
+//     160 x 64 slab as the 8 x 8 core matrices that wgmma reads by
+//     descriptor, 20 KB contiguous, so one thread moves a slab with one bulk
+//     copy (cp.async.bulk, completion counted on an mbarrier) into a
+//     four-stage ring, two in flight (a version that issued the slab as
+//     1280 16-byte cp.async a step took 1.5x as long: PERF.md);
+//   - products on wgmma.mma_async m64n160k16 (bf16 -> f32): two warpgroups,
+//     each two tile rows (two m64 products, 160 f32 accumulators a thread in
+//     registers); A is the m16n8k16 fragment each warp loads by ldmatrix from
+//     the halo view (double-buffered), B the slab by descriptor; one group
+//     of products stays in flight while the next A fragments load, the
+//     copies are issued and the prologue runs. No WMMA, no f32 tile in
+//     shared memory;
+//   - the epilogue adds bias and temb in f32 to the accumulators and rounds
+//     to bf16 into the (by then free) halo buffers; the tile leaves as
+//     16-byte vectors, and the stats are summed per channel over the tile's
+//     pixels in order from the stored values, one partial per tile. A
+//     second small kernel (conv3x3_stats_kernel) adds an image's tile
+//     partials in tile order: no atomics, the same bits on every run and
+//     for every N.
+// L2 reads per call (computed from the tiles; ops/conv2d.py l2_read_bytes):
+// at (12, 36, 64), Cin = Cout = 320: 216 blocks x 921.6 KB of weights
+// (199 MB) + 51 MB of halo tiles, against about 1.6 GB for the first version.
+// Shared memory 196 KB (one block an SM), 216 blocks at that shape: two waves.
+#include "ff_tiles.cuh"
 
 namespace e2v {
 namespace {
 
-constexpr int kBM = 64, kBN = 64, kBK = 32;
-constexpr int kThreads = 128;
-constexpr int kLDA = kBK + 8;
-constexpr int kLDC = kBN + 4;
+constexpr int kTR = 4, kTC = 64;              // output tile: rows x columns of pixels
+constexpr int kHC = kTC + 2;                  // halo tile: (kTR + 2) x kHC pixels
+constexpr int kHP = (kTR + 2) * kHC;          // 396
+constexpr int kBN = 160;                      // output channels a block: one m64n160 product
+constexpr int kKC = 64;                       // input channels a chunk
+constexpr int kLD = kKC + 8;                  // halo row stride (odd multiple of 16 bytes)
+constexpr int kVPP = kKC / 8;                 // 16-byte vectors a halo pixel or slab row
+constexpr int kThreads = 256;                 // two warpgroups, two tile rows each
+constexpr int kStagesC = 4;                   // weight ring slots
+constexpr int kAhead = 2;                     // a slab's copy starts this many steps early
+constexpr int kSlotC = kBN * kKC;             // bf16 values of a slab (core-matrix layout)
+constexpr int kHaloLead = 4;                  // ring steps between a halo copy and its use
+constexpr size_t kSmemC = (size_t)2 * kHP * kLD * sizeof(bf16)   // halo tiles
+                          + (size_t)2 * 2 * kKC * sizeof(float)  // scale, shift
+                          + (size_t)kStagesC * kSlotC * sizeof(bf16);
+static_assert(kSmemC <= kSmemMax, "shared memory of one block");
+// the slot refilled at step s held slab s + kAhead - kStagesC, whose products
+// finished before step s - 1 ended (one wgmma group stays in flight)
+static_assert(kStagesC >= kAhead + 2, "a slot is refilled only after its products are done");
+// a halo buffer is refilled only after the chunk two back has been read
+static_assert(kHaloLead >= 1 && kHaloLead + kAhead <= 9, "halo double buffer");
 
-__global__ void __launch_bounds__(kThreads)
-    conv3x3_kernel(const bf16* __restrict__ x, const float* __restrict__ scale,
-                   const float* __restrict__ shift, const bf16* __restrict__ w,
-                   const float* __restrict__ bias, const float* __restrict__ temb,
-                   bf16* __restrict__ out, float* __restrict__ stats, int N, int H, int W,
-                   int Cin, int Cout) {
-  __shared__ __align__(128) bf16 As[kBM * kLDA];
-  __shared__ __align__(128) bf16 Bs[kBN * kLDA];
-  __shared__ __align__(128) float Cs[kBM * kLDC];
+// silu(x) = x sigmoid(x) = h + h tanh(h), h = x / 2: one SFU operation
+// (tanh.approx, about 2^-11 relative error, below bf16's rounding of the
+// result) where x / (1 + e^-x) takes two
+__device__ __forceinline__ float silu_fast(float f) {
+  const float h = 0.5f * f;
+  float t;
+  asm("tanh.approx.f32 %0, %1;\n" : "=f"(t) : "f"(h));
+  return fmaf(h, t, h);
+}
 
-  const int warp = threadIdx.x >> 5;
-  const int wr = warp >> 1, wc = warp & 1;
-  const int HW = H * W;
-  const long long M = (long long)N * HW;
-  const long long p0 = (long long)blockIdx.y * kBM;
-  const int co0 = blockIdx.x * kBN;
+// Shared-memory matrix descriptor of a K-major bf16 operand without swizzle:
+// 8 x 8 core matrices of 128 contiguous bytes, lbo bytes between core
+// matrices along K, sbo bytes between them along N
+__device__ __forceinline__ uint64_t smem_desc(const void* p, uint32_t lbo, uint32_t sbo) {
+  return (uint64_t)((smem_addr(p) & 0x3FFFF) >> 4) | ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
+         ((uint64_t)((sbo >> 4) & 0x3FFF) << 32);
+}
 
-  // the two A rows (pixels) this thread gathers, decoded once
-  int pn[2], py[2], px[2];
-#pragma unroll
-  for (int v = 0; v < 2; ++v) {
-    const int r = (threadIdx.x + v * kThreads) >> 2;
-    const long long p = p0 + r;
-    if (p < M) {
-      pn[v] = (int)(p / HW);
-      const int rem = (int)(p % HW);
-      py[v] = rem / W;
-      px[v] = rem % W;
-    } else {
-      pn[v] = -1;
-      py[v] = px[v] = 0;
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// d (64 x 160 f32 over the warpgroup, 80 a thread) += A (64 x 16 bf16, the
+// m16n8k16 A fragment of each warp's 16 rows) B (16 x 160, K-major in shared
+// memory, by descriptor)
+__device__ __forceinline__ void wgmma_m64n160k16(float (&d)[80], const uint32_t (&a)[4],
+                                                 uint64_t desc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %85, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n160k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9,"
+      " %10, %11, %12, %13, %14, %15, %16, %17, %18, %19,"
+      " %20, %21, %22, %23, %24, %25, %26, %27, %28, %29,"
+      " %30, %31, %32, %33, %34, %35, %36, %37, %38, %39,"
+      " %40, %41, %42, %43, %44, %45, %46, %47, %48, %49,"
+      " %50, %51, %52, %53, %54, %55, %56, %57, %58, %59,"
+      " %60, %61, %62, %63, %64, %65, %66, %67, %68, %69,"
+      " %70, %71, %72, %73, %74, %75, %76, %77, %78, %79},"
+      " {%80, %81, %82, %83}, "
+      "%84, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
+        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]),
+        "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]),
+        "+f"(d[63]), "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]),
+        "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]),
+        "+f"(d[77]), "+f"(d[78]), "+f"(d[79])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+}
+
+// mbarrier of a ring slot: one arrival (the copying thread's, with the
+// slab's byte count), completed by the bulk copy's bytes
+__device__ __forceinline__ void mbar_init(uint64_t* bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(smem_addr(bar)));
+}
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  asm volatile(
+      "{\n.reg .pred p;\nWAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      "@!p bra WAIT;\n}\n"
+      ::"r"(smem_addr(bar)), "r"(parity)
+      : "memory");
+}
+// bytes (a multiple of 16) device -> shared by the bulk-copy engine, counted
+// on bar
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src, uint32_t bytes,
+                                          uint64_t* bar) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               ::"r"(smem_addr(bar)), "r"(bytes)
+               : "memory");
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      ::"r"(smem_addr(dst)), "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
+struct ConvArgs {
+  const bf16* x;       // (N, H, W, Cin)
+  const float* scale;  // (N, Cin)
+  const float* shift;  // (N, Cin)
+  const bf16* w;       // slabs (Cout blocks, Cin chunks, 9 taps, kSlotC), core-matrix order
+  const float* bias;   // (Cout)
+  const float* temb;   // (N, Cout) or null
+  bf16* out;           // (N, H, W, Cout)
+  float* partial;      // (N * tiles, 2, Cout) or null
+  int N, H, W, Cin, Cout;
+};
+
+__global__ void __launch_bounds__(kThreads, 1) conv3x3_kernel(ConvArgs p) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  __shared__ uint64_t full[kStagesC];                            // slab s landed in its slot
+  bf16* halo = reinterpret_cast<bf16*>(smem);                    // [2][kHP][kLD]
+  float* ss = reinterpret_cast<float*>(halo + 2 * kHP * kLD);    // [2][scale kKC | shift kKC]
+  bf16* ring = reinterpret_cast<bf16*>(ss + 4 * kKC);            // [kStagesC][kSlotC]
+
+  const int H = p.H, W = p.W, Cin = p.Cin, Cout = p.Cout;
+  const int tiles_x = (W + kTC - 1) / kTC;
+  const int tiles = tiles_x * ((H + kTR - 1) / kTR);
+  const int cblocks = (Cout + kBN - 1) / kBN;
+  // the Cout blocks of a tile are neighbours in the grid (they share its halo)
+  const int tg = blockIdx.x / cblocks, cb = blockIdx.x % cblocks, co0 = cb * kBN;
+  const int n = tg / tiles, tile = tg % tiles;
+  const int y0 = (tile / tiles_x) * kTR, x0 = (tile % tiles_x) * kTC;
+  const int nchunks = (Cin + kKC - 1) / kKC;
+  const int nsteps = 9 * nchunks;  // ring step s: chunk s / 9, tap s % 9
+  const bf16* xn = p.x + (long long)n * H * W * Cin;
+  const bf16* slabs = p.w + (long long)cb * nsteps * kSlotC;  // in step order
+
+  // halo pixel hp of chunk c, channels v*8 .. v*8+7: in the image and below Cin?
+  auto halo_src = [&](int hp, int v, int c, long long& off) {
+    const int y = y0 - 1 + hp / kHC, xx = x0 - 1 + hp % kHC, ch = c * kKC + v * 8;
+    off = ((long long)y * W + xx) * Cin + ch;
+    return y >= 0 && y < H && xx >= 0 && xx < W && ch < Cin;
+  };
+  auto copy_halo = [&](int c) {
+    bf16* hb = halo + (c & 1) * (kHP * kLD);
+    for (int e = threadIdx.x; e < kHP * kVPP; e += kThreads) {
+      const int hp = e / kVPP, v = e % kVPP;
+      long long off;
+      const bool ok = halo_src(hp, v, c, off);
+      cp_async16(hb + hp * kLD + v * 8, ok ? xn + off : xn, ok);
     }
-  }
-
-  FragC acc[2][2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.0f);
-
-  for (int tap = 0; tap < 9; ++tap) {
-    const int dy = tap / 3 - 1, dx = tap % 3 - 1;
-    for (int c0 = 0; c0 < Cin; c0 += kBK) {
-#pragma unroll
-      for (int v = 0; v < 2; ++v) {
-        const int idx = threadIdx.x + v * kThreads;
-        const int r = idx >> 2, kv = (idx & 3) * 8;
-        const int ci = c0 + kv;
-        Vec8 a = zero_vec8();
-        const int ys = py[v] + dy, xs = px[v] + dx;
-        if (pn[v] >= 0 && ci < Cin && ys >= 0 && ys < H && xs >= 0 && xs < W) {
-          a = load_vec8(x + (((long long)pn[v] * H + ys) * W + xs) * Cin + ci);
-          const float* sc = scale + (long long)pn[v] * Cin + ci;
-          const float* sh = shift + (long long)pn[v] * Cin + ci;
-#pragma unroll
-          for (int e = 0; e < 8; ++e)
-            a.h[e] = __float2bfloat16(silu(__bfloat162float(a.h[e]) * sc[e] + sh[e]));
-        }
-        store_vec8(As + r * kLDA + kv, a);
-        const int co = co0 + r;
-        Vec8 b = zero_vec8();
-        if (co < Cout && ci < Cin) b = load_vec8(w + ((long long)co * 9 + tap) * Cin + ci);
-        store_vec8(Bs + r * kLDA + kv, b);
-      }
-      __syncthreads();
-#pragma unroll
-      for (int kk = 0; kk < kBK / 16; ++kk) {
-        FragA fa[2];
-        FragBCol fb[2];
-#pragma unroll
-        for (int i = 0; i < 2; ++i)
-          wmma::load_matrix_sync(fa[i], As + (wr * 32 + i * 16) * kLDA + kk * 16, kLDA);
-#pragma unroll
-        for (int j = 0; j < 2; ++j)
-          wmma::load_matrix_sync(fb[j], Bs + (wc * 32 + j * 16) * kLDA + kk * 16, kLDA);
-#pragma unroll
-        for (int i = 0; i < 2; ++i)
-#pragma unroll
-          for (int j = 0; j < 2; ++j) wmma::mma_sync(acc[i][j], fa[i], fb[j], acc[i][j]);
-      }
-      __syncthreads();
+    float* sb = ss + (c & 1) * (2 * kKC);
+    for (int e = threadIdx.x; e < 2 * kKC; e += kThreads) {
+      const int ch = c * kKC + e % kKC;
+      const float* src = (e < kKC ? p.scale : p.shift) + (long long)n * Cin + ch;
+      cp_async4(sb + e, ch < Cin ? src : p.scale, ch < Cin);
     }
-  }
+  };
+  // part `part` of `parts` of the prologue of chunk c, once per staged
+  // element inside the image (the rest stays 0)
+  auto prologue = [&](int c, int part, int parts) {
+    bf16* hb = halo + (c & 1) * (kHP * kLD);
+    const float* sb = ss + (c & 1) * (2 * kKC);
+    const int v = threadIdx.x % kVPP;  // kThreads % kVPP == 0: a thread keeps its 8 channels
+    for (int e = threadIdx.x + part * kThreads; e < kHP * kVPP; e += parts * kThreads) {
+      const int hp = e / kVPP;
+      long long off;
+      if (!halo_src(hp, v, c, off)) continue;
+      Vec8 a = load_vec8(hb + hp * kLD + v * 8);
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+        a.h[i] = __float2bfloat16(
+            silu_fast(__bfloat162float(a.h[i]) * sb[v * 8 + i] + sb[kKC + v * 8 + i]));
+      store_vec8(hb + hp * kLD + v * 8, a);
+    }
+  };
+  // ring step s: the weight slab of (chunk s / 9, tap s % 9), one bulk copy
+  // by thread 0 into slot s % kStagesC; the halo of chunk 0 (step 0) or of
+  // chunk c + 1 (kHaloLead steps before chunk c + 1 starts) by cp.async, in
+  // one commit group a step
+  auto load_step = [&](int s) {
+    if (s < nsteps) {
+      if (threadIdx.x == 0)
+        bulk_copy(ring + (s % kStagesC) * kSlotC, slabs + (long long)s * kSlotC,
+                  kSlotC * sizeof(bf16), &full[s % kStagesC]);
+      const int c = s / 9, tap = s % 9;
+      if (s == 0) copy_halo(0);
+      if (tap == 9 - kHaloLead && c + 1 < nchunks) copy_halo(c + 1);
+    }
+    cp_async_commit();
+  };
 
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int wg = warp >> 2, wq = warp & 3;
+  // warpgroup wg owns tile rows 2 wg and 2 wg + 1 (its two m64 products),
+  // warp wq of it pixels 16 wq .. 16 wq + 15 of each; this lane's ldmatrix
+  // row (pixel) and 8-channel half
+  const int a_off =
+      ((2 * wg) * kHC + 16 * wq + (lane & 7) + ((lane >> 3) & 1) * 8) * kLD + (lane >> 4) * 8;
+
+  float d[2][80];
 #pragma unroll
-  for (int i = 0; i < 2; ++i)
+  for (int m = 0; m < 2; ++m)
 #pragma unroll
-    for (int j = 0; j < 2; ++j)
-      wmma::store_matrix_sync(Cs + (wr * 32 + i * 16) * kLDC + wc * 32 + j * 16, acc[i][j],
-                              kLDC, wmma::mem_row_major);
+    for (int i = 0; i < 80; ++i) d[m][i] = 0.0f;
+  uint32_t a[2][2][4];  // A fragments, double-buffered over k16 steps
+
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < kStagesC; ++i) mbar_init(&full[i]);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
   __syncthreads();
-  for (int e = threadIdx.x; e < kBM * kBN; e += kThreads) {
-    const int r = e / kBN, c = e % kBN;
-    const long long p = p0 + r;
-    const int co = co0 + c;
-    if (p < M && co < Cout) {
-      float v = Cs[r * kLDC + c] + bias[co];
-      if (temb != nullptr) v += temb[(p / HW) * Cout + co];
-      const bf16 o = __float2bfloat16(v);
-      out[p * Cout + co] = o;
-      Cs[r * kLDC + c] = __bfloat162float(o);  // stats read the stored value
+#pragma unroll
+  for (int s = 0; s < kAhead; ++s) load_step(s);
+  cp_async_wait<kAhead - 1>();
+  __syncthreads();  // halo 0 landed
+  prologue(0, 0, 1);
+
+  for (int s = 0; s < nsteps; ++s) {
+    cp_async_wait<kAhead - 1>();
+    __syncthreads();  // the halo copied with step s landed; the products of slab s - 2 are done
+    const int c = s / 9, tap = s % 9;
+    const bf16* hb = halo + (c & 1) * (kHP * kLD) + a_off + ((tap / 3) * kHC + tap % 3) * kLD;
+    const bf16* slab = ring + (s % kStagesC) * kSlotC;
+    // the next chunk's halo arrived with step 9 (c + 1) - kHaloLead: its
+    // prologue runs in 4 kHaloLead parts, one behind each group of products
+    const bool pro = tap >= 9 - kHaloLead && c + 1 < nchunks;
+    const int part0 = (tap - (9 - kHaloLead)) * (kKC / 16);
+    mbar_wait(&full[s % kStagesC], (s / kStagesC) & 1);
+#pragma unroll
+    for (int kk = 0; kk < kKC / 16; ++kk) {
+      // the buffer refilled here was read by the group before last: done
+      ldmatrix_x4(a[kk & 1][0], hb + kk * 16);
+      ldmatrix_x4(a[kk & 1][1], hb + kHC * kLD + kk * 16);
+      wgmma_fence();
+      const uint64_t desc = smem_desc(slab + kk * 128, 128, 1024);
+      wgmma_m64n160k16(d[0], a[kk & 1][0], desc);
+      wgmma_m64n160k16(d[1], a[kk & 1][1], desc);
+      wgmma_commit();
+      // behind the first group: the copies of step s + kAhead (into the slot
+      // of slab s - 2, free since the barrier above)
+      if (kk == 0) load_step(s + kAhead);
+      if (pro) prologue(c + 1, part0 + kk, kHaloLead * (kKC / 16));
+      wgmma_wait<1>();
     }
   }
-  if (stats == nullptr) return;
-  __syncthreads();
-  if (threadIdx.x < kBN) {
-    const int c = threadIdx.x, co = co0 + c;
-    if (co < Cout) {
-      float s = 0.0f, s2 = 0.0f;
-      for (int r = 0; r < kBM && p0 + r < M; ++r) {
-        const float v = Cs[r * kLDC + c];
-        s += v;
-        s2 += v * v;
+  wgmma_wait<0>();
+  cp_async_wait<0>();
+  __syncthreads();  // shared memory is free: the halo buffers stage the output tile
+
+  // epilogue: bias and temb in f32 on the accumulators (the m16n8 C fragment
+  // layout: row g and g + 8 of the warp's 16, columns 8 j + 2 t, + 1),
+  // rounded to bf16 into a (256 pixels x 160) tile, then stored as 16-byte
+  // vectors, and the stats of the stored values summed per channel over the
+  // tile's pixels in order
+  constexpr int kLDO = kBN + 8;  // the staged tile's row stride
+  static_assert(kTR * kTC * kLDO <= 2 * kHP * kLD, "the output tile fits in the halo buffers");
+  bf16* ot = halo;
+  const int gr = lane >> 2, tq = lane & 3;
+  const float* tn = p.temb ? p.temb + (long long)n * Cout : nullptr;
+#pragma unroll
+  for (int j = 0; j < kBN / 8; ++j) {
+    const int cl = j * 8 + 2 * tq, col = co0 + cl;
+    const bool c0ok = col < Cout, c1ok = col + 1 < Cout;
+    const float bias0 = c0ok ? p.bias[col] : 0.0f, bias1 = c1ok ? p.bias[col + 1] : 0.0f;
+    const float temb0 = tn && c0ok ? tn[col] : 0.0f, temb1 = tn && c1ok ? tn[col + 1] : 0.0f;
+#pragma unroll
+    for (int m = 0; m < 2; ++m)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        // (sum + bias) + temb, rounded once: the order of the plain version
+        const int px = (2 * wg + m) * kTC + 16 * wq + gr + 8 * h;
+        *reinterpret_cast<uint32_t*>(ot + px * kLDO + cl) =
+            pack_bf16(d[m][4 * j + 2 * h] + bias0 + temb0, d[m][4 * j + 2 * h + 1] + bias1 + temb1);
       }
-      stats[((long long)blockIdx.y * 2) * Cout + co] = s;
-      stats[((long long)blockIdx.y * 2 + 1) * Cout + co] = s2;
+  }
+  __syncthreads();
+  bf16* outn = p.out + (long long)n * H * W * Cout;
+  const int ncols = Cout - co0 < kBN ? Cout - co0 : kBN;
+  if (Cout % 8 == 0) {
+    for (int e = threadIdx.x; e < kTR * kTC * (kBN / 8); e += kThreads) {
+      const int px = e / (kBN / 8), v = e % (kBN / 8);
+      const int y = y0 + px / kTC, xx = x0 + px % kTC;
+      if (y < H && xx < W && v * 8 < ncols)
+        store_vec8(outn + ((long long)y * W + xx) * Cout + co0 + v * 8,
+                   load_vec8(ot + px * kLDO + v * 8));
+    }
+  } else {
+    for (int e = threadIdx.x; e < kTR * kTC * kBN; e += kThreads) {
+      const int px = e / kBN, cl = e % kBN;
+      const int y = y0 + px / kTC, xx = x0 + px % kTC;
+      if (y < H && xx < W && cl < ncols)
+        outn[((long long)y * W + xx) * Cout + co0 + cl] = ot[px * kLDO + cl];
     }
   }
+  if (p.partial == nullptr) return;
+  // one partial per tile and channel: the tile's pixels inside the image, in order
+  float* part = p.partial + (long long)tg * 2 * Cout;
+  const int rows = H - y0 < kTR ? H - y0 : kTR, cols = W - x0 < kTC ? W - x0 : kTC;
+  for (int cl = threadIdx.x; cl < ncols; cl += kThreads) {
+    float sum = 0.0f, sq = 0.0f;
+    for (int r = 0; r < rows; ++r)
+      for (int x = 0; x < cols; ++x) {
+        const float v = __bfloat162float(ot[(r * kTC + x) * kLDO + cl]);
+        sum += v;
+        sq += v * v;
+      }
+    part[co0 + cl] = sum;
+    part[Cout + co0 + cl] = sq;
+  }
+}
+
+// stats[n][k][co] = sum over the image's tiles, in tile order, of
+// partial[n * tiles + t][k][co]
+__global__ void conv3x3_stats_kernel(const float* __restrict__ partial, float* __restrict__ stats,
+                                     int N, int tiles, int Cout) {
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= (long long)N * 2 * Cout) return;
+  const long long n = i / (2 * Cout), k = i % (2 * Cout);
+  const float* src = partial + n * tiles * 2 * Cout + k;
+  float s = 0.0f;
+  for (int t = 0; t < tiles; ++t) s += src[(long long)t * 2 * Cout];
+  stats[i] = s;
 }
 
 }  // namespace
 }  // namespace e2v
 
-// x (N, H, W, Cin) bf16; scale, shift (N, Cin) f32; w (Cout, 3, 3, Cin) bf16;
+// x (N, H, W, Cin) bf16; scale, shift (N, Cin) f32; w the slab images
+// (ceil(Cout / 160), ceil(Cin / 64), 3, 3, 20, 8, 8, 8) bf16: [Cout block]
+// [chunk][dy][dx][row / 8][channel / 8][row % 8][channel % 8] of the weight
+// zero-padded to 160-row blocks and 64-channel chunks (ops/conv2d.py);
 // bias (Cout) f32; temb (N, Cout) f32 or null; out (N, H, W, Cout) bf16;
-// stats (N * H * W / 64, 2, Cout) f32 per-block partials, or null (then
-// H * W % 64 == 0). Cin % 8 == 0. Returns the CUDA launch status.
+// stats null, or (N * tiles + N, 2, Cout) f32 with tiles = ceil(H / 4) *
+// ceil(W / 64): the per-tile partials, then each image's (sum, sum of
+// squares) of the stored output. x and w 16-byte aligned, Cin % 8 == 0.
+// Returns the CUDA launch status.
 extern "C" int e2v_conv3x3(const void* x, const void* scale, const void* shift, const void* w,
                            const void* bias, const void* temb, void* out, void* stats, int N,
                            int H, int W, int Cin, int Cout, void* stream) {
   using namespace e2v;
-  if (Cin % 8 != 0 || (stats != nullptr && (H * W) % kBM != 0))
-    return (int)cudaErrorInvalidValue;
-  const long long M = (long long)N * H * W;
-  const dim3 grid((Cout + kBN - 1) / kBN, (unsigned)((M + kBM - 1) / kBM));
-  conv3x3_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-      static_cast<const bf16*>(x), static_cast<const float*>(scale),
-      static_cast<const float*>(shift), static_cast<const bf16*>(w),
-      static_cast<const float*>(bias), static_cast<const float*>(temb), static_cast<bf16*>(out),
-      static_cast<float*>(stats), N, H, W, Cin, Cout);
+  if (Cin % 8 != 0 || N < 0 || H < 1 || W < 1 || Cout < 1) return (int)cudaErrorInvalidValue;
+  if (N == 0) return 0;
+  const int tiles = ((H + kTR - 1) / kTR) * ((W + kTC - 1) / kTC);
+  float* partial = static_cast<float*>(stats);
+  const ConvArgs args{static_cast<const bf16*>(x), static_cast<const float*>(scale),
+                      static_cast<const float*>(shift), static_cast<const bf16*>(w),
+                      static_cast<const float*>(bias), static_cast<const float*>(temb),
+                      static_cast<bf16*>(out), partial, N, H, W, Cin, Cout};
+  cudaError_t err = cudaFuncSetAttribute(conv3x3_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kSmemC);
+  if (err != cudaSuccess) return (int)err;
+  const long long blocks = (long long)N * tiles * ((Cout + kBN - 1) / kBN);
+  conv3x3_kernel<<<(unsigned)blocks, kThreads, kSmemC, (cudaStream_t)stream>>>(args);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || partial == nullptr) return (int)err;
+  const long long outs = (long long)N * 2 * Cout;
+  conv3x3_stats_kernel<<<(unsigned)((outs + 255) / 256), 256, 0, (cudaStream_t)stream>>>(
+      partial, partial + (long long)N * tiles * 2 * Cout, N, tiles, Cout);
   return (int)cudaGetLastError();
 }

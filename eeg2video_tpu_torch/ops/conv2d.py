@@ -20,7 +20,41 @@ import torch.nn.functional as F
 from . import _build
 
 KERNEL = "conv3x3_gn_silu"
-PIXEL_TILE = 64  # pixels one block covers (csrc/conv3x3.cu kBM)
+# csrc/conv3x3.cu: a block owns a TILE_ROWS x TILE_COLS pixel tile of one
+# image and BLOCK_COUT output channels, and reads the input in CIN_CHUNK slices
+TILE_ROWS, TILE_COLS, BLOCK_COUT, CIN_CHUNK = 4, 64, 160, 64
+
+
+def tiles_per_image(h, w):
+    """Pixel tiles of one image: the kernel's per-image stats partials."""
+    return -(-h // TILE_ROWS) * -(-w // TILE_COLS)
+
+
+def l2_read_bytes(n, h, w, cin, cout):
+    """Bytes the kernel's blocks copy from L2 in one call, from the tiling:
+    every block reads its weight rows (9 Cin bf16 each), scale and shift of
+    its image (f32) and its tile's halo (the input pixels inside the image
+    within one pixel of the tile, Cin bf16 each)."""
+    halo = sum((min(y0 + TILE_ROWS + 1, h) - max(y0 - 1, 0))
+               * (min(x0 + TILE_COLS + 1, w) - max(x0 - 1, 0))
+               for y0 in range(0, h, TILE_ROWS) for x0 in range(0, w, TILE_COLS))
+    cout_blocks = -(-cout // BLOCK_COUT)
+    return n * (tiles_per_image(h, w) * (cout * 9 * cin * 2 + cout_blocks * 2 * cin * 4)
+                + cout_blocks * halo * cin * 2)
+
+
+def weight_slabs(w):
+    """The kernel's weight layout: the (Cout, Cin, 3, 3) weight zero-padded to
+    BLOCK_COUT-row blocks and CIN_CHUNK-channel chunks, as (Cout block, chunk,
+    dy, dx, row // 8, channel // 8, row % 8, channel % 8): per (block, chunk,
+    tap) a contiguous 160 x 64 slab of the 8 x 8 core matrices that the
+    kernel's wgmma reads from shared memory."""
+    cout, cin = w.shape[:2]
+    cb, nc = -(-cout // BLOCK_COUT), -(-cin // CIN_CHUNK)
+    if (cb * BLOCK_COUT, nc * CIN_CHUNK) != (cout, cin):
+        w = F.pad(w, (0, 0, 0, 0, 0, nc * CIN_CHUNK - cin, 0, cb * BLOCK_COUT - cout))
+    return (w.reshape(cb, BLOCK_COUT // 8, 8, nc, CIN_CHUNK // 8, 8, 3, 3)
+            .permute(0, 3, 6, 7, 1, 4, 2, 5).contiguous())
 
 
 def eligible(h, w, cin, cout):
@@ -53,11 +87,11 @@ def conv3x3_gn_silu_plain(x, w, b, scale, shift, temb=None, with_stats=False):
 def conv3x3_gn_silu(x, w, b, scale, shift, temb=None, with_stats=False):
     """Implicit-GEMM 3x3 SAME conv with the silu(x*scale + shift) prologue
     (zero padding applied after it), bias/temb epilogue and optional output
-    stats. A CUDA tensor launches the kernel (bf16 x and w, Cin % 8 == 0; with
-    stats H*W % 64 == 0: the kernel writes one partial per 64-pixel block and
-    the partials of an image are added here in a fixed order, so the stats
-    are the same bits every run); a CPU tensor takes
-    ``conv3x3_gn_silu_plain``."""
+    stats. A CUDA tensor launches the kernel (bf16 x and w, Cin % 8 == 0, any
+    H and W: tiles never cross an image, the kernel writes one stats partial
+    per tile and adds an image's partials in tile order, so an image's output
+    and stats are the same bits on every run and whatever else is in the
+    batch); a CPU tensor takes ``conv3x3_gn_silu_plain``."""
     if not x.is_cuda:
         return conv3x3_gn_silu_plain(x, w, b, scale, shift, temb, with_stats)
     n, h, wd, cin = x.shape
@@ -67,10 +101,9 @@ def conv3x3_gn_silu(x, w, b, scale, shift, temb=None, with_stats=False):
     req(cin % 8 == 0, KERNEL, f"Cin={cin} must be a multiple of 8")
     req(x.dtype == torch.bfloat16 and w.dtype == torch.bfloat16, KERNEL,
         "x and w must be bf16")
-    req(not with_stats or (h * wd) % PIXEL_TILE == 0, KERNEL,
-        f"with_stats needs H*W={h * wd} to be a multiple of {PIXEL_TILE}")
     x = x.contiguous()
-    wk = w.permute(0, 2, 3, 1).contiguous()  # (Cout, 3, 3, Cin): tap-major K
+    req(x.data_ptr() % 16 == 0, KERNEL, "x must be 16-byte aligned")
+    wk = weight_slabs(w)
     bf = b.float().contiguous()
     sc, sh = scale.float().contiguous(), shift.float().contiguous()
     tb = temb.float().contiguous() if temb is not None else None
@@ -78,7 +111,8 @@ def conv3x3_gn_silu(x, w, b, scale, shift, temb=None, with_stats=False):
         req(t is None or tuple(t.shape) == shape, KERNEL,
             f"per-image operand must be {shape}")
     out = torch.empty((n, h, wd, cout), dtype=x.dtype, device=x.device)
-    stats = (torch.empty((n * h * wd // PIXEL_TILE, 2, cout), dtype=torch.float32,
+    # the per-tile partials, then the per-image sums the kernel adds from them
+    stats = (torch.empty((n * tiles_per_image(h, wd) + n, 2, cout), dtype=torch.float32,
                          device=x.device) if with_stats else None)
     ptr = _build.ptr
     rc = _build.library().e2v_conv3x3(
@@ -88,4 +122,4 @@ def conv3x3_gn_silu(x, w, b, scale, shift, temb=None, with_stats=False):
     _build.launches[KERNEL] += 1
     if not with_stats:
         return out
-    return out, stats.view(n, -1, 2, cout).sum(dim=1)
+    return out, stats[n * tiles_per_image(h, wd):]

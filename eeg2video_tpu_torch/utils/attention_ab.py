@@ -1,8 +1,9 @@
-"""Time the attention kernels (or ``ff_ln``, ``ff_ln_bwd``) of one or more checkouts on one GPU.
+"""Time the attention kernels (or ``ff_ln``, ``ff_ln_bwd``, ``conv3x3``) of one or more checkouts on one GPU.
 
     python -m eeg2video_tpu_torch.utils.attention_ab --tree PARENT --tree . --tree . --tree PARENT
     python -m eeg2video_tpu_torch.utils.attention_ab --cases ff_ln --tree PARENT --tree . ...
     python -m eeg2video_tpu_torch.utils.attention_ab --cases ff_ln_bwd --tree PARENT --tree . ...
+    python -m eeg2video_tpu_torch.utils.attention_ab --cases conv3x3 --tree PARENT --tree . ...
 
 Each ``--tree`` is the root of a checkout. Its ``eeg2video_tpu_torch`` is
 imported in a process of its own (two versions never share a process), its
@@ -24,7 +25,14 @@ gradient with respect to x (``torch.autograd.grad``) of that composition,
 its forward included, as the kernel recomputes the forward. For both, the
 line also gives a digest of the kernel's output bits (``digest``) at each
 timed shape and at T = 1, 37 and 130 for C = 320 and 640, so that two
-versions can be held to the same bits.
+versions can be held to the same bits. ``--cases conv3x3`` times
+``conv3x3_gn_silu`` at the shapes of a UNet forward's level-0 convolutions
+(chip_smoke.py's conv cases: N = 12 images for one clip's guidance pair, 24
+for a two-clip dispatch; Cin = 320 with stats and temb, without either, the
+skip half with a zero bias, Cin = 640 with temb), with the cuDNN composition
+silu(x * scale + shift) in bf16 -> F.conv2d on channels-last views -> + bias +
+temb (and the stats sums) as ``composed_ms``, and a digest of each case's
+output (and stats) bits.
 """
 
 from __future__ import annotations
@@ -149,10 +157,71 @@ def _ff_bwd_cases(torch, geglu, shapes=((138240, 320), (34560, 640))):
     return cases
 
 
-def _digest(torch, out):
-    """The first 16 hex digits of the sha256 of a bf16 tensor's bits."""
-    bits = out.contiguous().view(torch.int16).cpu().numpy().tobytes()
-    return hashlib.sha256(bits).hexdigest()[:16]
+# (label, N, Cin, stats, temb, zero bias) of the level-0 convolutions of a UNet forward
+CONV_SHAPES = (("Cin=320 (12,36,64) +stats +temb", 12, 320, True, True, False),
+               ("Cin=320 (12,36,64)", 12, 320, False, False, False),
+               ("Cin=320 (12,36,64) skip half, zero bias", 12, 320, False, False, True),
+               ("Cin=640 (12,36,64) +temb", 12, 640, False, True, False),
+               ("Cin=320 (24,36,64) +stats +temb", 24, 320, True, True, False))
+
+
+def conv_composed(torch, args, stats):
+    """The cuDNN composition of ``conv3x3_gn_silu`` on its arguments: silu(x *
+    scale + shift) in bf16 -> F.conv2d on channels-last views -> + bias + temb
+    (-> the stats sums). A yardstick only, which the port never calls."""
+    import torch.nn.functional as F
+
+    x, w, b, scale, shift, tb = args
+    w_cl = w.contiguous(memory_format=torch.channels_last)
+    bt = b[None, None, None, :] + (0 if tb is None else tb[:, None, None, :])
+    sc, sh = scale[:, None, None, :], shift[:, None, None, :]
+
+    def composed():
+        a = F.silu(x.float() * sc + sh).bfloat16()
+        o = F.conv2d(a.permute(0, 3, 1, 2), w_cl, None, padding=1).permute(0, 2, 3, 1)
+        o = (o.float() + bt).bfloat16()
+        if not stats:
+            return o
+        of = o.float()
+        return o, torch.stack([of.sum(dim=(1, 2)), (of * of).sum(dim=(1, 2))], dim=1)
+
+    return composed
+
+
+def conv_args(torch, r, g, n, cin, temb, zero_bias=False, dev="cuda"):
+    """Inputs of a level-0 convolution: (n, 36, 64, cin) -> 320 channels;
+    ``r(*shape, scale=)`` draws bf16 normals from the generator ``g``."""
+    return [r(n, 36, 64, cin), r(320, cin, 3, 3, scale=(9 * cin) ** -0.5),
+            torch.zeros(320, device=dev) if zero_bias else 0.02 * r(320).float(),
+            torch.rand(n, cin, generator=g, device=dev) + 0.5,
+            torch.randn(n, cin, generator=g, device=dev) * 0.5,
+            torch.randn(n, 320, generator=g, device=dev) if temb else None]
+
+
+def conv_cases(torch, dev="cuda", shapes=CONV_SHAPES):
+    """[(label, args, stats)] of the level-0 convolutions, from a seed."""
+    g = torch.Generator(device=dev).manual_seed(0)
+
+    def r(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=g, device=dev) * scale).bfloat16()
+
+    return [(label, conv_args(torch, r, g, n, cin, temb, zero_bias, dev), stats)
+            for label, n, cin, stats, temb, zero_bias in shapes]
+
+
+def _digest(torch, *outs):
+    """The first 16 hex digits of the sha256 of the tensors' bits."""
+    h = hashlib.sha256()
+    for out in outs:
+        h.update(out.contiguous().view(torch.int16).cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
+# device cycles (about 5 ms) spun ahead of each timed run: the device is busy
+# while the host enqueues the run, so the events time the device's work, not
+# the host's Python and launch overhead (which sets the reading of a call that
+# takes the device less time than the host takes to enqueue it)
+PAD_CYCLES = 10_000_000
 
 
 def _time(torch, fn, reps=10):
@@ -160,6 +229,7 @@ def _time(torch, fn, reps=10):
     times = []
     for _ in range(reps):
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(PAD_CYCLES)
         start.record()
         fn()
         end.record()
@@ -171,7 +241,7 @@ def _time(torch, fn, reps=10):
 def _one(tree, which="attention"):
     import torch
 
-    from eeg2video_tpu_torch.ops import _build, attention, geglu
+    from eeg2video_tpu_torch.ops import _build, attention, conv2d, geglu
 
     if not torch.cuda.is_available():
         sys.exit("attention_ab: no GPU")
@@ -180,7 +250,15 @@ def _one(tree, which="attention"):
                          capture_output=True, text=True, timeout=60).stdout.strip().splitlines()
     line = {"tree": tree, "package": os.path.dirname(attention.__file__),
             "device": torch.cuda.get_device_name(0), "smi": smi[0] if smi else None}
-    if which in ("ff_ln", "ff_ln_bwd"):
+    if which == "conv3x3":
+        cases = conv_cases(torch)
+        run = {label: (lambda a=args, st=stats: conv2d.conv3x3_gn_silu(*a, with_stats=st))
+               for label, args, stats in cases}
+        line["ms"] = {label: _time(torch, fn) for label, fn in run.items()}
+        line["composed_ms"] = {label: _time(torch, conv_composed(torch, args, stats))
+                               for label, args, stats in cases}
+        line["digest"] = {label: _digest(torch, *_as_tuple(fn())) for label, fn in run.items()}
+    elif which in ("ff_ln", "ff_ln_bwd"):
         make = _ff_cases if which == "ff_ln" else _ff_bwd_cases
         cases = make(torch, geglu)
         line["ms"] = {label: _time(torch, fn) for label, (fn, _) in cases.items()}
@@ -191,6 +269,10 @@ def _one(tree, which="attention"):
     else:
         line["ms"] = {label: _time(torch, fn) for label, fn in _cases(torch, attention).items()}
     print(json.dumps(line), flush=True)
+
+
+def _as_tuple(res):
+    return tuple(res) if isinstance(res, (tuple, list)) else (res,)
 
 
 # a child process: the tree's package first on the path, this file's
@@ -210,7 +292,8 @@ def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--tree", action="append", required=True,
                         help="root of a checkout (repeat: one process each, in order)")
-    parser.add_argument("--cases", choices=("attention", "ff_ln", "ff_ln_bwd"), default="attention",
+    parser.add_argument("--cases", choices=("attention", "ff_ln", "ff_ln_bwd", "conv3x3"),
+                        default="attention",
                         help="the kernels to time (default: the attention cases)")
     args = parser.parse_args(argv)
     rc = 0

@@ -404,24 +404,58 @@ def test_geglu_out_matches_plain(gen, t, i, c):
     assert _err(geglu.geglu_out(*args), geglu.geglu_out_plain(*_f32(args))) < BOUND
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("n,h,w,cin,cout,stats,temb", [
-    (2, 5, 6, 8, 16, False, True),      # Cin and Cout below one tile, ragged M
-    (3, 10, 10, 128, 64, False, False),  # 64-pixel tiles spanning two images
-    (2, 8, 8, 8, 16, True, True),       # stats: one 64-pixel block per image
-    (3, 8, 16, 128, 64, True, False),   # stats: two blocks per image, added in order
-    (1, 7, 9, 40, 72, False, True),     # Cout tail past one 64-wide tile
-])
-def test_conv3x3_matches_plain(gen, n, h, w, cin, cout, stats, temb):
-    args = [_rand(gen, n, h, w, cin), _rand(gen, cout, cin, 3, 3, scale=(9 * cin) ** -0.5),
+def _conv_args(gen, n, h, w, cin, cout, temb):
+    return [_rand(gen, n, h, w, cin), _rand(gen, cout, cin, 3, 3, scale=(9 * cin) ** -0.5),
             0.02 * _rand(gen, cout, dtype=torch.float32),
             torch.rand(n, cin, generator=gen, device="cuda") + 0.5,
             _rand(gen, n, cin, scale=0.5, dtype=torch.float32),
             _rand(gen, n, cout, dtype=torch.float32) if temb else None]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,h,w,cin,cout,stats,temb", [
+    (2, 5, 6, 8, 16, False, True),      # Cin and Cout below one tile, ragged M
+    (3, 10, 10, 128, 64, False, False),  # images smaller than a tile, two Cin chunks
+    (2, 8, 8, 8, 16, True, True),       # stats: two tiles per image
+    (3, 8, 16, 128, 64, True, False),   # stats: two tiles per image, added in order
+    (1, 7, 9, 40, 72, False, True),     # Cout = 72: a tail of the 160-channel block
+    # 4 x 64 tiles: past the right edge of a 32-wide image, stats and temb
+    (2, 12, 32, 320, 320, True, True),
+    # 48-wide rows end inside a tile, and H % 4 = 2 rows of the last tiles
+    (2, 10, 48, 64, 72, True, True),
+    (12, 36, 64, 640, 320, False, True),  # Cin = 640 with temb: the skip split's ha
+    (12, 36, 64, 320, 320, True, False),  # the main shape with stats
+])
+def test_conv3x3_matches_plain(gen, n, h, w, cin, cout, stats, temb):
+    args = _conv_args(gen, n, h, w, cin, cout, temb)
     got = conv2d.conv3x3_gn_silu(*args, with_stats=stats)
     want = conv2d.conv3x3_gn_silu_plain(*_f32(args), with_stats=stats)
     for g, wnt in zip(got if stats else [got], want if stats else [want]):
         assert _err(g, wnt) < BOUND
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cin,temb", [(320, True), (640, True), (320, False)])
+def test_conv3x3_images_do_not_depend_on_the_batch(gen, cin, temb):
+    """Images 0-11 alone (N = 12) and inside an N = 24 launch: the same output
+    and stats bits (tiles never cross an image; partials added in tile order)."""
+    args = _conv_args(gen, 24, 36, 64, cin, 320, temb)
+    x, w, b, scale, shift, tb = args
+    alone = [x[:12], w, b, scale[:12], shift[:12], None if tb is None else tb[:12]]
+    out24, stats24 = conv2d.conv3x3_gn_silu(*args, with_stats=True)
+    out12, stats12 = conv2d.conv3x3_gn_silu(*alone, with_stats=True)
+    assert torch.equal(out12, out24[:12]) and torch.equal(stats12, stats24[:12])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,h,w,cin,stats,temb", [
+    (12, 36, 64, 320, True, True), (12, 36, 64, 640, False, True), (2, 10, 48, 64, True, False)])
+def test_conv3x3_repeats_bit_for_bit(gen, n, h, w, cin, stats, temb):
+    args = _conv_args(gen, n, h, w, cin, 320, temb)
+    first = conv2d.conv3x3_gn_silu(*args, with_stats=stats)
+    again = conv2d.conv3x3_gn_silu(*args, with_stats=stats)
+    for a, b in zip(first if stats else [first], again if stats else [again]):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.gpu

@@ -155,6 +155,39 @@ def test_conv_eligible_matches_jax_without_dtype():
         assert conv2d.eligible(*shape) == jconv.eligible(*shape, jnp.bfloat16)
 
 
+@pytest.mark.parametrize("n,h,w,cin,cout", [
+    (12, 36, 64, 320, 320), (12, 36, 64, 640, 320), (2, 10, 48, 64, 72), (1, 5, 130, 8, 400)])
+def test_conv_l2_read_bytes_count_what_each_block_copies(n, h, w, cin, cout):
+    """conv2d.l2_read_bytes against a count over the kernel's blocks: a block
+    (4 x 64 pixels of one image, 160 channels) copies its weight rows, scale and
+    shift of its image, and the halo pixels that lie inside the image."""
+    inside = np.zeros((h + 2, w + 2), bool)  # the image in zero-padded coordinates
+    inside[1:-1, 1:-1] = True
+    per_image = 0
+    for co0 in range(0, cout, 160):
+        rows = min(160, cout - co0)
+        for y0 in range(0, h, 4):
+            for x0 in range(0, w, 64):
+                halo = int(inside[y0:y0 + 6, x0:x0 + 66].sum())
+                per_image += rows * 9 * cin * 2 + 2 * cin * 4 + halo * cin * 2
+    assert conv2d.l2_read_bytes(n, h, w, cin, cout) == n * per_image
+
+
+@pytest.mark.parametrize("cout,cin", [(320, 320), (320, 640), (72, 40), (16, 8)])
+def test_conv_weight_slabs_place_every_weight_once(cout, cin):
+    """conv2d.weight_slabs: w[co, ci, dy, dx] at [co // 160, ci // 64, dy, dx,
+    co % 160 // 8, ci % 64 // 8, co % 8, ci % 8], zeros in the padding."""
+    w = torch.arange(1, cout * cin * 9 + 1, dtype=torch.float32).reshape(cout, cin, 3, 3)
+    slabs = conv2d.weight_slabs(w)
+    cb, nc = -(-cout // 160), -(-cin // 64)
+    assert slabs.shape == (cb, nc, 3, 3, 20, 8, 8, 8) and slabs.is_contiguous()
+    co, ci, dy, dx = (t.flatten() for t in torch.meshgrid(
+        torch.arange(cout), torch.arange(cin), torch.arange(3), torch.arange(3), indexing="ij"))
+    placed = slabs[co // 160, ci // 64, dy, dx, co % 160 // 8, ci % 64 // 8, co % 8, ci % 8]
+    assert torch.equal(placed, w[co, ci, dy, dx])
+    assert int((slabs != 0).sum()) == cout * cin * 9
+
+
 def test_cpu_tensors_take_plain_versions_and_count_no_launch():
     before = dict(_build.launches)
     x = torch.randn(2, 8, 16)
