@@ -19,7 +19,10 @@ printed on its own line; any failure prints ``FAIL ...`` and exits 1:
    computes the same function, that call's time (``library_ms``, a yardstick
    the port never calls); for the level-0 conv, which no single call
    computes, the cuDNN composition it fuses (``composed_ms``) and the bytes
-   its blocks copy from L2, and every conv case run twice, bit for bit;
+   its blocks copy from L2, and every conv case run twice, bit for bit; the
+   same for ``geglu_out`` (the cuBLAS composition, at each row count it
+   runs at and at T = 1, 37, 130), whose rows of a T = 1728 call must equal
+   the same rows inside a T = 3456 call;
 4. UNet parity: a narrow UNet3D in bf16 with kernels on the card against the
    same weights through the plain versions in f32 on the CPU;
 5. slice: two generation requests through ``EEG2VideoPipeline`` at full
@@ -190,12 +193,14 @@ def phase_build(build):
     secs = sorted(build.source_seconds(log).items(), key=lambda kv: -kv[1])
     say(f"build: seconds to each source's end, slowest first: "
         f"{', '.join(f'{name} {s:.1f}' for name, s in secs)}")
-    # the attention, feed-forward and conv kernels' registers and spills (-Xptxas -v)
+    # the attention, feed-forward, conv and geglu_out kernels' registers and
+    # spills (-Xptxas -v)
     res = {k: v for k, v in build.kernel_resources(log).items()
-           if k.startswith(("flash_", "ff_ln_kernel<", "ff_ln_bwd_kernel<", "conv3x3_"))}
+           if k.startswith(("flash_", "ff_ln_kernel<", "ff_ln_bwd_kernel<", "conv3x3_",
+                            "geglu_out_kernel"))}
     spilled = {k: v for k, v in res.items() if v[1] or v[2]}
-    say(f"build: {len(res)} attention, ff_ln, ff_ln_bwd and conv3x3 kernels, registers (spill stores, "
-        f"loads in bytes): "
+    say(f"build: {len(res)} attention, ff_ln, ff_ln_bwd, conv3x3 and geglu_out kernels, registers "
+        f"(spill stores, loads in bytes): "
         f"{'; '.join(f'{k} {r} ({st}, {ld})' for k, (r, st, ld) in sorted(res.items()))}; "
         f"{len(spilled)} spill")
     # ff_ln_kernel<CT> and ff_ln_bwd_kernel<CT> serve C = 64 CT: the model's
@@ -204,9 +209,10 @@ def phase_build(build):
         for ct in (5, 10):
             if f"{name}<{ct}>" not in res or f"{name}<{ct}>" in spilled:
                 fail(f"build: {name}<{ct}> (C = {64 * ct}) missing from build.log or spills")
-    conv = [k for k in res if k.split("<")[0] == "conv3x3_kernel"]
-    if len(conv) != 1 or conv[0] in spilled:
-        fail(f"build: the conv3x3 kernel is missing from build.log or spills: {conv}")
+    for name in ("conv3x3_kernel", "geglu_out_kernel"):
+        found = [k for k in res if k.split("<")[0] == name]
+        if len(found) != 1 or found[0] in spilled:
+            fail(f"build: {name} is missing from build.log or spills: {found}")
 
 
 def kernel_cases(torch, dev):
@@ -215,7 +221,8 @@ def kernel_cases(torch, dev):
     import torch.nn.functional as F
 
     from eeg2video_tpu_torch.ops import _build, attention, conv2d, geglu, int8_dense, temporal
-    from eeg2video_tpu_torch.utils.attention_ab import conv_args, conv_composed
+    from eeg2video_tpu_torch.utils.attention_ab import (conv_args, conv_composed, geglu_args,
+                                                        geglu_composed)
 
     g = torch.Generator(device=dev).manual_seed(0)
 
@@ -289,11 +296,21 @@ def kernel_cases(torch, dev):
         add("ff_ln", f"T={t} C={c}", lambda a=args: geglu.ff_ln(*a),
             lambda ts: geglu.ff_ln_plain(*ts), args, flops=6 * t * c * i, primary=primary)
 
-    for t, primary in ((1728, True), (480, False)):
-        args = [r(t, 10240), r(1280, 5120, scale=5120 ** -0.5), 0.02 * r(1280).float()]
+    # geglu_out at the row counts of its launches, I = 5120, C = 1280: level 2
+    # and the mid block of one clip's guidance pair (1728, 480) here; a
+    # two-clip dispatch (3456), the train step (8640, 2400) and rows that end
+    # inside a 64-row block at the end; the yardstick composed_ms is the
+    # cuBLAS composition (attention_ab.geglu_composed), with the L2 bytes the
+    # kernel's blocks copy (w and h2, computed from its tiling)
+    def geglu_case(t, primary=False):
+        args = geglu_args(r, t)
         add("geglu_out", f"T={t} I=5120 C=1280", lambda a=args: geglu.geglu_out(*a),
             lambda ts: geglu.geglu_out_plain(*ts), args, flops=2 * t * 5120 * 1280,
-            primary=primary)
+            primary=primary, composed=geglu_composed(args),
+            l2_bytes=(geglu.geglu_out_l2_read_bytes(t, 5120, 1280), "w and h2"))
+
+    geglu_case(1728, primary=True)
+    geglu_case(480)
 
     # the level-0 convolutions: one clip's guidance pair (N = 12 images) and
     # a two-clip dispatch (24); the yardstick composed_ms is the cuDNN
@@ -561,6 +578,8 @@ def kernel_cases(torch, dev):
     # drawn last, so that the inputs of the cases above stay as they were
     conv("Cin=320 (24,36,64) +stats +temb", 24, 320, True, True)
     conv("Cin=320 (12,36,64) skip half, zero bias", 12, 320, False, False, zero_bias=True)
+    for t in (3456, 8640, 2400, 1, 37, 130):
+        geglu_case(t)
     return cases
 
 
@@ -587,7 +606,7 @@ def phase_kernels(torch):
                                             ("kernel", "label", "kern", "plain", "args"))
         got = [t for t in _outputs(kern()) if t is not None]
         torch.cuda.synchronize()
-        if kernel.endswith("_bwd") or kernel in ("ff_ln", "conv3x3_gn_silu"):  # fixed order
+        if kernel.endswith("_bwd") or kernel in ("ff_ln", "conv3x3_gn_silu", "geglu_out"):
             again = [t for t in _outputs(kern()) if t is not None]
             if not all(torch.equal(a, b) for a, b in zip(got, again)):
                 fail(f"kernels: {kernel} [{label}]: two runs gave different bits")
@@ -633,8 +652,26 @@ def phase_kernels(torch):
         if case["primary"]:
             rep.update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
                        library_ms=library_ms, composed_ms=composed_ms, shape=label)
+    check_geglu_rows(torch, dev)
     torch.cuda.empty_cache()
     return report
+
+
+def check_geglu_rows(torch, dev):
+    """A clip's rows of geglu_out give the same bits alone (T = 1728, one
+    clip's guidance pair at level 2) and beside another clip's (T = 3456, a
+    two-clip dispatch)."""
+    from eeg2video_tpu_torch.ops import geglu
+    from eeg2video_tpu_torch.utils.attention_ab import geglu_args
+
+    g = torch.Generator(device=dev).manual_seed(3)
+    h2, w, b = geglu_args(lambda *shape, scale=1.0: (
+        torch.randn(*shape, generator=g, device=dev) * scale).bfloat16(), 3456)
+    same = torch.equal(geglu.geglu_out(h2, w, b)[:1728], geglu.geglu_out(h2[:1728].clone(), w, b))
+    say(f"kernel geglu_out: rows 0-1727 of a T=3456 call equal a T=1728 call on those rows: "
+        f"{'ok' if same else 'FAILED'}")
+    if not same:
+        fail("kernels: geglu_out: a row's bits depend on the other rows in the call")
 
 
 def phase_unet_parity(torch):
@@ -1461,7 +1498,8 @@ def phase_train(torch, build, vae, dana_latents):
 # launched them (substrings of the kernel names; the port's own kernels first)
 _KERNEL_GROUPS = (
     ("flash_attention_bwd", ("flash_bwd_",)), ("flash_attention_fwd", ("flash_fwd_",)),
-    ("temporal_attention", ("temporal_",)), ("ff_ln_bwd", ("ff_ln_bwd_",)), ("ff_ln", ("ff_ln_",)),
+    ("temporal_attention_fwd", ("temporal_fwd_",)), ("temporal_attention_bwd", ("temporal_bwd_",)),
+    ("ff_ln_bwd", ("ff_ln_bwd_",)), ("ff_ln", ("ff_ln_",)),
     ("geglu_out_bwd", ("geglu_out_bwd_",)), ("geglu_out", ("geglu_out_",)),
     ("conv3x3_gn_silu", ("conv3x3_",)),
     ("library conv / GEMM", ("cudnn", "cutlass", "gemm", "nvjet", "xmma", "wgrad", "dgrad",

@@ -6,12 +6,14 @@
 // operands by ldmatrix, tiles (for the feed-forward the weight slabs, through
 // a three-stage ring: ff_tiles.cuh) streamed by cp.async (flash_tiles.cuh).
 // The level-0 conv (conv3x3.cu) does the same on wgmma.mma_async: A by
-// ldmatrix into registers, B (its weight slabs, a four-stage cp.async ring)
-// from shared memory by descriptor. geglu_out, geglu_out_bwd and int8_dense
-// are still the first, simple version: bf16 WMMA tiles (16x16x16, f32
-// accumulation) staged through shared memory (temporal_attention is a
-// warp-per-token f32 kernel without tensor cores). TMA and warp
-// specialisation are later work.
+// ldmatrix into registers, B (its weight slabs, a four-stage ring of bulk
+// copies) from shared memory by descriptor; geglu_out (geglu_out.cu) reads
+// both operands by descriptor, its gated A tile written by the block, W and
+// h2 brought by TMA (the wgmma and copy helpers of both: hopper.cuh).
+// geglu_out_bwd and int8_dense are still the first, simple version: bf16
+// WMMA tiles (16x16x16, f32 accumulation) staged through shared memory
+// (temporal_attention is a warp-per-token f32 kernel without tensor cores).
+// Warp specialisation is later work.
 #pragma once
 
 #include <cuda_bf16.h>

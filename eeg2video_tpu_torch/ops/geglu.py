@@ -24,6 +24,9 @@ import torch.nn.functional as F
 from . import _build
 
 FF_MAX_C = 640  # C <= 640 runs the whole block in ff_ln (geglu.py:407)
+# csrc/geglu_out.cu: a row block of GEGLU_ROWS rows is a cluster of blocks
+# along C that share its gate and h2; I is walked in GEGLU_CHUNK-column chunks
+GEGLU_ROWS, GEGLU_CHUNK = 64, 64
 
 
 def _gelu_gate(h2, inner):
@@ -175,22 +178,33 @@ def ff_ln_bwd(x, g, gamma, beta, wp, bp, wo, eps=1e-5):
     return dx.reshape(x.shape)
 
 
+def geglu_out_l2_read_bytes(t, inner, c):
+    """Bytes the kernel's blocks copy from L2 in one call, from the tiling:
+    the blocks of a row block read each row of w (I bf16) and each bias value
+    (f32) once between them, each its own output columns (the tensor map fills
+    rows past C with zeros), and each of the row block's rows of h2 below T
+    (2I bf16) once between them, sending the gated rows to one another in
+    shared memory."""
+    return -(-t // GEGLU_ROWS) * c * (inner * 2 + 4) + t * 2 * inner * 2
+
+
 def geglu_out(h2, w, b):
     """(h * gelu(g)) w^T + b with the gate fused into the GEMM. h2 (..., 2I),
     w (C, I), b (C). A CUDA tensor launches the kernel (bf16 h2/w,
-    I % 32 == 0); a CPU tensor takes ``geglu_out_plain``."""
+    I % 64 == 0, C % 8 == 0); a CPU tensor takes ``geglu_out_plain``."""
     if not h2.is_cuda:
         return geglu_out_plain(h2, w, b)
     kernel = "geglu_out"
     c, inner = w.shape
     req = _build.require
-    req(h2.shape[-1] == 2 * inner and inner % 32 == 0, kernel,
-        f"h2 must be (..., 2I) with I={inner} a multiple of 32")
+    req(h2.shape[-1] == 2 * inner and inner % GEGLU_CHUNK == 0 and inner > 0, kernel,
+        f"h2 must be (..., 2I) with I={inner} a multiple of {GEGLU_CHUNK}")
+    req(c % 8 == 0 and c > 0, kernel, f"C={c} must be a multiple of 8")
     for t in (h2, w):
         req(t.is_cuda and t.dtype == torch.bfloat16, kernel,
             "h2 and w must be bf16 CUDA tensors")
-    h2c = h2.reshape(-1, 2 * inner).contiguous()
-    w = w.contiguous()
+    h2c = _aligned16(h2.reshape(-1, 2 * inner).contiguous())
+    w = _aligned16(w.contiguous())
     bf = _f32(b)
     out = torch.empty((h2c.shape[0], c), dtype=h2.dtype, device=h2.device)
     rc = _build.library().e2v_geglu_out(

@@ -1,9 +1,10 @@
-"""Time the attention kernels (or ``ff_ln``, ``ff_ln_bwd``, ``conv3x3``) of one or more checkouts on one GPU.
+"""Time the attention kernels (or ``ff_ln``, ``ff_ln_bwd``, ``conv3x3``, ``geglu_out``) of one or more checkouts on one GPU.
 
     python -m eeg2video_tpu_torch.utils.attention_ab --tree PARENT --tree . --tree . --tree PARENT
     python -m eeg2video_tpu_torch.utils.attention_ab --cases ff_ln --tree PARENT --tree . ...
     python -m eeg2video_tpu_torch.utils.attention_ab --cases ff_ln_bwd --tree PARENT --tree . ...
     python -m eeg2video_tpu_torch.utils.attention_ab --cases conv3x3 --tree PARENT --tree . ...
+    python -m eeg2video_tpu_torch.utils.attention_ab --cases geglu_out --tree PARENT --tree . ...
 
 Each ``--tree`` is the root of a checkout. Its ``eeg2video_tpu_torch`` is
 imported in a process of its own (two versions never share a process), its
@@ -32,7 +33,14 @@ for a two-clip dispatch; Cin = 320 with stats and temb, without either, the
 skip half with a zero bias, Cin = 640 with temb), with the cuDNN composition
 silu(x * scale + shift) in bf16 -> F.conv2d on channels-last views -> + bias +
 temb (and the stats sums) as ``composed_ms``, and a digest of each case's
-output (and stats) bits.
+output (and stats) bits. ``--cases geglu_out`` times ``geglu_out`` at the
+row counts of its launches (I = 5120, C = 1280: T = 1728 and 480 for one
+clip's guidance pair at level 2 and the mid block, 3456 for a two-clip
+dispatch, 8640 and 2400 for the train step at batch 10), with the cuBLAS
+composition F.linear(h * F.gelu(g), W, b) as ``composed_ms``, the bytes the
+kernel's blocks copy from L2 (``l2_bytes``, from the tiling, where the tree
+has ``geglu.geglu_out_l2_read_bytes``) and a digest of the output bits at
+the timed shapes and at T = 1, 37 and 130.
 """
 
 from __future__ import annotations
@@ -209,6 +217,40 @@ def conv_cases(torch, dev="cuda", shapes=CONV_SHAPES):
             for label, n, cin, stats, temb, zero_bias in shapes]
 
 
+# row counts of the geglu_out launches (generation: level 2 and the mid
+# block of one clip's guidance pair, a two-clip dispatch; the train step),
+# and rows that end inside a block, compared bit for bit only
+GEGLU_SHAPES = (1728, 480, 3456, 8640, 2400)
+GEGLU_EDGES = (1, 37, 130)
+
+
+def geglu_args(r, t):
+    """Inputs of a geglu_out call at I = 5120, C = 1280 (chip_smoke.py's);
+    ``r(*shape, scale=)`` draws bf16 normals."""
+    return [r(t, 10240), r(1280, 5120, scale=5120 ** -0.5), 0.02 * r(1280).float()]
+
+
+def geglu_composed(args):
+    """The cuBLAS composition of ``geglu_out``: F.linear(h * F.gelu(g), W, b)
+    in bf16. A yardstick only, which the port never calls."""
+    import torch.nn.functional as F
+
+    h2, w, b = args
+    h, g = h2.chunk(2, dim=-1)
+    bb = b.bfloat16()
+    return lambda: F.linear(h * F.gelu(g), w, bb)
+
+
+def _geglu_cases(torch, shapes):
+    """{label: args} of geglu_out, from a seed."""
+    g = torch.Generator(device="cuda").manual_seed(0)
+
+    def r(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=g, device="cuda") * scale).bfloat16()
+
+    return {f"T={t} I=5120 C=1280": geglu_args(r, t) for t in shapes}
+
+
 def _digest(torch, *outs):
     """The first 16 hex digits of the sha256 of the tensors' bits."""
     h = hashlib.sha256()
@@ -258,6 +300,18 @@ def _one(tree, which="attention"):
         line["composed_ms"] = {label: _time(torch, conv_composed(torch, args, stats))
                                for label, args, stats in cases}
         line["digest"] = {label: _digest(torch, *_as_tuple(fn())) for label, fn in run.items()}
+    elif which == "geglu_out":
+        cases = _geglu_cases(torch, GEGLU_SHAPES)
+        line["ms"] = {label: _time(torch, lambda a=args: geglu.geglu_out(*a))
+                      for label, args in cases.items()}
+        line["composed_ms"] = {label: _time(torch, geglu_composed(args))
+                               for label, args in cases.items()}
+        l2 = getattr(geglu, "geglu_out_l2_read_bytes", None)
+        if l2 is not None:
+            line["l2_bytes"] = {f"T={t} I=5120 C=1280": l2(t, 5120, 1280) for t in GEGLU_SHAPES}
+        every = {**cases, **_geglu_cases(torch, GEGLU_EDGES)}
+        line["digest"] = {label: _digest(torch, geglu.geglu_out(*args))
+                          for label, args in every.items()}
     elif which in ("ff_ln", "ff_ln_bwd"):
         make = _ff_cases if which == "ff_ln" else _ff_bwd_cases
         cases = make(torch, geglu)
@@ -292,7 +346,8 @@ def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--tree", action="append", required=True,
                         help="root of a checkout (repeat: one process each, in order)")
-    parser.add_argument("--cases", choices=("attention", "ff_ln", "ff_ln_bwd", "conv3x3"),
+    parser.add_argument("--cases",
+                        choices=("attention", "ff_ln", "ff_ln_bwd", "conv3x3", "geglu_out"),
                         default="attention",
                         help="the kernels to time (default: the attention cases)")
     args = parser.parse_args(argv)

@@ -404,6 +404,44 @@ def test_geglu_out_matches_plain(gen, t, i, c):
     assert _err(geglu.geglu_out(*args), geglu.geglu_out_plain(*_f32(args))) < BOUND
 
 
+def _geglu_args(gen, t, i=5120, c=1280):
+    return [_rand(gen, t, 2 * i), _rand(gen, c, i, scale=i ** -0.5),
+            0.02 * _rand(gen, c, dtype=torch.float32)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("t", [1728, 37])  # the main shape; rows that end inside a block
+def test_geglu_out_at_model_width_matches_plain_and_repeats(gen, t):
+    args = _geglu_args(gen, t)
+    got = geglu.geglu_out(*args)
+    assert _err(got, geglu.geglu_out_plain(*_f32(args))) < BOUND
+    assert torch.equal(got, geglu.geglu_out(*args))  # every sum in a fixed order
+
+
+@pytest.mark.gpu
+def test_geglu_out_rows_do_not_depend_on_t(gen):
+    """A clip's rows give the same bits alone (T = 1728) and beside another clip's (3456)."""
+    h2, w, b = _geglu_args(gen, 3456)
+    both = geglu.geglu_out(h2, w, b)
+    assert torch.equal(both[:1728], geglu.geglu_out(h2[:1728].clone(), w, b))
+
+
+@pytest.mark.gpu
+def test_geglu_out_function_gradient_is_the_backward_kernel(gen):
+    """Behind its autograd.Function the forward is the geglu_out kernel and dh2 is
+    geglu_out_bwd's, bit for bit; both agree with autograd through the plain version."""
+    h2, w, b = _geglu_args(gen, 130, 256, 192)  # C % 32 == 0 for the backward kernel
+    h2.requires_grad_()
+    out = geglu.geglu_out_function(h2, w, b)
+    dout = _rand(gen, *out.shape)
+    (dh2,) = torch.autograd.grad(out, [h2], dout)
+    assert torch.equal(out, geglu.geglu_out(h2.detach(), w, b))
+    assert torch.equal(dh2, geglu.geglu_out_bwd(h2.detach(), dout, w))
+    ref = h2.detach().float().requires_grad_()
+    (want,) = torch.autograd.grad(geglu.geglu_out_plain(ref, w.float(), b), [ref], dout.float())
+    assert _err(dh2, want) < BOUND
+
+
 def _conv_args(gen, n, h, w, cin, cout, temb):
     return [_rand(gen, n, h, w, cin), _rand(gen, cout, cin, 3, 3, scale=(9 * cin) ** -0.5),
             0.02 * _rand(gen, cout, dtype=torch.float32),

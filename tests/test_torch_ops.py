@@ -90,6 +90,34 @@ def test_geglu_out_matches_geglu_kernel():
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), **TOL)
 
 
+@pytest.mark.parametrize("t", [37, 130])
+def test_geglu_out_plain_matches_pallas_at_model_width(t):
+    """geglu_out_plain, the CUDA kernel's oracle, against the Pallas kernel in interpret mode
+    at the model's I = 5120, C = 1280, with row counts that end inside a 64-row block; TOL
+    (2e-5) holds there too (the largest difference is 1.8e-6 on outputs up to 3.2)."""
+    rng = np.random.default_rng(30 + t)
+    inner, c = 5120, 1280
+    h2 = rng.standard_normal((t, 2 * inner)).astype(np.float32)
+    w = (rng.standard_normal((inner, c)) / np.sqrt(inner)).astype(np.float32)
+    b = (0.02 * rng.standard_normal(c)).astype(np.float32)
+    ref = jgeglu._geglu_pallas(jnp.asarray(h2), jnp.asarray(w), jnp.asarray(b), interpret=True)
+    out = geglu.geglu_out_plain(_t(h2), _t(w.T.copy()), _t(b))
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), **TOL)
+
+
+def test_geglu_out_l2_read_bytes_matches_a_hand_count():
+    """T = 100, I = 128, C = 400: two row blocks (64 + 36 rows), each a cluster of four
+    column blocks of 320 (the second holds 80 columns, the other two none). Per row block w
+    gives (320 + 80) rows x 128 x 2 bytes and the bias 400 x 4; the clusters read h2's 100
+    rows x 256 x 2 bytes once."""
+    want = 2 * ((320 + 80) * 128 * 2 + 400 * 4) + 100 * 256 * 2
+    assert want == 259200
+    assert geglu.geglu_out_l2_read_bytes(100, 128, 400) == want
+    # the main shape: 27 row blocks of 4 blocks, each 320 x 5120 of w; h2 once
+    assert geglu.geglu_out_l2_read_bytes(1728, 5120, 1280) == (
+        27 * 4 * 320 * 5120 * 2 + 27 * 1280 * 4 + 1728 * 10240 * 2)
+
+
 @pytest.mark.parametrize("c", [32, 64])
 def test_ff_ln_matches_ff_kernel(c):
     rng = np.random.default_rng(4)
