@@ -22,9 +22,14 @@ printed on its own line; any failure prints ``FAIL ...`` and exits 1:
    its blocks copy from L2, and every conv case run twice, bit for bit; the
    same for ``geglu_out`` (the cuBLAS composition, at each row count it
    runs at and at T = 1, 37, 130), whose rows of a T = 1728 call must equal
-   the same rows inside a T = 3456 call;
+   the same rows inside a T = 3456 call; then the f32 counterparts (f32
+   operands: the kernels JAX also runs at f32) at the same shapes, each within
+   1e-4 of its plain version's max and bit for bit twice, bound_ms at the FP32
+   rate without tensor cores (66.9 TFLOP/s), the same yardsticks in f32;
 4. UNet parity: a narrow UNet3D in bf16 with kernels on the card against the
-   same weights through the plain versions in f32 on the CPU;
+   same weights through the plain versions in f32 on the CPU; then
+   UNet3DConfig.tiny() in bf16 (C = 32: ``ff_ln`` on operands padded to its
+   64-column grid) against its plain-patched self;
 5. slice: two generation requests through ``EEG2VideoPipeline`` at full
    width (UNet3DConfig(), VAEConfig(), random weights from a seed), 4 DDIM
    steps, with per-UNet-forward launch counts of every kernel;
@@ -41,13 +46,20 @@ printed on its own line; any failure prints ``FAIL ...`` and exits 1:
    ``cli.add_noise`` on the same subject gives the server's DANA latents bit
    for bit; ``de_psd`` on the card against its float64 oracle;
 7. the ``fused_attention`` op: one differentiable call on (B, H, L, D)
-   operands, forward and backward launches counted;
-8. train parity and train: a narrow train step and ``mask.grad`` via the
-   kernels against the plain versions; ``cli.train_tuneavideo.train`` at full
-   width (three optimizer steps at batch 10, checkpoints, resume), one masked
-   forward/backward with a soft ``attention_mask`` that asks for a gradient
-   (the dbias launches counted), and ``cli.inference_eeg2video.main`` twice on
-   the checkpoint the trainer wrote (fresh-noise and DANA latents).
+   operands, forward and backward launches counted, in bf16 and in f32;
+8. f32 generation (the parity mode): one UNet3DConfig() forward of 2 samples
+   at f32 through the f32 kernels (48 attention, 10 ``ff_ln``, 6 ``geglu_out``,
+   no conv), against the same forward with the plain versions patched into
+   ``models.attention3d`` (rtol 1e-3, atol 1e-4), then profiled;
+9. train parity and train: a narrow train step and ``mask.grad`` via the
+   kernels against the plain versions, and the narrow step at f32;
+   ``cli.train_tuneavideo.train`` at full width (three optimizer steps at
+   batch 10, checkpoints, resume), one masked forward/backward with a soft
+   ``attention_mask`` that asks for a gradient (the dbias launches counted),
+   and ``cli.inference_eeg2video.main`` on the checkpoint the trainer wrote
+   (fresh-noise and DANA latents, then ``--dtype float32``); then
+   compute_dtype="float32" at full width: one optimizer step at batch 10
+   (launches, seconds, peak memory), profiled, and one f32 masked step.
 
 The third-to-last line is a JSON object with one entry per kernel, then the
 ``nvidia-smi`` line; the last line is ``{"ok": true, "device": {...}}``.
@@ -55,6 +67,7 @@ The third-to-last line is a JSON object with one entry per kernel, then the
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import socket
@@ -69,8 +82,12 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 STEPS = 4                      # DDIM steps per request of the slice phase
 SERVE_STEPS = 20               # DPM-Solver++ steps per dispatch of the serve phase
 PEAK_FLOPS = 989e12            # H100 SXM, bf16 dense (NVIDIA data sheet)
+PEAK_F32_FLOPS = 66.9e12       # H100 SXM, FP32 without tensor cores (NVIDIA data sheet)
 PEAK_BYTES = 3.35e12           # H100 SXM, HBM3 bytes/s
 KERNEL_BOUND = 1e-2            # max|kernel - plain_f32| / max|plain_f32|
+F32_KERNEL_BOUND = 1e-4        # the f32 kernels: f32 throughout, summation order only
+F32_UNET_RTOL, F32_UNET_ATOL = 1e-3, 1e-4  # f32 UNet via the f32 kernels vs via plain
+F32_TRAIN_BOUND = 1e-3         # f32 loss and gradients via the f32 kernels vs via plain
 UNET_BOUND = 5e-2              # ||bf16 card - f32 cpu|| / ||f32 cpu||
 TRAIN_BOUND = 5e-2             # ||grad via kernels - grad via plain|| / ||grad via plain||
 TRAIN_BATCH, TRAIN_STEPS = 10, 3
@@ -79,6 +96,15 @@ TRAIN_BATCH, TRAIN_STEPS = 10, 3
 # ff_ln at the 320/640 levels, geglu_out at 1280; 13 level-0 convs
 EXPECTED_PER_FORWARD = {"flash_attention_fwd": 48, "ff_ln": 10,
                         "geglu_out": 6, "conv3x3_gn_silu": 13}
+# every launch counter of ops._build (the f32 counterparts last)
+BF16_COUNTERS = ("flash_attention_fwd", "flash_attention_bwd", "flash_attention_bwd_dbias",
+                 "fused_attention_fwd", "fused_attention_bwd", "temporal_attention_fwd",
+                 "temporal_attention_bwd", "ff_ln", "ff_ln_bwd", "geglu_out", "geglu_out_bwd")
+F32_COUNTERS = tuple(f"{k}_f32" for k in BF16_COUNTERS)
+COUNTERS = (*BF16_COUNTERS, "conv3x3_gn_silu", "int8_dense", *F32_COUNTERS)
+# an f32 forward: the same attention and feed-forward calls on the f32
+# kernels; its convs take the library's (JAX: conv2d.py:131 sends f32 to XLA)
+EXPECTED_F32_PER_FORWARD = {"flash_attention_fwd_f32": 48, "ff_ln_f32": 10, "geglu_out_f32": 6}
 EXPECTED_CONV_STATS = 2
 # per train step: 16 transformer blocks, each attn1 = 2 attention calls
 # (frames 0-1, frames 2-5), attn2 = 1, one feed-forward, one temporal
@@ -87,12 +113,14 @@ EXPECTED_CONV_STATS = 2
 # level 2 and mid (C = 1280: geglu_out) once. Every block launches each
 # backward kernel once. Training takes the library convolution.
 _FWD_PASSES = 2 * 10 + 6
-EXPECTED_PER_TRAIN_STEP = {
+_TRAIN_STEP = {
     "flash_attention_fwd": 3 * _FWD_PASSES, "flash_attention_bwd": 3 * 16,
     "temporal_attention_fwd": _FWD_PASSES, "temporal_attention_bwd": 16,
-    "ff_ln": 2 * 10, "ff_ln_bwd": 10, "geglu_out": 6, "geglu_out_bwd": 6,
-    "conv3x3_gn_silu": 0, "int8_dense": 0,
-    "flash_attention_bwd_dbias": 0, "fused_attention_fwd": 0, "fused_attention_bwd": 0}
+    "ff_ln": 2 * 10, "ff_ln_bwd": 10, "geglu_out": 6, "geglu_out_bwd": 6}
+EXPECTED_PER_TRAIN_STEP = {**dict.fromkeys(COUNTERS, 0), **_TRAIN_STEP}
+# compute_dtype="float32": the same calls on the f32 kernels, 0 conv
+EXPECTED_F32_PER_TRAIN_STEP = {**dict.fromkeys(COUNTERS, 0),
+                               **{f"{k}_f32": n for k, n in _TRAIN_STEP.items()}}
 # a masked step: of each block's three backward launches the self (frames
 # 0-1) and the two-segment (frames 2-5) call carry the mask's bias and write
 # its gradient; cross-attention has no bias
@@ -100,6 +128,9 @@ EXPECTED_DBIAS_PER_MASKED_STEP = 2 * 16
 TRAIN_ONLY_KERNELS = ("flash_attention_bwd", "temporal_attention_fwd", "temporal_attention_bwd",
                       "ff_ln_bwd", "geglu_out_bwd")
 FUSED_OP_KERNELS = ("fused_attention_fwd", "fused_attention_bwd")
+# the path that reads each f32 kernel's launches: the full-width f32
+# generation forward, the f32 train step, the f32 fused_attention calls
+F32_GENERATION_KERNELS = ("flash_attention_fwd_f32", "ff_ln_f32", "geglu_out_f32")
 DE_BOUND = 1e-3               # worst relative error of de_psd's psd against the f64 oracle
 INT8_LAYERS = 5               # int8_dense launches per 100-row chunk: fc0..fc3, out
 KERNEL_SOURCES = {
@@ -131,6 +162,31 @@ KERNEL_SOURCES = {
                         "eeg2video_tpu/ops/conv2d.py:48 _conv3x3_t_kernel"),
     "int8_dense": ("eeg2video_tpu_torch/csrc/int8_dense.cu",
                    "eeg2video_tpu/ops/int8_dense.py:62 _int8_dense_kernel"),
+    # the f32 counterparts: the JAX package runs these Pallas kernels on f32
+    # operands too (its attention, feed-forward and temporal dispatch tests no dtype)
+    "flash_attention_fwd_f32": ("eeg2video_tpu_torch/csrc/flash_f32.cu",
+                                "eeg2video_tpu/ops/attention.py:1282 _flash_fwd_packed "
+                                "(:415, :487), :643 _flash_dual_fwd_packed (:566)"),
+    "flash_attention_bwd_f32": ("eeg2video_tpu_torch/csrc/flash_f32_bwd.cu",
+                                "eeg2video_tpu/ops/attention.py:1114 _flash_bwd_packed (:902, "
+                                ":957 with dbias :1005-1018, :1021), :789 "
+                                "_flash_attention_dual_bwd"),
+    "fused_attention_fwd_f32": ("eeg2video_tpu_torch/csrc/flash_f32.cu",
+                                "eeg2video_tpu/ops/attention.py:216 _flash_fwd (:75)"),
+    "fused_attention_bwd_f32": ("eeg2video_tpu_torch/csrc/flash_f32_bwd.cu",
+                                "eeg2video_tpu/ops/attention.py:269 _flash_bwd (:118, :147)"),
+    "temporal_attention_fwd_f32": ("eeg2video_tpu_torch/csrc/temporal_attention.cu",
+                                   "eeg2video_tpu/ops/temporal.py:158 _temporal_fwd_pallas (:81)"),
+    "temporal_attention_bwd_f32": ("eeg2video_tpu_torch/csrc/temporal_attention.cu",
+                                   "eeg2video_tpu/ops/temporal.py:179 _temporal_bwd_pallas (:95)"),
+    "ff_ln_f32": ("eeg2video_tpu_torch/csrc/ff_f32.cu",
+                  "eeg2video_tpu/ops/geglu.py:242 _ff_pallas (:213 _ff_kernel)"),
+    "ff_ln_bwd_f32": ("eeg2video_tpu_torch/csrc/ff_f32.cu",
+                      "eeg2video_tpu/ops/geglu.py:324 _ff_bwd_pallas (:280 _ff_bwd_kernel)"),
+    "geglu_out_f32": ("eeg2video_tpu_torch/csrc/geglu_f32.cu",
+                      "eeg2video_tpu/ops/geglu.py:87 _geglu_pallas (:59 _geglu_kernel)"),
+    "geglu_out_bwd_f32": ("eeg2video_tpu_torch/csrc/geglu_f32.cu",
+                          "eeg2video_tpu/ops/geglu.py:131 _geglu_bwd_pallas (:113)"),
 }
 
 
@@ -197,9 +253,10 @@ def phase_build(build):
     # spills (-Xptxas -v)
     res = {k: v for k, v in build.kernel_resources(log).items()
            if k.startswith(("flash_", "ff_ln_kernel<", "ff_ln_bwd_kernel<", "conv3x3_",
-                            "geglu_out_kernel"))}
+                            "geglu_out_kernel", "ff_f32_", "geglu_f32_"))}
     spilled = {k: v for k, v in res.items() if v[1] or v[2]}
-    say(f"build: {len(res)} attention, ff_ln, ff_ln_bwd, conv3x3 and geglu_out kernels, registers "
+    say(f"build: {len(res)} attention (bf16 and f32), ff_ln, ff_ln_bwd, ff_f32, conv3x3, geglu_out "
+        f"and geglu_f32 kernels, registers "
         f"(spill stores, loads in bytes): "
         f"{'; '.join(f'{k} {r} ({st}, {ld})' for k, (r, st, ld) in sorted(res.items()))}; "
         f"{len(spilled)} spill")
@@ -215,9 +272,12 @@ def phase_build(build):
             fail(f"build: {name} is missing from build.log or spills: {found}")
 
 
-def kernel_cases(torch, dev):
+def kernel_cases(torch, dev, f32=False):
     """One dict per case: kernel, label, the kernel call, the plain call on
-    f32 copies of ``args``, operations, an optional library call, primary?"""
+    f32 copies of ``args``, operations, an optional library call, primary?
+    With ``f32`` the same shapes on f32 operands, which the f32 kernels take
+    (named ``<kernel>_f32``; the conv and int8_dense have none), with the
+    same yardsticks computed in f32."""
     import torch.nn.functional as F
 
     from eeg2video_tpu_torch.ops import _build, attention, conv2d, geglu, int8_dense, temporal
@@ -225,18 +285,59 @@ def kernel_cases(torch, dev):
                                                         geglu_composed)
 
     g = torch.Generator(device=dev).manual_seed(0)
+    dtype = torch.float32 if f32 else torch.bfloat16
 
     def r(*shape, scale=1.0):
-        return (torch.randn(*shape, generator=g, device=dev) * scale).bfloat16()
+        return (torch.randn(*shape, generator=g, device=dev) * scale).to(dtype)
 
     cases = []
 
     def add(kernel, label, kern, plain, args, flops, library=None, primary=False,
             plain_takes_args=False, l2_bytes=None, composed=None):
-        cases.append(dict(kernel=kernel, label=label, kern=kern, plain=plain, args=args,
-                          flops=flops, library=library, primary=primary,
-                          plain_takes_args=plain_takes_args, l2_bytes=l2_bytes,
-                          composed=composed))
+        if f32 and kernel in ("conv3x3_gn_silu", "int8_dense"):
+            return
+        cases.append(dict(kernel=kernel + ("_f32" if f32 else ""), label=label, kern=kern,
+                          plain=plain, args=args, flops=flops, library=library, primary=primary,
+                          plain_takes_args=plain_takes_args,
+                          l2_bytes=None if f32 else l2_bytes, composed=composed))
+
+    def ff_composed(args):
+        """layer_norm -> F.linear -> h gelu(g) -> F.linear + x in the operands'
+        dtype (attention_ab's composition): a yardstick the port never calls."""
+        x, gamma, beta, wp, bp, wo, bo = args
+        c = x.shape[-1]
+        vb = [v.to(dtype) for v in (gamma, beta, bp, bo)]
+
+        def run(xl=x):
+            h, gate = F.linear(F.layer_norm(xl, (c,), vb[0], vb[1]), wp, vb[2]).chunk(2, dim=-1)
+            return F.linear(h * F.gelu(gate), wo, vb[3]) + xl
+        return run
+
+    def ff_bwd_composed(args):
+        """The gradient in x of that composition (autograd), its forward included."""
+        x, dout, gamma, beta, wp, bp, wo = args
+        fwd = ff_composed([x, gamma, beta, wp, bp, wo, torch.zeros_like(gamma)])
+
+        def run():
+            xl = x.detach().requires_grad_()
+            return torch.autograd.grad(fwd(xl), xl, dout)
+        return run
+
+    def geglu_f32_composed(args):
+        """F.linear(h * F.gelu(g), W, b) in f32."""
+        h2, w, b = args
+        h, gate = h2.chunk(2, dim=-1)
+        return lambda: F.linear(h * F.gelu(gate), w, b)
+
+    def geglu_bwd_f32_composed(args):
+        """The gradient in h2 of that composition (autograd), its forward included."""
+        h2, dout, w = args
+
+        def run():
+            hl = h2.detach().requires_grad_()
+            h, gate = hl.chunk(2, dim=-1)
+            return torch.autograd.grad(F.linear(h * F.gelu(gate), w), hl, dout)
+        return run
 
     heads = 8
 
@@ -282,19 +383,21 @@ def kernel_cases(torch, dev):
     # ff_ln, geglu_out and conv3x3_gn_silu fuse several PyTorch calls: no
     # single call computes the same function, so their library_ms is null.
     # ff_ln at the generation shapes of levels 0 / 1 (batch 2 with CFG), the
-    # train step's (batch 10), and row counts that end inside a 64-row block;
-    # each run twice and compared bit for bit
+    # train step's (batch 10), and row counts that end inside a 64-row block,
+    # also at the tiny configs' C = 32 (the bf16 kernel on operands padded to
+    # 64 columns); each run twice and compared bit for bit
     tb6 = TRAIN_BATCH * 6
     for t, c, primary in ((27648, 320, True), (6912, 640, False), (tb6 * 2304, 320, False),
                           (tb6 * 576, 640, False), (1, 320, False), (37, 320, False),
                           (130, 320, False), (1, 640, False), (37, 640, False),
-                          (130, 640, False)):
+                          (130, 640, False), (1, 32, False), (37, 32, False), (130, 32, False)):
         i = 4 * c
         args = [r(t, c), 1.0 + 0.05 * r(c).float(), 0.02 * r(c).float(),
                 r(2 * i, c, scale=c ** -0.5), 0.02 * r(2 * i).float(),
                 r(c, i, scale=i ** -0.5), 0.02 * r(c).float()]
         add("ff_ln", f"T={t} C={c}", lambda a=args: geglu.ff_ln(*a),
-            lambda ts: geglu.ff_ln_plain(*ts), args, flops=6 * t * c * i, primary=primary)
+            lambda ts: geglu.ff_ln_plain(*ts), args, flops=6 * t * c * i, primary=primary,
+            composed=ff_composed(args) if f32 else None)
 
     # geglu_out at the row counts of its launches, I = 5120, C = 1280: level 2
     # and the mid block of one clip's guidance pair (1728, 480) here; a
@@ -306,7 +409,7 @@ def kernel_cases(torch, dev):
         args = geglu_args(r, t)
         add("geglu_out", f"T={t} I=5120 C=1280", lambda a=args: geglu.geglu_out(*a),
             lambda ts: geglu.geglu_out_plain(*ts), args, flops=2 * t * 5120 * 1280,
-            primary=primary, composed=geglu_composed(args),
+            primary=primary, composed=geglu_f32_composed(args) if f32 else geglu_composed(args),
             l2_bytes=(geglu.geglu_out_l2_read_bytes(t, 5120, 1280), "w and h2"))
 
     geglu_case(1728, primary=True)
@@ -317,6 +420,8 @@ def kernel_cases(torch, dev):
     # composition (attention_ab.conv_composed), with the L2 bytes the kernel's
     # blocks copy (weights and halo tiles, computed from its tiling)
     def conv(label, n, cin, stats, temb, zero_bias=False, primary=False):
+        if f32:  # no f32 counterpart: JAX sends f32 convs to XLA (conv2d.py:131)
+            return
         args = conv_args(torch, r, g, n, cin, temb, zero_bias, dev)
         add("conv3x3_gn_silu", label,
             lambda: conv2d.conv3x3_gn_silu(*args, with_stats=stats),
@@ -536,24 +641,28 @@ def kernel_cases(torch, dev):
     # that end inside a block, with the weight bytes its blocks copy from L2
     for t, c, primary in ((tb * 6 * 2304, 320, True), (tb * 6 * 576, 640, False),
                           (1, 320, False), (37, 320, False), (130, 320, False),
-                          (1, 640, False), (37, 640, False), (130, 640, False)):
+                          (1, 640, False), (37, 640, False), (130, 640, False),
+                          (1, 32, False), (37, 32, False), (130, 32, False)):
         i = 4 * c
         args = [r(t, c), r(t, c), 1.0 + 0.05 * r(c).float(), 0.02 * r(c).float(),
                 r(2 * i, c, scale=c ** -0.5), 0.02 * r(2 * i).float(),
                 r(c, i, scale=i ** -0.5)]
         add("ff_ln_bwd", f"T={t} C={c}", lambda a=args: geglu.ff_ln_bwd(*a),
             lambda ts: geglu.ff_ln_bwd_plain(*ts), args, flops=10 * t * c * i, primary=primary,
-            l2_bytes=(ff_ln_bwd_weight_bytes(_build, t, c, i), "weights"))
+            l2_bytes=None if f32 else (ff_ln_bwd_weight_bytes(_build, t, c, i), "weights"),
+            composed=ff_bwd_composed(args) if f32 else None)
     for t, primary in ((tb * 6 * 144, True), (tb * 6 * 40, False)):
         args = [r(t, 10240), r(t, 1280), r(1280, 5120, scale=5120 ** -0.5)]
         add("geglu_out_bwd", f"T={t} I=5120 C=1280", lambda a=args: geglu.geglu_out_bwd(*a),
             lambda ts: geglu.geglu_out_bwd_plain(*ts), args, flops=2 * t * 5120 * 1280,
-            primary=primary)
+            primary=primary, composed=geglu_bwd_f32_composed(args) if f32 else None)
 
     # int8_dense at the five layer shapes of the hidden=10000 semantic MLP,
     # one 100-row chunk, f32 activations; the yardstick is a dequantize to
     # bf16 and one F.linear (cuBLAS), with the same scale and bias epilogue
     def int8(label, m, k, n, primary=False):
+        if f32:  # its activations are f32 on every path already
+            return
         w = torch.randn(k, n, generator=g, device=dev) * k ** -0.5
         w_q, scale = int8_dense.quantize_int8(w)
         del w
@@ -585,7 +694,9 @@ def kernel_cases(torch, dev):
 
 def ff_ln_bwd_weight_bytes(build, t, c, inner):
     """Weight bytes ff_ln_bwd's blocks copy from L2 for t rows: each block
-    of the kernel's rows copies Wp (2I x C) twice and Wo (C x I) once, bf16."""
+    of the kernel's rows copies Wp (2I x C) twice and Wo (C x I) once, bf16,
+    at C padded to the kernel's 64-column grid."""
+    c = -(-c // 64) * 64
     rows = build.library().e2v_ff_ln_bwd_block_rows(c)
     return -(-t // rows) * (2 * 2 * inner * c + c * inner) * 2
 
@@ -598,15 +709,19 @@ def _nbytes(tensors):
     return sum(t.numel() * t.element_size() for t in tensors if t is not None)
 
 
-def phase_kernels(torch):
+def phase_kernels(torch, report, f32=False):
+    """Every case of ``kernel_cases`` (bf16, or with ``f32`` the f32 kernels
+    against the same plain versions, bound F32_KERNEL_BOUND, bound_ms at the
+    FP32 rate without tensor cores); the results go into ``report``."""
     dev = torch.device("cuda")
-    report = {k: {"max_abs_err": 0.0, "max_rel_err": 0.0} for k in KERNEL_SOURCES}
-    for case in kernel_cases(torch, dev):
+    bound, peak = (F32_KERNEL_BOUND, PEAK_F32_FLOPS) if f32 else (KERNEL_BOUND, PEAK_FLOPS)
+    for case in kernel_cases(torch, dev, f32):
         kernel, label, kern, plain, args = (case[k] for k in
                                             ("kernel", "label", "kern", "plain", "args"))
         got = [t for t in _outputs(kern()) if t is not None]
         torch.cuda.synchronize()
-        if kernel.endswith("_bwd") or kernel in ("ff_ln", "conv3x3_gn_silu", "geglu_out"):
+        if (f32 or kernel.endswith("_bwd")
+                or kernel in ("ff_ln", "conv3x3_gn_silu", "geglu_out")):
             again = [t for t in _outputs(kern()) if t is not None]
             if not all(torch.equal(a, b) for a, b in zip(got, again)):
                 fail(f"kernels: {kernel} [{label}]: two runs gave different bits")
@@ -626,21 +741,22 @@ def phase_kernels(torch):
             fail(f"kernels: {kernel} {label}: non-finite output")
         # least time for the same work: every input read once, every output
         # written once, against the operations at the bf16 tensor-core peak
+        # (the f32 kernels: the FP32 peak without tensor cores)
         nbytes = _nbytes(args) + _nbytes(got)
-        t_bytes, t_flops = nbytes / PEAK_BYTES * 1e3, case["flops"] / PEAK_FLOPS * 1e3
+        t_bytes, t_flops = nbytes / PEAK_BYTES * 1e3, case["flops"] / peak * 1e3
         bound_ms, bound_by = max(t_bytes, t_flops), "bytes" if t_bytes >= t_flops else "operations"
         ms = timed_ms(kern, torch, 10)
         plain_ms = timed_ms(lambda: plain(args), torch, 3)
         library_ms = timed_ms(case["library"], torch, 10) if case["library"] else None
         composed_ms = timed_ms(case["composed"], torch, 10) if case["composed"] else None
-        ok = rel_err < KERNEL_BOUND
+        ok = rel_err < bound
         lib = "no single call" if library_ms is None else f"{library_ms:.3f} ms"
         if composed_ms is not None:
             lib += f", composed {composed_ms:.3f} ms"
         l2 = case["l2_bytes"]
         l2 = "" if l2 is None else (f", {l2[1]} from L2 {l2[0]} bytes a call "
                                     f"({l2[0] / ms / 1e9:.2f} TB/s at this time)")
-        say(f"kernel {kernel} [{label}]: max_rel_err {rel_err:.3e} (bound {KERNEL_BOUND:.0e}) "
+        say(f"kernel {kernel} [{label}]: max_rel_err {rel_err:.3e} (bound {bound:.0e}) "
             f"max_abs_err {abs_err:.3e}, {ms:.3f} ms, bound {bound_ms:.4f} ms by {bound_by} "
             f"({bound_ms / ms:.3f} of it; {nbytes} bytes, {case['flops']} operations{l2}), "
             f"library {lib}, plain {plain_ms:.3f} ms {'ok' if ok else 'FAILED'}")
@@ -652,9 +768,9 @@ def phase_kernels(torch):
         if case["primary"]:
             rep.update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
                        library_ms=library_ms, composed_ms=composed_ms, shape=label)
-    check_geglu_rows(torch, dev)
+    if not f32:
+        check_geglu_rows(torch, dev)
     torch.cuda.empty_cache()
-    return report
 
 
 def check_geglu_rows(torch, dev):
@@ -1132,15 +1248,17 @@ def phase_de_psd(torch):
         fail("de_psd disagrees with its oracle, or follows the global TF32 switch")
 
 
-def phase_fused_op(torch, build):
+def phase_fused_op(torch, build, f32=False):
     """``fused_attention``, the public op over (B, H, L, D): a call without
-    and a call with gradients, launches counted."""
+    and a call with gradients, launches counted (``f32``: f32 operands, the
+    f32 kernels)."""
     from eeg2video_tpu_torch.ops import attention, fused_attention
 
+    dtype, sfx = (torch.float32, "_f32") if f32 else (torch.bfloat16, "")
     g = torch.Generator(device="cuda").manual_seed(9)
-    q, k, v = (torch.randn(2, 8, l, 40, generator=g, device="cuda").bfloat16().requires_grad_()
+    q, k, v = (torch.randn(2, 8, l, 40, generator=g, device="cuda").to(dtype).requires_grad_()
                for l in (2304, 4608, 4608))
-    dout = torch.randn(2, 8, 2304, 40, generator=g, device="cuda").bfloat16()
+    dout = torch.randn(2, 8, 2304, 40, generator=g, device="cuda").to(dtype)
     build.reset_launches()
     with torch.no_grad():
         plain_call = fused_attention(q, k, v)
@@ -1152,13 +1270,14 @@ def phase_fused_op(torch, build):
                                            v.detach().float())
     err = ((out.float() - want).abs().max() / want.abs().max()).item()
     expected = dict.fromkeys(launches, 0)
-    expected.update(fused_attention_fwd=2, fused_attention_bwd=1)
-    ok = (launches == expected and torch.equal(plain_call, out.detach()) and err < KERNEL_BOUND
+    expected.update({f"fused_attention_fwd{sfx}": 2, f"fused_attention_bwd{sfx}": 1})
+    bound = F32_KERNEL_BOUND if f32 else KERNEL_BOUND
+    ok = (launches == expected and torch.equal(plain_call, out.detach()) and err < bound
           and all(gr.shape == t.shape and bool(torch.isfinite(gr).all()) and float(gr.abs().max()) > 0
                   for gr, t in zip(grads, (q, k, v))))
-    say(f"fused_attention (2,8,2304,40)x4608: one call without and one with gradients, launches "
-        f"{ {k_: n for k_, n in launches.items() if n} } (expected 2 forward, 1 backward), "
-        f"max_rel_err {err:.3e} {'ok' if ok else 'FAILED'}")
+    say(f"fused_attention (2,8,2304,40)x4608 {'f32' if f32 else 'bf16'}: one call without and one "
+        f"with gradients, launches {_nonzero(launches)} (expected 2 forward, 1 backward), "
+        f"max_rel_err {err:.3e} (bound {bound:.0e}) {'ok' if ok else 'FAILED'}")
     if not ok:
         fail("fused_attention: the op did not go through its kernels")
     return launches
@@ -1168,21 +1287,53 @@ def _rel(a, b):
     return ((a.float() - b.float()).norm() / b.float().norm()).item()
 
 
-def phase_train_parity(torch, build):
-    """A narrow UNet in bf16 on the card: the fine-tune loss and its
-    trainable gradients through the kernels, against the same model with the
-    plain versions (f32 inside, autograd through them) in the kernels' place."""
+@contextlib.contextmanager
+def _plain_versions():
+    """The plain versions in the kernels' place in models.attention3d (f32
+    inside, autograd through them): attention (``flash_attention_fwd``'s
+    ``out`` filled by a copy), temporal attention and the feed-forward."""
+    from eeg2video_tpu_torch.models import attention3d
+    from eeg2video_tpu_torch.ops import attention, geglu, temporal
+
+    def fwd_into(q, k0, v0, heads, out=None, **kw):
+        res = attention.flash_attention_plain(q, k0, v0, heads, **kw)
+        return res if out is None else out.copy_(res)
+
+    patched = {"flash_attention": lambda q, k0, v0, heads, **kw:
+               attention.flash_attention_plain(q, k0, v0, heads, **kw),
+               "flash_attention_fwd": fwd_into,
+               "temporal_attention": temporal.temporal_attention_plain,
+               "feed_forward": geglu.ff_ln_plain}
+    real = {name: getattr(attention3d, name) for name in patched}
+    try:
+        for name, fn in patched.items():
+            setattr(attention3d, name, fn)
+        yield
+    finally:
+        for name, fn in real.items():
+            setattr(attention3d, name, fn)
+
+
+def _nonzero(launches):
+    return {k: n for k, n in launches.items() if n}
+
+
+def phase_train_parity(torch, build, f32=False):
+    """A narrow UNet on the card: the fine-tune loss and its trainable
+    gradients through the kernels, against the same model with the plain
+    versions (f32 inside, autograd through them) in the kernels' place; in
+    bf16, then the gradient of a soft mask; with ``f32`` at
+    compute_dtype="float32" through the f32 kernels alone."""
     import copy
 
-    from eeg2video_tpu_torch.models import attention3d
     from eeg2video_tpu_torch.models.init import random_init_
     from eeg2video_tpu_torch.models.unet3d import UNet3DConditionModel, UNet3DConfig
-    from eeg2video_tpu_torch.ops import attention, geglu, temporal
     from eeg2video_tpu_torch.train import videodiffusion as vd
 
     dev = torch.device("cuda")
     cfg = UNet3DConfig(block_out_channels=(64, 128, 128, 128), attention_heads=8)
-    tcfg = vd.VideoDiffusionTrainConfig(remat=True, remat_min_hw=64)
+    tcfg = vd.VideoDiffusionTrainConfig(remat=True, remat_min_hw=64,
+                                        compute_dtype="float32" if f32 else "bfloat16")
     g = torch.Generator(device=dev).manual_seed(5)
     unet = random_init_(UNet3DConditionModel(cfg).to(dev), g)
     twin = copy.deepcopy(unet)
@@ -1200,19 +1351,31 @@ def phase_train_parity(torch, build):
         loss.backward()
         return loss.item(), {n: p.grad for n, p in state.working.items()}
 
+    build.reset_launches()
     loss_k, grads_k = loss_and_grads(unet)
-    patched = {"flash_attention": lambda q, k0, v0, heads, **kw:
-               attention.flash_attention_plain(q, k0, v0, heads, **kw),
-               "temporal_attention": temporal.temporal_attention_plain,
-               "feed_forward": geglu.ff_ln_plain}
-    real = {name: getattr(attention3d, name) for name in patched}
-    try:
-        for name, fn in patched.items():
-            setattr(attention3d, name, fn)
+    launched = _nonzero(build.launches)
+    with _plain_versions():
         loss_p, grads_p = loss_and_grads(twin)
-    finally:
-        for name, fn in real.items():
-            setattr(attention3d, name, fn)
+    worst = max((_rel(grads_k[n], grads_p[n]), n) for n in grads_p)
+    total = _rel(torch.cat([grads_k[n].flatten() for n in grads_p]),
+                 torch.cat([grads_p[n].flatten() for n in grads_p]))
+    bound = F32_TRAIN_BOUND if f32 else TRAIN_BOUND
+    wanted = {"flash_attention_fwd", "flash_attention_bwd", "temporal_attention_fwd",
+              "temporal_attention_bwd", "ff_ln", "ff_ln_bwd"}
+    if f32:  # the f32 kernels only, each of the narrow model's
+        wanted = {f"{k}_f32" for k in wanted}
+    ok = (abs(loss_k - loss_p) <= bound * abs(loss_p) and total < bound
+          and all(bool(torch.isfinite(v).all()) for v in grads_k.values())
+          and (set(launched) == wanted if f32 else wanted <= set(launched)))
+    say(f"train parity (64,128,128,128) 8 heads, batch 2, 6 frames of 16x16, "
+        f"{'f32' if f32 else 'bf16'}, levels 0-1 recomputed: loss {loss_k:.6f} via kernels vs "
+        f"{loss_p:.6f} via plain; {len(grads_p)} trainable gradients, rel_err of all {total:.3e} "
+        f"(bound {bound:.0e}), worst tensor {worst[0]:.3e} ({worst[1]}); launches {launched} "
+        f"{'ok' if ok else 'FAILED'}")
+    if not ok:
+        fail(f"train parity ({'f32' if f32 else 'bf16'})")
+    if f32:
+        return
 
     # the same step with a soft attention_mask that asks for a gradient:
     # mask.grad through the kernels' dbias against autograd through the plain
@@ -1233,13 +1396,8 @@ def phase_train_parity(torch, build):
     build.reset_launches()
     mgrad_k = mask_grad(masked_pair[0])
     dbias_launches = build.launches["flash_attention_bwd_dbias"]
-    try:
-        for name, fn in patched.items():
-            setattr(attention3d, name, fn)
+    with _plain_versions():
         mgrad_p = mask_grad(masked_pair[1])
-    finally:
-        for name, fn in real.items():
-            setattr(attention3d, name, fn)
     mask_err = _rel(mgrad_k, mgrad_p)
     ok = (mask_err < TRAIN_BOUND and bool(torch.isfinite(mgrad_k).all())
           and float(mgrad_k.abs().max()) > 0 and dbias_launches == EXPECTED_DBIAS_PER_MASKED_STEP)
@@ -1249,23 +1407,14 @@ def phase_train_parity(torch, build):
         f"(expected {EXPECTED_DBIAS_PER_MASKED_STEP}) {'ok' if ok else 'FAILED'}")
     if not ok:
         fail("mask.grad parity")
-    worst = max((_rel(grads_k[n], grads_p[n]), n) for n in grads_p)
-    total = _rel(torch.cat([grads_k[n].flatten() for n in grads_p]),
-                 torch.cat([grads_p[n].flatten() for n in grads_p]))
-    ok = (abs(loss_k - loss_p) <= TRAIN_BOUND * abs(loss_p) and total < TRAIN_BOUND
-          and all(bool(torch.isfinite(v).all()) for v in grads_k.values()))
-    say(f"train parity (64,128,128,128) 8 heads, batch 2, 6 frames of 16x16, bf16, levels 0-1 "
-        f"recomputed: loss {loss_k:.5f} via kernels vs {loss_p:.5f} via plain; {len(grads_p)} "
-        f"trainable gradients, rel_err of all {total:.3e} (bound {TRAIN_BOUND:.0e}), worst "
-        f"tensor {worst[0]:.3e} ({worst[1]}) {'ok' if ok else 'FAILED'}")
-    if not ok:
-        fail("train parity")
 
 
-def _masked_step(torch, build, vd, state, post, contexts):
+def _masked_step(torch, build, vd, state, post, contexts, f32=False):
     """One full-width forward/backward with a soft attention_mask (B, 36, 64)
     that asks for a gradient: the biased attention backward writes dbias0 and
-    autograd carries it to ``mask.grad``."""
+    autograd carries it to ``mask.grad`` (``f32``: a compute_dtype="float32"
+    state, through the f32 kernels)."""
+    sfx = "_f32" if f32 else ""
     dev = post.device
     g = torch.Generator(device=dev).manual_seed(10)
     b = post.shape[0]
@@ -1290,28 +1439,31 @@ def _masked_step(torch, build, vd, state, post, contexts):
     peak = torch.cuda.max_memory_allocated() / 2**30
     for p in state.unet.parameters():
         p.grad = None
-    expected = dict(EXPECTED_PER_TRAIN_STEP,
-                    flash_attention_bwd_dbias=EXPECTED_DBIAS_PER_MASKED_STEP)
+    expected = dict(EXPECTED_F32_PER_TRAIN_STEP if f32 else EXPECTED_PER_TRAIN_STEP,
+                    **{f"flash_attention_bwd_dbias{sfx}": EXPECTED_DBIAS_PER_MASKED_STEP})
     grad = mask.grad
     ok = (launched == expected and grad is not None and grad.shape == mask.shape
           and bool(torch.isfinite(grad).all()) and float(grad.abs().max()) > 0
           and bool(torch.isfinite(loss)))
-    say(f"train: masked step at batch {b}, soft attention_mask ({b},36,64) with holes, forward + "
-        f"backward {secs:.3f} s (no optimizer update), loss {float(loss.detach()):.4f}, mask.grad finite, "
-        f"max |grad| {float(grad.abs().max()):.3e}, {int((grad != 0).sum())} of {grad.numel()} "
-        f"non-zero; {launched['flash_attention_bwd_dbias']} of "
-        f"{launched['flash_attention_bwd']} backward launches wrote dbias (expected "
-        f"{EXPECTED_DBIAS_PER_MASKED_STEP} of {EXPECTED_PER_TRAIN_STEP['flash_attention_bwd']}), "
-        f"peak memory {peak:.2f} GiB {'ok' if ok else 'FAILED'}")
+    say(f"train{' f32' if f32 else ''}: masked step at batch {b}, soft attention_mask "
+        f"({b},36,64) with holes, forward + backward {secs:.3f} s (no optimizer update), loss "
+        f"{float(loss.detach()):.4f}, mask.grad finite, max |grad| {float(grad.abs().max()):.3e}, "
+        f"{int((grad != 0).sum())} of {grad.numel()} non-zero; "
+        f"{launched[f'flash_attention_bwd_dbias{sfx}']} of {launched[f'flash_attention_bwd{sfx}']} "
+        f"backward launches wrote dbias (expected {EXPECTED_DBIAS_PER_MASKED_STEP} of "
+        f"{_TRAIN_STEP['flash_attention_bwd']}), peak memory {peak:.2f} GiB "
+        f"{'ok' if ok else 'FAILED'}")
     if not ok:
-        fail(f"train: the masked step launched {launched}, expected {expected}, or mask.grad "
-             f"is missing, zero or not finite")
-    return launched["flash_attention_bwd_dbias"]
+        fail(f"train: the masked step launched {_nonzero(launched)}, expected "
+             f"{_nonzero(expected)}, or mask.grad is missing, zero or not finite")
+    return launched[f"flash_attention_bwd_dbias{sfx}"]
 
 
 def _inference_main(torch, build, tmp, dana_latents):
     """cli.inference_eeg2video.main on the diffusers directories the trainer
-    wrote: fresh-noise latents, then the DANA latents of the raw path."""
+    wrote: fresh-noise latents, then the DANA latents of the raw path, then
+    fresh-noise latents again with ``--dtype float32`` (the parity mode: the
+    f32 kernels, per UNet forward EXPECTED_F32_PER_FORWARD and nothing else)."""
     import numpy as np
 
     from eeg2video_tpu_torch.cli import inference_eeg2video
@@ -1323,7 +1475,8 @@ def _inference_main(torch, build, tmp, dana_latents):
     common = ["--embeddings", emb, "--unet", tmp, "--vae", tmp, "--limit", "2", "--batch", "2",
               "--num_inference_steps", str(STEPS), "--gif_encoder", "native"]
     runs = {"woSeq2Seq": ["--woSeq2Seq"],
-            "Fullmodel": ["--dana_latents", os.path.join(tmp, "dana_latents.npy")]}
+            "Fullmodel": ["--dana_latents", os.path.join(tmp, "dana_latents.npy")],
+            "woSeq2Seq_f32": ["--woSeq2Seq", "--dtype", "float32"]}
     gifs = {}
     for tag, extra in runs.items():
         out_dir = os.path.join(tmp, f"inference_{tag}")
@@ -1335,12 +1488,18 @@ def _inference_main(torch, build, tmp, dana_latents):
         secs = time.perf_counter() - t0
         names = sorted(os.listdir(out_dir))
         frames = [load_gif(os.path.join(out_dir, n)) for n in names]
-        forwards = build.launches["flash_attention_fwd"] / EXPECTED_PER_FORWARD["flash_attention_fwd"]
+        f32 = tag.endswith("_f32")
+        per_fwd = EXPECTED_F32_PER_FORWARD if f32 else EXPECTED_PER_FORWARD
+        first = next(iter(per_fwd))
+        forwards = build.launches[first] / per_fwd[first]
+        launched = _nonzero(build.launches)
         ok = (names == ["0.gif", "1.gif"] and forwards == STEPS
-              and all(f.shape == (6, 288, 512, 3) and f.std() > 0 for f in frames))
-        say(f"inference_eeg2video.main --limit 2 --num_inference_steps {STEPS} {' '.join(extra[:1])}: "
-            f"{names} {[f.shape for f in frames]}, {forwards:g} UNet forwards, {secs:.1f} s with "
-            f"loading the pipeline from the diffusers directories {'ok' if ok else 'FAILED'}")
+              and all(f.shape == (6, 288, 512, 3) and f.std() > 0 for f in frames)
+              and (not f32 or launched == {k: n * STEPS for k, n in per_fwd.items()}))
+        say(f"inference_eeg2video.main --limit 2 --num_inference_steps {STEPS} {' '.join(extra)}: "
+            f"{names} {[f.shape for f in frames]}, {forwards:g} UNet forwards, kernel launches "
+            f"{launched}, {secs:.1f} s with loading the pipeline from the diffusers directories "
+            f"{'ok' if ok else 'FAILED'}")
         if not ok:
             fail(f"inference_eeg2video.main ({tag}) did not write two 6-frame 288x512 GIFs")
         with open(os.path.join(out_dir, "0.gif"), "rb") as f:
@@ -1494,9 +1653,141 @@ def phase_train(torch, build, vae, dana_latents):
     return {k: sum(s[2][k] for s in steps) for k in EXPECTED_PER_TRAIN_STEP}, dbias_launches
 
 
+def _full_width_unet(torch, seed):
+    """UNet3DConfig() in f32 on the card, random weights from ``seed``."""
+    from eeg2video_tpu_torch.models.init import random_init_
+    from eeg2video_tpu_torch.models.unet3d import UNet3DConditionModel, UNet3DConfig
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    with torch.device("meta"):
+        unet = UNet3DConditionModel(UNet3DConfig())
+    return random_init_(unet.to_empty(device="cuda"), g), g
+
+
+def phase_f32_generation(torch, build):
+    """The parity mode (``--dtype float32``) at full width: one UNet3DConfig()
+    forward of 2 samples (one clip's guidance pair) at f32 through the f32
+    kernels, against the same forward with the plain versions in their place;
+    launches counted; then the forward under torch.profiler."""
+    dev = torch.device("cuda")
+    unet, g = _full_width_unet(torch, 12)
+    unet.eval()
+    sample = torch.randn(2, 6, 36, 64, 4, generator=g, device=dev)
+    ctx = torch.randn(2, 77, 768, generator=g, device=dev)
+    t = torch.tensor([10, 900], device=dev)
+    with torch.inference_mode():
+        unet(sample, t, ctx)  # warm-up: the library's first calls at these shapes
+        torch.cuda.synchronize()
+        build.reset_launches()
+        t0 = time.perf_counter()
+        got = unet(sample, t, ctx)
+        torch.cuda.synchronize()
+        fwd_ms = (time.perf_counter() - t0) * 1e3
+        launches = dict(build.launches)
+        with _plain_versions():
+            want = unet(sample, t, ctx)
+    worst = ((got - want).abs() - (F32_UNET_ATOL + F32_UNET_RTOL * want.abs())).max().item()
+    rel = _rel(got, want)
+    ok = (bool(torch.isfinite(got).all()) and worst <= 0
+          and _nonzero(launches) == EXPECTED_F32_PER_FORWARD)
+    say(f"f32 generation: UNet3DConfig() forward of 2 samples, 6 frames of 36x64, f32 on the card: "
+        f"{fwd_ms:.1f} ms on the host clock, launches {_nonzero(launches)} (expected "
+        f"{EXPECTED_F32_PER_FORWARD}, no conv: JAX sends f32 convs to XLA); against the same "
+        f"forward via the plain versions: rel_err {rel:.3e}, worst |got - want| - (atol "
+        f"{F32_UNET_ATOL:.0e} + rtol {F32_UNET_RTOL:.0e} |want|) {worst:.3e} "
+        f"{'ok' if ok else 'FAILED'}")
+    if not ok:
+        fail("f32 generation: the f32 forward did not go through the f32 kernels alone, or "
+             "disagrees with its plain-patched self")
+    del got, want
+    with torch.inference_mode():
+        _profile_step(torch, lambda: unet(sample, t, ctx),
+                      what="f32 generation: one UNet forward of 2 samples")
+    del unet
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_narrow_bf16(torch, build):
+    """UNet3DConfig.tiny() (C = 32: the feed-forward through ``ff_ln`` on
+    operands padded to its 64-column grid) in bf16 on the card, against its
+    plain-patched self."""
+    import dataclasses
+
+    from eeg2video_tpu_torch.models.init import random_init_
+    from eeg2video_tpu_torch.models.unet3d import UNet3DConditionModel, UNet3DConfig
+
+    dev = torch.device("cuda")
+    cfg = dataclasses.replace(UNet3DConfig.tiny(), cross_attention_dim=768)
+    g = torch.Generator(device=dev).manual_seed(13)
+    unet = random_init_(UNet3DConditionModel(cfg).to(dev), g).to(torch.bfloat16).eval()
+    sample = torch.randn(2, 6, 16, 16, 4, generator=g, device=dev).bfloat16()
+    ctx = torch.randn(2, 77, 768, generator=g, device=dev).bfloat16()
+    t = torch.tensor([10, 900], device=dev)
+    build.reset_launches()
+    with torch.inference_mode():
+        got = unet(sample, t, ctx)
+        torch.cuda.synchronize()
+        launches = _nonzero(build.launches)
+        with _plain_versions():
+            want = unet(sample, t, ctx)
+    err = _rel(got, want)
+    ok = (bool(torch.isfinite(got.float()).all()) and err < UNET_BOUND
+          and launches.get("ff_ln", 0) > 0 and not any(k.endswith("_f32") for k in launches))
+    say(f"narrow bf16: UNet3DConfig.tiny() (C 32/64, 4 heads) forward of 2 samples, 6 frames of "
+        f"16x16: launches {launches}; against the same forward via the plain versions rel_err "
+        f"{err:.3e} (bound {UNET_BOUND:.0e}) {'ok' if ok else 'FAILED'}")
+    if not ok:
+        fail("narrow bf16: the tiny UNet did not run ff_ln at C = 32, or disagrees")
+
+
+def phase_f32_train(torch, build):
+    """compute_dtype="float32" at full width: one optimizer step at batch 10
+    through the f32 kernels (launches counted, 0 conv), its time and peak
+    memory, a profiled step, and one masked forward/backward whose mask asks
+    for a gradient (the f32 dbias launches)."""
+    from eeg2video_tpu_torch.train import videodiffusion as vd
+
+    dev = torch.device("cuda")
+    unet, g = _full_width_unet(torch, 14)
+    tcfg = vd.VideoDiffusionTrainConfig(compute_dtype="float32")
+    state = vd.init_video_train_state(unet, tcfg, dev)
+    b = TRAIN_BATCH
+    # posteriors (mean || logvar) of synthetic clips: the loss samples them
+    post = torch.cat([torch.randn(b, 6, 36, 64, 4, generator=g, device=dev),
+                      -4.0 + 0.1 * torch.randn(b, 6, 36, 64, 4, generator=g, device=dev)], dim=-1)
+    ctx = torch.randn(b, 77, 768, generator=g, device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    build.reset_launches()
+    t0 = time.perf_counter()
+    loss = float(vd.train_step(state, None, post, ctx, 0))
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = dict(build.launches)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    ok = launches == EXPECTED_F32_PER_TRAIN_STEP and 0.2 < loss < 10.0 and state.step == 1
+    say(f"f32 train: UNet3DConfig() compute_dtype=float32, one optimizer step at batch {b}, "
+        f"levels 0-1 recomputed: loss {loss:.4f}, {secs:.3f} s, peak memory {peak:.2f} GiB, "
+        f"launches {_nonzero(launches)} (expected {_nonzero(EXPECTED_F32_PER_TRAIN_STEP)}, "
+        f"0 conv) {'ok' if ok else 'FAILED'}")
+    if not ok:
+        fail("f32 train: the step did not launch the f32 kernels as expected, or its loss is "
+             "not finite and near 1")
+    _profile_step(torch, lambda: vd.train_step(state, None, post, ctx, 0), what="f32 train: one step")
+    dbias = _masked_step(torch, build, vd, state, post, ctx, f32=True)
+    del state, unet
+    torch.cuda.empty_cache()
+    return launches, dbias
+
+
 # device kernels of a train step or a generation forward, grouped by what
 # launched them (substrings of the kernel names; the port's own kernels first)
 _KERNEL_GROUPS = (
+    ("flash_attention_bwd_f32", ("flash_f32_dq_", "flash_f32_dkv_", "flash_f32_dbias_")),
+    ("flash_attention_fwd_f32", ("flash_f32_fwd_",)),
+    ("ff_ln_bwd_f32", ("ff_f32_bwd_",)), ("ff_ln_f32", ("ff_f32_",)),
+    ("geglu_out_bwd_f32", ("geglu_f32_bwd_",)), ("geglu_out_f32", ("geglu_f32_",)),
     ("flash_attention_bwd", ("flash_bwd_",)), ("flash_attention_fwd", ("flash_fwd_",)),
     ("temporal_attention_fwd", ("temporal_fwd_",)), ("temporal_attention_bwd", ("temporal_bwd_",)),
     ("ff_ln_bwd", ("ff_ln_bwd_",)), ("ff_ln", ("ff_ln_",)),
@@ -1558,17 +1849,26 @@ def main():
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    if tuple(build.launches) != COUNTERS:
+        fail(f"launches: the port counts {tuple(build.launches)}, this script {COUNTERS}")
     phase_build(build)
-    report = phase_kernels(torch)
+    report = {k: {"max_abs_err": 0.0, "max_rel_err": 0.0} for k in KERNEL_SOURCES}
+    phase_kernels(torch, report)
+    phase_kernels(torch, report, f32=True)
     phase_unet_parity(torch)
+    phase_narrow_bf16(torch, build)
     pipe, ddim_launches = phase_slice(torch, build)
     launches, dana_latents = phase_serve(torch, build, pipe)
     phase_de_psd(torch)
     fused_launches = phase_fused_op(torch, build)
+    f32_fused_launches = phase_fused_op(torch, build, f32=True)
     pipe.unet = None  # the train phase builds its own, with f32 masters
     torch.cuda.empty_cache()
+    f32_gen_launches = phase_f32_generation(torch, build)
     phase_train_parity(torch, build)
+    phase_train_parity(torch, build, f32=True)
     train_launches, dbias_launches = phase_train(torch, build, pipe.vae, dana_latents)
+    f32_train_launches, f32_dbias_launches = phase_f32_train(torch, build)
     leaked = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "jaxlib", "flax", "eeg2video_tpu"))
     if leaked:
@@ -1585,15 +1885,27 @@ def main():
         # for, the serve path for the forward kernels (as this line always
         # gave it), the train path for the kernels only training runs, the
         # op's own calls for the fused_attention pair, which no model path
-        # reaches; a kernel its path did not launch fails the run.
-        per_path = {"launches_serve_path": launches[name],
-                    "launches_ddim_path": ddim_launches[name],
-                    "launches_train_path": train_launches[name],
-                    "launches_fused_op_path": fused_launches[name]}
-        if name == "flash_attention_bwd":  # of one masked step's launches, those that wrote dbias
-            per_path["launches_dbias_masked_step"] = dbias_launches
-        path = ("train" if name in TRAIN_ONLY_KERNELS else
-                "fused_op" if name in FUSED_OP_KERNELS else "serve")
+        # reaches; a kernel its path did not launch fails the run. The f32
+        # kernels: the f32 generation forward (one UNet forward of 2 samples)
+        # for the forward ones, the f32 train step (one optimizer step) for
+        # the others, the f32 fused_attention calls for that pair.
+        if name.endswith("_f32"):
+            per_path = {"launches_f32_generation_path": f32_gen_launches[name],
+                        "launches_f32_train_path": f32_train_launches[name],
+                        "launches_f32_fused_op_path": f32_fused_launches[name]}
+            if name == "flash_attention_bwd_f32":
+                per_path["launches_dbias_masked_step"] = f32_dbias_launches
+            path = ("f32_generation" if name in F32_GENERATION_KERNELS else
+                    "f32_fused_op" if name.startswith("fused_") else "f32_train")
+        else:
+            per_path = {"launches_serve_path": launches[name],
+                        "launches_ddim_path": ddim_launches[name],
+                        "launches_train_path": train_launches[name],
+                        "launches_fused_op_path": fused_launches[name]}
+            if name == "flash_attention_bwd":  # of one masked step's launches, those that wrote dbias
+                per_path["launches_dbias_masked_step"] = dbias_launches
+            path = ("train" if name in TRAIN_ONLY_KERNELS else
+                    "fused_op" if name in FUSED_OP_KERNELS else "serve")
         if per_path[f"launches_{path}_path"] == 0:
             fail(f"launches: the {path} path did not launch {name}")
         kernels.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,

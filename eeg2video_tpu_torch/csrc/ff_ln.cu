@@ -125,7 +125,7 @@ __global__ void __launch_bounds__(FfShape<CT>::kThreads)
     ff_ln_kernel(const bf16* __restrict__ x, const float* __restrict__ gamma,
                  const float* __restrict__ beta, const bf16* __restrict__ wp,
                  const float* __restrict__ bp, const bf16* __restrict__ wo,
-                 const float* __restrict__ bo, bf16* __restrict__ out, int T, int I,
+                 const float* __restrict__ bo, bf16* __restrict__ out, int T, int Cr, int I,
                  float eps) {
   using S = FfShape<CT>;
   constexpr int C = S::C, LDX = S::LDX, NT1 = S::NT1, NT2 = S::NT2, MT = S::MT;
@@ -162,16 +162,18 @@ __global__ void __launch_bounds__(FfShape<CT>::kThreads)
           sum += v[i][e];
         }
       }
-      const float mu = warp_sum(sum) / C;
+      const float mu = warp_sum(sum) / Cr;
       float sq = 0.0f;
 #pragma unroll
       for (int i = 0; i < NV; ++i)
 #pragma unroll
         for (int e = 0; e < VEC; ++e) {
-          v[i][e] -= mu;
+          // the zero columns of a padded x stay zero (their gamma and beta
+          // are zero too); at Cr == C this is the plain two-pass variance
+          v[i][e] = (lane + 32 * i) * VEC + e < Cr ? v[i][e] - mu : 0.0f;
           sq += v[i][e] * v[i][e];
         }
-      const float rstd = rsqrtf(warp_sum(sq) / C + eps);
+      const float rstd = rsqrtf(warp_sum(sq) / Cr + eps);
 #pragma unroll
       for (int i = 0; i < NV; ++i) {
         const int col = (lane + 32 * i) * VEC;
@@ -283,6 +285,7 @@ __global__ void __launch_bounds__(FfShape<CT>::kThreads)
     for (int n = 0; n < NT2; ++n) {
       const int col = grp * S::CW + n * 8 + 2 * tq;
       const float2 b = *reinterpret_cast<const float2*>(bo + col);
+      if (col >= Cr) continue;  // a padded column: never stored
       if (r_lo < T)
         residual_pair(out, x, (long long)r_lo * C + col, acc[m][n][0], acc[m][n][1], b);
       if (r_hi < T)
@@ -293,13 +296,13 @@ __global__ void __launch_bounds__(FfShape<CT>::kThreads)
 
 template <int CT>
 int launch_ff(const bf16* x, const float* gamma, const float* beta, const bf16* wp,
-              const float* bp, const bf16* wo, const float* bo, bf16* out, int T, int I,
-              float eps, void* stream) {
+              const float* bp, const bf16* wo, const float* bo, bf16* out, int T, int Cr,
+              int I, float eps, void* stream) {
   using S = FfShape<CT>;
   if (T == 0) return 0;
   const dim3 grid((T + kBM - 1) / kBM);
   E2V_LAUNCH(ff_ln_kernel<CT>, grid, S::kThreads, S::kSmem, stream, x, gamma, beta, wp, bp, wo,
-             bo, out, T, I, eps);
+             bo, out, T, Cr, I, eps);
 }
 
 }  // namespace
@@ -307,10 +310,14 @@ int launch_ff(const bf16* x, const float* gamma, const float* beta, const bf16* 
 
 // x, out (T, C) bf16; gamma, beta (C) f32; wp (2I, C) bf16 (nn.Linear
 // layout), bp (2I) f32; wo (C, I) bf16, bo (C) f32; x, wp, wo and out 16-byte
-// aligned. C % 64 == 0, C <= 640, I % 64 == 0. Returns the CUDA launch status.
+// aligned. C % 64 == 0, C <= 640, I % 64 == 0. Cr <= C is the true width: a
+// narrower block comes zero-padded to C columns (x, gamma, beta, the columns
+// of wp, the rows of wo, bo); LayerNorm then uses the first Cr columns only
+// and the output's columns past Cr are not stored (Cr % 2 == 0). At Cr == C
+// the arithmetic is the unpadded kernel's. Returns the CUDA launch status.
 extern "C" int e2v_ff_ln(const void* x, const void* gamma, const void* beta, const void* wp,
                          const void* bp, const void* wo, const void* bo, void* out, int T,
-                         int C, int I, float eps, void* stream) {
+                         int C, int Cr, int I, float eps, void* stream) {
   using namespace e2v;
   const bf16* xx = static_cast<const bf16*>(x);
   const float* g = static_cast<const float*>(gamma);
@@ -320,18 +327,19 @@ extern "C" int e2v_ff_ln(const void* x, const void* gamma, const void* beta, con
   const bf16* o = static_cast<const bf16*>(wo);
   const float* ob = static_cast<const float*>(bo);
   bf16* y = static_cast<bf16*>(out);
-  if (C % 64 != 0 || I % kIC != 0) return (int)cudaErrorInvalidValue;
+  if (C % 64 != 0 || I % kIC != 0 || Cr > C || Cr <= C - 64 || Cr % 2 != 0)
+    return (int)cudaErrorInvalidValue;
   switch (C / 64) {
-    case 1: return launch_ff<1>(xx, g, b, p, pb, o, ob, y, T, I, eps, stream);
-    case 2: return launch_ff<2>(xx, g, b, p, pb, o, ob, y, T, I, eps, stream);
-    case 3: return launch_ff<3>(xx, g, b, p, pb, o, ob, y, T, I, eps, stream);
-    case 4: return launch_ff<4>(xx, g, b, p, pb, o, ob, y, T, I, eps, stream);
-    case 5: return launch_ff<5>(xx, g, b, p, pb, o, ob, y, T, I, eps, stream);
-    case 6: return launch_ff<6>(xx, g, b, p, pb, o, ob, y, T, I, eps, stream);
-    case 7: return launch_ff<7>(xx, g, b, p, pb, o, ob, y, T, I, eps, stream);
-    case 8: return launch_ff<8>(xx, g, b, p, pb, o, ob, y, T, I, eps, stream);
-    case 9: return launch_ff<9>(xx, g, b, p, pb, o, ob, y, T, I, eps, stream);
-    case 10: return launch_ff<10>(xx, g, b, p, pb, o, ob, y, T, I, eps, stream);
+    case 1: return launch_ff<1>(xx, g, b, p, pb, o, ob, y, T, Cr, I, eps, stream);
+    case 2: return launch_ff<2>(xx, g, b, p, pb, o, ob, y, T, Cr, I, eps, stream);
+    case 3: return launch_ff<3>(xx, g, b, p, pb, o, ob, y, T, Cr, I, eps, stream);
+    case 4: return launch_ff<4>(xx, g, b, p, pb, o, ob, y, T, Cr, I, eps, stream);
+    case 5: return launch_ff<5>(xx, g, b, p, pb, o, ob, y, T, Cr, I, eps, stream);
+    case 6: return launch_ff<6>(xx, g, b, p, pb, o, ob, y, T, Cr, I, eps, stream);
+    case 7: return launch_ff<7>(xx, g, b, p, pb, o, ob, y, T, Cr, I, eps, stream);
+    case 8: return launch_ff<8>(xx, g, b, p, pb, o, ob, y, T, Cr, I, eps, stream);
+    case 9: return launch_ff<9>(xx, g, b, p, pb, o, ob, y, T, Cr, I, eps, stream);
+    case 10: return launch_ff<10>(xx, g, b, p, pb, o, ob, y, T, Cr, I, eps, stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }

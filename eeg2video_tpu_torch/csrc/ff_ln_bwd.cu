@@ -133,7 +133,7 @@ __global__ void __launch_bounds__(FfBwdShape<CT>::kThreads)
     ff_ln_bwd_kernel(const bf16* __restrict__ x, const bf16* __restrict__ g,
                      const float* __restrict__ gamma, const float* __restrict__ beta,
                      const bf16* __restrict__ wp, const float* __restrict__ bp,
-                     const bf16* __restrict__ wo, bf16* __restrict__ dx, int T, int I,
+                     const bf16* __restrict__ wo, bf16* __restrict__ dx, int T, int Cr, int I,
                      float eps) {
   using S = FfBwdShape<CT>;
   constexpr int C = S::C, BM = S::BM, LDX = S::LDX, LDD = S::LDD, MT = S::MT;
@@ -176,16 +176,17 @@ __global__ void __launch_bounds__(FfBwdShape<CT>::kThreads)
           sum += v[i][e];
         }
       }
-      const float mu = warp_sum(sum) / C;
+      const float mu = warp_sum(sum) / Cr;
       float sq = 0.0f;
 #pragma unroll
       for (int i = 0; i < NV; ++i)
 #pragma unroll
         for (int e = 0; e < VEC; ++e) {
-          v[i][e] -= mu;
+          // padded columns stay zero, as in ff_ln
+          v[i][e] = (lane + 32 * i) * VEC + e < Cr ? v[i][e] - mu : 0.0f;
           sq += v[i][e] * v[i][e];
         }
-      const float rstd = rsqrtf(warp_sum(sq) / C + eps);
+      const float rstd = rsqrtf(warp_sum(sq) / Cr + eps);
       if (lane == 0) {
         mu_s[r] = mu;
         rstd_s[r] = rstd;
@@ -389,12 +390,13 @@ __global__ void __launch_bounds__(FfBwdShape<CT>::kThreads)
         m1 += part[(r * NG + k) * 2];
         m2 += part[(r * NG + k) * 2 + 1];
       }
-      m1 /= C;
-      m2 /= C;
+      m1 /= Cr;  // the padded columns' dxn is zero: the sums are the true ones
+      m2 /= Cr;
       const float mu = mu_s[r], rstd = rstd_s[r];
 #pragma unroll
       for (int n = 0; n < NT2; ++n) {
         const int col = grp * S::CW + n * 8 + 2 * tq;
+        if (col >= Cr) continue;  // a padded column: never stored
         const long long idx = (long long)row * C + col;
         const float2 xv =
             __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(x + idx));
@@ -411,13 +413,13 @@ __global__ void __launch_bounds__(FfBwdShape<CT>::kThreads)
 
 template <int CT>
 int launch_ff_bwd(const bf16* x, const bf16* g, const float* gamma, const float* beta,
-                  const bf16* wp, const float* bp, const bf16* wo, bf16* dx, int T, int I,
-                  float eps, void* stream) {
+                  const bf16* wp, const float* bp, const bf16* wo, bf16* dx, int T, int Cr,
+                  int I, float eps, void* stream) {
   using S = FfBwdShape<CT>;
   if (T == 0) return 0;
   const dim3 grid((T + S::BM - 1) / S::BM);
   E2V_LAUNCH(ff_ln_bwd_kernel<CT>, grid, S::kThreads, S::kSmem, stream, x, g, gamma, beta, wp,
-             bp, wo, dx, T, I, eps);
+             bp, wo, dx, T, Cr, I, eps);
 }
 
 }  // namespace
@@ -425,10 +427,11 @@ int launch_ff_bwd(const bf16* x, const bf16* g, const float* gamma, const float*
 
 // x, g, dx (T, C) bf16; gamma, beta (C) f32; wp (2I, C) bf16 (nn.Linear
 // layout), bp (2I) f32; wo (C, I) bf16; x, g, wp and wo 16-byte aligned.
-// C % 64 == 0, C <= 640, I % 64 == 0. Returns the CUDA launch status.
+// C % 64 == 0, C <= 640, I % 64 == 0; Cr the true width of a zero-padded
+// block, as for e2v_ff_ln. Returns the CUDA launch status.
 extern "C" int e2v_ff_ln_bwd(const void* x, const void* g, const void* gamma, const void* beta,
                              const void* wp, const void* bp, const void* wo, void* dx, int T,
-                             int C, int I, float eps, void* stream) {
+                             int C, int Cr, int I, float eps, void* stream) {
   using namespace e2v;
   const bf16* xx = static_cast<const bf16*>(x);
   const bf16* gg = static_cast<const bf16*>(g);
@@ -438,18 +441,19 @@ extern "C" int e2v_ff_ln_bwd(const void* x, const void* g, const void* gamma, co
   const float* pb = static_cast<const float*>(bp);
   const bf16* o = static_cast<const bf16*>(wo);
   bf16* y = static_cast<bf16*>(dx);
-  if (C % 64 != 0 || I % kIC != 0) return (int)cudaErrorInvalidValue;
+  if (C % 64 != 0 || I % kIC != 0 || Cr > C || Cr <= C - 64 || Cr % 2 != 0)
+    return (int)cudaErrorInvalidValue;
   switch (C / 64) {
-    case 1: return launch_ff_bwd<1>(xx, gg, ga, be, p, pb, o, y, T, I, eps, stream);
-    case 2: return launch_ff_bwd<2>(xx, gg, ga, be, p, pb, o, y, T, I, eps, stream);
-    case 3: return launch_ff_bwd<3>(xx, gg, ga, be, p, pb, o, y, T, I, eps, stream);
-    case 4: return launch_ff_bwd<4>(xx, gg, ga, be, p, pb, o, y, T, I, eps, stream);
-    case 5: return launch_ff_bwd<5>(xx, gg, ga, be, p, pb, o, y, T, I, eps, stream);
-    case 6: return launch_ff_bwd<6>(xx, gg, ga, be, p, pb, o, y, T, I, eps, stream);
-    case 7: return launch_ff_bwd<7>(xx, gg, ga, be, p, pb, o, y, T, I, eps, stream);
-    case 8: return launch_ff_bwd<8>(xx, gg, ga, be, p, pb, o, y, T, I, eps, stream);
-    case 9: return launch_ff_bwd<9>(xx, gg, ga, be, p, pb, o, y, T, I, eps, stream);
-    case 10: return launch_ff_bwd<10>(xx, gg, ga, be, p, pb, o, y, T, I, eps, stream);
+    case 1: return launch_ff_bwd<1>(xx, gg, ga, be, p, pb, o, y, T, Cr, I, eps, stream);
+    case 2: return launch_ff_bwd<2>(xx, gg, ga, be, p, pb, o, y, T, Cr, I, eps, stream);
+    case 3: return launch_ff_bwd<3>(xx, gg, ga, be, p, pb, o, y, T, Cr, I, eps, stream);
+    case 4: return launch_ff_bwd<4>(xx, gg, ga, be, p, pb, o, y, T, Cr, I, eps, stream);
+    case 5: return launch_ff_bwd<5>(xx, gg, ga, be, p, pb, o, y, T, Cr, I, eps, stream);
+    case 6: return launch_ff_bwd<6>(xx, gg, ga, be, p, pb, o, y, T, Cr, I, eps, stream);
+    case 7: return launch_ff_bwd<7>(xx, gg, ga, be, p, pb, o, y, T, Cr, I, eps, stream);
+    case 8: return launch_ff_bwd<8>(xx, gg, ga, be, p, pb, o, y, T, Cr, I, eps, stream);
+    case 9: return launch_ff_bwd<9>(xx, gg, ga, be, p, pb, o, y, T, Cr, I, eps, stream);
+    case 10: return launch_ff_bwd<10>(xx, gg, ga, be, p, pb, o, y, T, Cr, I, eps, stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -22,6 +22,10 @@
 // What bounds it on the H100: memory. Every operand is read once from HBM
 // (the second walk over q, k, dout in the backward hits L1/L2) and every
 // output written once: 4 tensors forward, 7 backward.
+// The element type is a template parameter: bf16 (e2v_temporal_attention_*)
+// and f32 (e2v_temporal_attention_*_f32, the f32 counterpart the JAX package
+// also runs: its dispatch tests no dtype, temporal.py:310). Inside, both are
+// the same f32 arithmetic; only the loads and stores differ.
 #include "common.cuh"
 
 namespace e2v {
@@ -30,9 +34,10 @@ namespace {
 constexpr int kWarps = 4;  // tokens per block
 constexpr int kThreads = kWarps * 32;
 
+template <typename T>
 struct TemporalArgs {
-  const bf16 *q, *k, *v, *dout;
-  bf16 *out, *dq, *dk, *dv;
+  const T *q, *k, *v, *dout;
+  T *out, *dq, *dk, *dv;
   long long sb, sf;  // batch and frame strides of every tensor, in elements
   int L, hd, lph, iters;  // lanes per head, elements-of-VEC per lane
   float scale;
@@ -58,6 +63,26 @@ __device__ __forceinline__ void store_vec(bf16* p, const float (&x)[VEC]) {
   }
 }
 
+template <int VEC>
+__device__ __forceinline__ void load_vec(const float* p, float (&x)[VEC]) {
+  if constexpr (VEC == 2) {
+    const float2 f = *reinterpret_cast<const float2*>(p);
+    x[0] = f.x;
+    x[1] = f.y;
+  } else {
+    x[0] = *p;
+  }
+}
+
+template <int VEC>
+__device__ __forceinline__ void store_vec(float* p, const float (&x)[VEC]) {
+  if constexpr (VEC == 2) {
+    *reinterpret_cast<float2*>(p) = make_float2(x[0], x[1]);
+  } else {
+    *p = x[0];
+  }
+}
+
 // sum over the lph lanes that share a head (lph is a power of two)
 __device__ __forceinline__ float head_sum(float v, int lph) {
   for (int o = lph >> 1; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
@@ -65,8 +90,8 @@ __device__ __forceinline__ float head_sum(float v, int lph) {
 }
 
 // dots[f][g] = sum over the head's D of a_f . b_g
-template <int F, int VEC>
-__device__ __forceinline__ void frame_dots(const bf16* a, const bf16* b, long long sf,
+template <int F, int VEC, typename T>
+__device__ __forceinline__ void frame_dots(const T* a, const T* b, long long sf,
                                            int step, int iters, int lph,
                                            float (&dots)[F][F]) {
 #pragma unroll
@@ -116,14 +141,15 @@ __device__ __forceinline__ void softmax_rows(float (&p)[F][F], float scale) {
 }
 
 // element offset of this lane's first value within a (token) row
-__device__ __forceinline__ long long lane_offset(const TemporalArgs& a, int vec) {
+template <typename T>
+__device__ __forceinline__ long long lane_offset(const TemporalArgs<T>& a, int vec) {
   const int lane = threadIdx.x & 31;
   const int head = lane / a.lph, j = lane % a.lph;
   return (long long)head * (a.hd / (32 / a.lph)) + vec * j;
 }
 
-template <int F, int VEC>
-__global__ void __launch_bounds__(kThreads) temporal_fwd_kernel(const TemporalArgs a) {
+template <int F, int VEC, typename T>
+__global__ void __launch_bounds__(kThreads) temporal_fwd_kernel(const TemporalArgs<T> a) {
   const int l = blockIdx.x * kWarps + (threadIdx.x >> 5);
   if (l >= a.L) return;
   const long long base = blockIdx.y * a.sb + (long long)l * a.hd + lane_offset(a, VEC);
@@ -149,8 +175,8 @@ __global__ void __launch_bounds__(kThreads) temporal_fwd_kernel(const TemporalAr
   }
 }
 
-template <int F, int VEC>
-__global__ void __launch_bounds__(kThreads) temporal_bwd_kernel(const TemporalArgs a) {
+template <int F, int VEC, typename T>
+__global__ void __launch_bounds__(kThreads) temporal_bwd_kernel(const TemporalArgs<T> a) {
   const int l = blockIdx.x * kWarps + (threadIdx.x >> 5);
   if (l >= a.L) return;
   const long long base = blockIdx.y * a.sb + (long long)l * a.hd + lane_offset(a, VEC);
@@ -196,32 +222,33 @@ __global__ void __launch_bounds__(kThreads) temporal_bwd_kernel(const TemporalAr
   }
 }
 
-template <int F, int VEC>
-int launch_temporal(const TemporalArgs& a, int B, bool backward, cudaStream_t stream) {
+template <int F, int VEC, typename T>
+int launch_temporal(const TemporalArgs<T>& a, int B, bool backward, cudaStream_t stream) {
   const dim3 grid((a.L + kWarps - 1) / kWarps, B);
   if (backward)
-    temporal_bwd_kernel<F, VEC><<<grid, kThreads, 0, stream>>>(a);
+    temporal_bwd_kernel<F, VEC, T><<<grid, kThreads, 0, stream>>>(a);
   else
-    temporal_fwd_kernel<F, VEC><<<grid, kThreads, 0, stream>>>(a);
+    temporal_fwd_kernel<F, VEC, T><<<grid, kThreads, 0, stream>>>(a);
   return (int)cudaGetLastError();
 }
 
-template <int VEC>
-int dispatch_frames(const TemporalArgs& a, int B, int F, bool backward, cudaStream_t s) {
+template <int VEC, typename T>
+int dispatch_frames(const TemporalArgs<T>& a, int B, int F, bool backward, cudaStream_t s) {
   switch (F) {
-    case 1: return launch_temporal<1, VEC>(a, B, backward, s);
-    case 2: return launch_temporal<2, VEC>(a, B, backward, s);
-    case 3: return launch_temporal<3, VEC>(a, B, backward, s);
-    case 4: return launch_temporal<4, VEC>(a, B, backward, s);
-    case 5: return launch_temporal<5, VEC>(a, B, backward, s);
-    case 6: return launch_temporal<6, VEC>(a, B, backward, s);
-    case 7: return launch_temporal<7, VEC>(a, B, backward, s);
-    case 8: return launch_temporal<8, VEC>(a, B, backward, s);
+    case 1: return launch_temporal<1, VEC, T>(a, B, backward, s);
+    case 2: return launch_temporal<2, VEC, T>(a, B, backward, s);
+    case 3: return launch_temporal<3, VEC, T>(a, B, backward, s);
+    case 4: return launch_temporal<4, VEC, T>(a, B, backward, s);
+    case 5: return launch_temporal<5, VEC, T>(a, B, backward, s);
+    case 6: return launch_temporal<6, VEC, T>(a, B, backward, s);
+    case 7: return launch_temporal<7, VEC, T>(a, B, backward, s);
+    case 8: return launch_temporal<8, VEC, T>(a, B, backward, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
-int temporal(TemporalArgs a, int B, int F, int L, int heads, int head_dim, bool backward,
+template <typename T>
+int temporal(TemporalArgs<T> a, int B, int F, int L, int heads, int head_dim, bool backward,
              void* stream) {
   // 32 / heads lanes share a head; each holds head_dim / (32 / heads) values
   if (heads < 1 || heads > 32 || 32 % heads != 0) return (int)cudaErrorInvalidValue;
@@ -233,10 +260,10 @@ int temporal(TemporalArgs a, int B, int F, int L, int heads, int head_dim, bool 
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (per_lane % 2 == 0) {
     a.iters = per_lane / 2;
-    return dispatch_frames<2>(a, B, F, backward, s);
+    return dispatch_frames<2, T>(a, B, F, backward, s);
   }
   a.iters = per_lane;
-  return dispatch_frames<1>(a, B, F, backward, s);
+  return dispatch_frames<1, T>(a, B, F, backward, s);
 }
 
 }  // namespace
@@ -249,7 +276,7 @@ extern "C" int e2v_temporal_attention_fwd(const void* q, const void* k, const vo
                                           long long sb, long long sf, int B, int F, int L,
                                           int heads, int head_dim, float scale, void* stream) {
   using namespace e2v;
-  TemporalArgs a = {};
+  TemporalArgs<bf16> a = {};
   a.q = static_cast<const bf16*>(q);
   a.k = static_cast<const bf16*>(k);
   a.v = static_cast<const bf16*>(v);
@@ -266,7 +293,7 @@ extern "C" int e2v_temporal_attention_bwd(const void* q, const void* k, const vo
                                           long long sb, long long sf, int B, int F, int L,
                                           int heads, int head_dim, float scale, void* stream) {
   using namespace e2v;
-  TemporalArgs a = {};
+  TemporalArgs<bf16> a = {};
   a.q = static_cast<const bf16*>(q);
   a.k = static_cast<const bf16*>(k);
   a.v = static_cast<const bf16*>(v);
@@ -274,6 +301,43 @@ extern "C" int e2v_temporal_attention_bwd(const void* q, const void* k, const vo
   a.dq = static_cast<bf16*>(dq);
   a.dk = static_cast<bf16*>(dk);
   a.dv = static_cast<bf16*>(dv);
+  a.sb = sb;
+  a.sf = sf;
+  a.scale = scale;
+  return temporal(a, B, F, L, heads, head_dim, true, stream);
+}
+
+// The f32 counterparts: the same arguments, f32 tensors.
+extern "C" int e2v_temporal_attention_fwd_f32(const void* q, const void* k, const void* v,
+                                              void* out, long long sb, long long sf, int B,
+                                              int F, int L, int heads, int head_dim,
+                                              float scale, void* stream) {
+  using namespace e2v;
+  TemporalArgs<float> a = {};
+  a.q = static_cast<const float*>(q);
+  a.k = static_cast<const float*>(k);
+  a.v = static_cast<const float*>(v);
+  a.out = static_cast<float*>(out);
+  a.sb = sb;
+  a.sf = sf;
+  a.scale = scale;
+  return temporal(a, B, F, L, heads, head_dim, false, stream);
+}
+
+extern "C" int e2v_temporal_attention_bwd_f32(const void* q, const void* k, const void* v,
+                                              const void* dout, void* dq, void* dk, void* dv,
+                                              long long sb, long long sf, int B, int F, int L,
+                                              int heads, int head_dim, float scale,
+                                              void* stream) {
+  using namespace e2v;
+  TemporalArgs<float> a = {};
+  a.q = static_cast<const float*>(q);
+  a.k = static_cast<const float*>(k);
+  a.v = static_cast<const float*>(v);
+  a.dout = static_cast<const float*>(dout);
+  a.dq = static_cast<float*>(dq);
+  a.dk = static_cast<float*>(dk);
+  a.dv = static_cast<float*>(dv);
   a.sb = sb;
   a.sf = sf;
   a.scale = scale;

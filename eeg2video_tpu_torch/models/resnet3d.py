@@ -6,7 +6,8 @@ the JAX package leaves to XLA run on cuDNN here: the NHWC activation is
 handed over as an NCHW view with channels-last strides, so no copy is made.
 At inference the level-0 GroupNorm -> SiLU -> conv chains go through the
 ``conv3x3_gn_silu`` kernel, exactly where the JAX package's ``eligible``
-routes them (with its bf16 condition dropped). With ``train=True`` every
+routes them (bf16 only: an f32 model takes the library convs, as JAX sends
+f32 to XLA's). With ``train=True`` every
 conv is the library's (resnet3d.py:227-238 there: ``use1/use2 = not train
 and ...``), one call over all B*F frames, and autograd differentiates it.
 """
@@ -184,15 +185,15 @@ class ResnetBlock3D(nn.Module):
         cout = self.out_channels
         g, eps = self.groups, self.eps
         t = self.time_emb_proj(F.silu(temb))  # (B, Cout)
-        use2 = not train and conv_eligible(hh, ww, cout, cout)
+        use2 = not train and conv_eligible(hh, ww, cout, cout, x.dtype)
         w1, b1 = self.conv1.weight, self.conv1.bias
         conv1_stats = None
         if skip is not None:
             cs = skip.shape[-1]
             (s1x, sh1x), (s1s, sh1s) = gn_affine_pair(
                 x, skip, self.norm1.weight, self.norm1.bias, g, eps)
-            if (not train and conv_eligible(hh, ww, cx, cout)
-                    and conv_eligible(hh, ww, cs, cout)):
+            if (not train and conv_eligible(hh, ww, cx, cout, x.dtype)
+                    and conv_eligible(hh, ww, cs, cout, skip.dtype)):
                 ha = conv3x3_gn_silu(x.flatten(0, 1), w1[:, :cx], b1,
                                      _per_frame(s1x, f), _per_frame(sh1x, f),
                                      _per_frame(t, f))
@@ -209,7 +210,7 @@ class ResnetBlock3D(nn.Module):
                 h = half(x, s1x, sh1x, w1[:, :cx]) + half(skip, s1s, sh1s, w1[:, cx:])
                 h = (h.float() + b1.float()).to(x.dtype).unflatten(0, (b, f))
                 h = h + t[:, None, None, None, :].to(h.dtype)
-        elif not train and conv_eligible(hh, ww, cx, cout):
+        elif not train and conv_eligible(hh, ww, cx, cout, x.dtype):
             s1, sh1 = gn_affine(x, self.norm1.weight, self.norm1.bias, g, eps)
             res = conv3x3_gn_silu(x.flatten(0, 1), w1, b1, _per_frame(s1, f),
                                   _per_frame(sh1, f), _per_frame(t, f),

@@ -49,23 +49,34 @@ SIGNATURES = {
                                 ctypes.POINTER(I), F, P],
     "e2v_temporal_attention_fwd": [P, P, P, P, LL, LL, I, I, I, I, I, F, P],
     "e2v_temporal_attention_bwd": [P, P, P, P, P, P, P, LL, LL, I, I, I, I, I, F, P],
-    "e2v_ff_ln": [P, P, P, P, P, P, P, P, I, I, I, F, P],
-    "e2v_ff_ln_bwd": [P, P, P, P, P, P, P, P, I, I, I, F, P],
+    "e2v_ff_ln": [P, P, P, P, P, P, P, P, I, I, I, I, F, P],
+    "e2v_ff_ln_bwd": [P, P, P, P, P, P, P, P, I, I, I, I, F, P],
     "e2v_ff_ln_bwd_block_rows": [I],
     "e2v_geglu_out": [P, P, P, P, I, I, I, P],
     "e2v_geglu_out_bwd": [P, P, P, P, I, I, I, P],
     "e2v_conv3x3": [P, P, P, P, P, P, P, P, I, I, I, I, I, P],
     "e2v_int8_dense": [P, P, P, P, P, P, P, I, I, I, I, I, I, P],
+    # the f32 kernels
+    "e2v_flash_f32_fwd": [ctypes.POINTER(P), ctypes.POINTER(LL), ctypes.POINTER(I), F, P],
+    "e2v_flash_f32_bwd": [ctypes.POINTER(P), ctypes.POINTER(LL), ctypes.POINTER(I), F, P],
+    "e2v_temporal_attention_fwd_f32": [P, P, P, P, LL, LL, I, I, I, I, I, F, P],
+    "e2v_temporal_attention_bwd_f32": [P, P, P, P, P, P, P, LL, LL, I, I, I, I, I, F, P],
+    "e2v_ff_f32": [P, P, P, P, P, P, P, P, I, I, I, F, P],
+    "e2v_ff_f32_bwd": [P, P, P, P, P, P, P, P, I, I, I, F, P],
+    "e2v_geglu_f32": [P, P, P, P, I, I, I, P],
+    "e2v_geglu_f32_bwd": [P, P, P, P, I, I, I, P],
 }
 
 # "flash_attention_bwd_dbias" counts those launches of flash_attention_bwd
-# that also wrote the gradient of bias0 (it is no kernel of its own)
-launches = {"flash_attention_fwd": 0, "flash_attention_bwd": 0,
-            "flash_attention_bwd_dbias": 0,
-            "fused_attention_fwd": 0, "fused_attention_bwd": 0,
-            "temporal_attention_fwd": 0, "temporal_attention_bwd": 0,
-            "ff_ln": 0, "ff_ln_bwd": 0, "geglu_out": 0, "geglu_out_bwd": 0,
-            "conv3x3_gn_silu": 0, "int8_dense": 0}
+# that also wrote the gradient of bias0 (it is no kernel of its own). The
+# "_f32" names count the f32 counterparts (csrc/*_f32.cu, the f32
+# instantiation of temporal_attention.cu), which f32 operands launch.
+BF16_KERNELS = ("flash_attention_fwd", "flash_attention_bwd", "flash_attention_bwd_dbias",
+                "fused_attention_fwd", "fused_attention_bwd",
+                "temporal_attention_fwd", "temporal_attention_bwd",
+                "ff_ln", "ff_ln_bwd", "geglu_out", "geglu_out_bwd")
+F32_KERNELS = tuple(f"{k}_f32" for k in BF16_KERNELS)
+launches = dict.fromkeys((*BF16_KERNELS, "conv3x3_gn_silu", "int8_dense", *F32_KERNELS), 0)
 
 _lib = None
 
@@ -184,18 +195,18 @@ def source_seconds(log: str):
 
 
 def _short_name(mangled: str) -> str:
-    """``e2v::[anonymous namespace]::name<args>`` of a mangled kernel name (an
-    anonymous namespace may be mangled with a per-file suffix)."""
+    """``name<args>`` of a mangled kernel name ``e2v::...::name<args>``: the
+    last of the nested names (namespaces, anonymous ones mangled with a
+    per-file suffix, then the kernel's own)."""
     if not mangled.startswith("_ZN3e2v"):
         return mangled
     pos, base = len("_ZN3e2v"), None
-    while base is None or base.startswith("_GLOBAL__N"):
-        m = re.match(r"\d+", mangled[pos:])
-        if not m:
-            return mangled
+    while (m := re.match(r"\d+", mangled[pos:])) is not None:
         ln = int(m.group(0))
         base = mangled[pos + m.end():pos + m.end() + ln]
         pos += m.end() + ln
+    if base is None:
+        return mangled
     args = re.findall(r"L[ib](\d+)E", mangled[pos:])
     return f"{base}<{','.join(args)}>" if args else base
 

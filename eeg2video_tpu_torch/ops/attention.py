@@ -10,6 +10,11 @@ are one function here, because both compute one softmax over one or two KV
 segments. Operands stay packed (., L, H*D) channels-minor, as the to_q/k/v
 projections produce them; head h is columns h*D .. (h+1)*D.
 
+Each wrapper launches the bf16 kernels on bf16 operands and their f32
+counterparts (``csrc/flash_f32*.cu``, counted under the ``_f32`` names) on
+f32 ones: the JAX package's attention dispatch has no dtype test
+(attention.py:1709, :840), so it runs its Pallas kernels at f32 too.
+
 Layouts: ``q`` is (N, Lq, H*D), or (b, m, Lq, H*D) when m query groups share
 one K0/V0 (the sparse-causal calls: m frames per batch element). ``k0``/``v0``
 are (b, Lkv0, H*D), shared by the m groups of batch element n // m.
@@ -42,6 +47,9 @@ KERNEL_BWD = "flash_attention_bwd"
 KERNEL_BWD_DBIAS = "flash_attention_bwd_dbias"  # the launches of it that write dbias0
 KERNEL_BHLD = "fused_attention_fwd"
 KERNEL_BHLD_BWD = "fused_attention_bwd"
+# The kernels take head dims up to 160 (the model's are 40, 80 and 160); the
+# JAX kernels have no such limit, and a wider head is refused by name
+MAX_HEAD_DIM = 160
 
 
 def _as4(t, m):
@@ -154,15 +162,17 @@ def _kernel_views(kernel, q, k0, v0, k1, v1, heads, extra=()):
         k14, v14 = _as4(k1, m), _as4(v1, m)
         tensors += [k14, v14]
     req = _build.require
-    req(heads * d == hd and d % 8 == 0 and d <= 160, kernel,
-        f"head_dim {d} must be a multiple of 8 and <= 160")
+    req(heads * d == hd and d % 8 == 0 and d <= MAX_HEAD_DIM, kernel,
+        f"head_dim {d} must be a multiple of 8 and <= {MAX_HEAD_DIM}")
+    bf16 = q.dtype == torch.bfloat16
     for t in tensors:
-        req(t.is_cuda and t.dtype == torch.bfloat16, kernel,
-            "operands must be bf16 CUDA tensors")
+        req(t.is_cuda and t.dtype == q.dtype and q.dtype in (torch.bfloat16, torch.float32),
+            kernel, "operands must be CUDA tensors of one dtype, bf16 or f32")
         req(t.shape[-1] == hd and t.stride(-1) == 1 and t.stride(-2) == hd,
             kernel, "rows must be H*D contiguous values")
-        req(t.shape[0] == b and t.stride(0) % 8 == 0 and t.stride(1) % 8 == 0
-            and t.data_ptr() % 16 == 0, kernel,
+        # the bf16 kernels read rows as 16-byte vectors
+        req(t.shape[0] == b and (not bf16 or (t.stride(0) % 8 == 0 and t.stride(1) % 8 == 0
+                                              and t.data_ptr() % 16 == 0)), kernel,
             "outer strides must keep 16-byte row alignment")
     for t in like_q:
         req(t.shape == q4.shape, kernel, "out and dout must have q's shape")
@@ -178,12 +188,34 @@ def _bias_rows(bias0, b, lkv0):
     return None if bias0 is None else bias0.float().reshape(b, lkv0).contiguous()
 
 
+def _packed_strides(t4, d):
+    """(sb, sg, sh, sr) of a (b, m, L, H*D) view for the f32 kernels."""
+    return [t4.stride(0), t4.stride(1), d, t4.stride(2)]
+
+
+def _shared_strides(t, d):
+    """(sb, sg, sh, sr) of a (b, L, H*D) K0 / V0 / dK0 / dV0 shared by the
+    m query groups of a batch element."""
+    return [t.stride(0), 0, d, t.stride(1)]
+
+
+def _f32_launch(entry, kernel, ptrs, strides, dims, scale, like):
+    """Call an f32 attention entry point with its pointer, stride and dim
+    arrays; count the launch."""
+    rc = getattr(_build.library(), entry)(
+        (ctypes.c_void_p * len(ptrs))(*[_build.ptr(t) for t in ptrs]),
+        (ctypes.c_longlong * len(strides))(*strides),
+        (ctypes.c_int * len(dims))(*dims), float(scale), _build.stream_of(like))
+    _build.check(rc, kernel)
+    _build.launches[kernel] += 1
+
+
 def flash_attention_fwd(q, k0, v0, heads, *, k1=None, v1=None, bias0=None,
                         scale=None, out=None, return_lse=False):
     """softmax(scale q [K0 | K1]^T + [bias0 | 0]) [V0 | V1] per head.
 
-    A CUDA tensor launches the kernel (bf16 operands); a CPU tensor takes
-    ``flash_attention_plain``. ``out`` is an optional preallocated output
+    A CUDA tensor launches the kernel (bf16 operands, or the f32 kernel on
+    f32 ones); a CPU tensor takes ``flash_attention_plain``. ``out`` is an optional preallocated output
     (a view with q's shape and row layout) that receives the result. With
     ``return_lse`` the f32 (N, H, Lq) row log-sum-exp comes back as well."""
     if not q.is_cuda:
@@ -201,6 +233,16 @@ def flash_attention_fwd(q, k0, v0, heads, *, k1=None, v1=None, bias0=None,
     bias = _bias_rows(bias0, b, k0.shape[1])
     lse = (torch.empty((b * m, heads, lq), dtype=torch.float32, device=q.device)
            if return_lse else None)
+    lkv1 = 0 if k1 is None else k1.shape[-2]
+    if q.dtype == torch.float32:
+        none = [0, 0, 0, 0]
+        strides = [*_packed_strides(q4, d), *_shared_strides(k0, d), *_shared_strides(v0, d),
+                   *(none if k1 is None else _packed_strides(k14, d)),
+                   *(none if k1 is None else _packed_strides(v14, d)),
+                   *_packed_strides(o4, d)]
+        _f32_launch("e2v_flash_f32_fwd", KERNEL + "_f32", [q4, k0, v0, k14, v14, o4, bias, lse],
+                    strides, [b * m, m, lq, k0.shape[1], lkv1, heads, d], scale, q)
+        return (out, lse) if return_lse else out
     lib = _build.library()
     if k1 is None:
         seg1 = (None, 0, 0, None, 0, 0)
@@ -211,8 +253,8 @@ def flash_attention_fwd(q, k0, v0, heads, *, k1=None, v1=None, bias0=None,
         q4.data_ptr(), q4.stride(0), q4.stride(1),
         k04.data_ptr(), k04.stride(0), v04.data_ptr(), v04.stride(0),
         *seg1, _build.ptr(bias), o4.data_ptr(), o4.stride(0), o4.stride(1),
-        b * m, m, lq, k0.shape[1], 0 if k1 is None else k1.shape[-2],
-        heads, d, float(scale), _build.ptr(lse), _build.stream_of(q))
+        b * m, m, lq, k0.shape[1], lkv1, heads, d, float(scale), _build.ptr(lse),
+        _build.stream_of(q))
     _build.check(rc, KERNEL)
     _build.launches[KERNEL] += 1
     return (out, lse) if return_lse else out
@@ -222,7 +264,7 @@ def flash_attention_bwd(q, k0, v0, heads, dout, out, lse, *, k1=None, v1=None,
                         bias0=None, scale=None, need_dbias=False):
     """(dq, dk0, dv0, dk1, dv1, dbias0) of ``flash_attention_fwd`` from its
     operands, its output, its ``lse`` and the output's gradient; dbias0 is
-    None unless ``need_dbias``. A CUDA tensor launches the kernel (bf16
+    None unless ``need_dbias``. A CUDA tensor launches the kernel (bf16 or f32
     operands, f32 lse); a CPU tensor takes ``flash_attention_bwd_plain``."""
     if need_dbias and bias0 is None:
         raise ValueError("flash_attention_bwd: need_dbias without a bias0")
@@ -255,6 +297,23 @@ def flash_attention_bwd(q, k0, v0, heads, dout, out, lse, *, k1=None, v1=None,
     if need_dbias:
         dbias_part = torch.empty((b, heads, k0.shape[1]), dtype=torch.float32, device=dev)
         dbias = torch.empty((b, k0.shape[1]), dtype=torch.float32, device=dev)
+    if q.dtype == torch.float32:
+        none = [0, 0, 0, 0]
+        seg1 = lambda t: none if t is None else _packed_strides(_as4(t, m), d)  # noqa: E731
+        tens = [(q4, _packed_strides(q4, d)), (k0, _shared_strides(k0, d)),
+                (v0, _shared_strides(v0, d)), (k14, seg1(k14)), (v14, seg1(v14)),
+                (do4, _packed_strides(do4, d)), (o4, _packed_strides(o4, d)),
+                (dq, _packed_strides(_as4(dq, m), d)), (dk0, _shared_strides(dk0, d)),
+                (dv0, _shared_strides(dv0, d)), (dk1, seg1(dk1)), (dv1, seg1(dv1))]
+        _f32_launch("e2v_flash_f32_bwd", KERNEL_BWD + "_f32",
+                    [t for t, _ in tens] + [lse, delta, bias, dbias_part, dbias],
+                    [x for _, st in tens for x in st],
+                    [n, m, lq, k0.shape[1], 0 if k1 is None else k1.shape[-2], heads, d],
+                    scale, q)
+        if need_dbias:
+            _build.launches[KERNEL_BWD_DBIAS + "_f32"] += 1
+            dbias = dbias.to(bias0.dtype).reshape(bias0.shape)
+        return dq, dk0, dv0, dk1, dv1, dbias
     ptrs = [q4, k04, v04, k14, v14, do4, o4, lse, bias, delta, dq, dk0, dv0, dk1, dv1,
             dbias_part, dbias]
     strides = [q4.stride(0), q4.stride(1), do4.stride(0), do4.stride(1),
@@ -311,7 +370,8 @@ def flash_attention(q, k0, v0, heads, *, k1=None, v1=None, bias0=None, scale=Non
 # D), no bias, default scale 1/sqrt(D). The kernels read the operands in
 # place (any batch and head strides; a row is D contiguous values) and the
 # gradients come back contiguous. The JAX dispatch sends Lq < 256 to plain
-# XLA; here every shape goes to the kernel.
+# XLA; here every shape goes to the kernel. f32 operands take the f32
+# attention kernels on head-major strides (m = 1, no bias, one segment).
 
 def fused_attention_plain(q, k, v, scale=None, return_lse=False):
     """softmax(scale q k^T) v per (b, h) in plain PyTorch: f32 math, q's
@@ -345,23 +405,30 @@ def _bhld_checks(kernel, q, k, v, extra=()):
     req(k.shape[:2] == (b, h) and k.shape[3] == d, kernel,
         "q and k/v must share batch, heads and head_dim")
     # a row is D bf16 values: 16-byte vector loads need D * 2 % 16 == 0
-    req(d % 8 == 0 and d <= 160, kernel,
-        f"head_dim {d} must be a multiple of 8 and <= 160")
+    req(d % 8 == 0 and d <= MAX_HEAD_DIM, kernel,
+        f"head_dim {d} must be a multiple of 8 and <= {MAX_HEAD_DIM}")
+    bf16 = q.dtype == torch.bfloat16
     for t in (q, k, v, *extra):
-        req(t.is_cuda and t.dtype == torch.bfloat16, kernel,
-            "operands must be bf16 CUDA tensors")
+        req(t.is_cuda and t.dtype == q.dtype and q.dtype in (torch.bfloat16, torch.float32),
+            kernel, "operands must be CUDA tensors of one dtype, bf16 or f32")
         req(t.stride(3) == 1 and t.stride(2) == d, kernel,
             "rows must be D contiguous values with row stride D")
-        req(t.stride(0) % 8 == 0 and t.stride(1) % 8 == 0 and t.data_ptr() % 16 == 0,
+        req(not bf16 or (t.stride(0) % 8 == 0 and t.stride(1) % 8 == 0
+                         and t.data_ptr() % 16 == 0),
             kernel, "batch and head strides must keep 16-byte row alignment")
     for t in extra:
         req(t.shape == q.shape, kernel, "out and dout must have q's shape")
     return b, h, lq, k.shape[2], d
 
 
+def _bhld_strides(t):
+    """(sb, sg, sh, sr) of a (B, H, L, D) operand for the f32 kernels."""
+    return [t.stride(0), 0, t.stride(1), t.stride(2)]
+
+
 def fused_attention_fwd(q, k, v, scale=None, return_lse=False):
     """softmax(scale q k^T) v over (B, H, L, D) operands, read in place. A
-    CUDA tensor launches the kernel (bf16); a CPU tensor takes
+    CUDA tensor launches the kernel (bf16 or f32); a CPU tensor takes
     ``fused_attention_plain``. With ``return_lse`` the f32 (B, H, Lq) row
     log-sum-exp comes back as well."""
     if not q.is_cuda:
@@ -372,6 +439,12 @@ def fused_attention_fwd(q, k, v, scale=None, return_lse=False):
     out = torch.empty((b, h, lq, d), dtype=q.dtype, device=q.device)
     lse = (torch.empty((b, h, lq), dtype=torch.float32, device=q.device)
            if return_lse else None)
+    if q.dtype == torch.float32:
+        none = [0, 0, 0, 0]
+        _f32_launch("e2v_flash_f32_fwd", KERNEL_BHLD + "_f32", [q, k, v, None, None, out, None, lse],
+                    [*_bhld_strides(q), *_bhld_strides(k), *_bhld_strides(v), *none, *none,
+                     *_bhld_strides(out)], [b, 1, lq, lkv, 0, h, d], scale, q)
+        return (out, lse) if return_lse else out
     rc = _build.library().e2v_fused_attention_fwd(
         q.data_ptr(), q.stride(0), q.stride(1), k.data_ptr(), k.stride(0), k.stride(1),
         v.data_ptr(), v.stride(0), v.stride(1), out.data_ptr(), out.stride(0), out.stride(1),
@@ -399,6 +472,14 @@ def fused_attention_bwd(q, k, v, dout, out, lse, scale=None):
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     dk = torch.empty(k.shape, dtype=k.dtype, device=q.device)
     dv = torch.empty(v.shape, dtype=v.dtype, device=q.device)
+    if q.dtype == torch.float32:
+        none = [0, 0, 0, 0]
+        tens = [q, k, v, None, None, dout, out, dq, dk, dv, None, None]
+        _f32_launch("e2v_flash_f32_bwd", KERNEL_BHLD_BWD + "_f32",
+                    tens + [lse, delta, None, None, None],
+                    [x for t in tens for x in (none if t is None else _bhld_strides(t))],
+                    [b, 1, lq, lkv, 0, h, d], scale, q)
+        return dq, dk, dv
     ptrs = [q, k, v, dout, out, lse, delta, dq, dk, dv]
     strides = [s for t in (q, k, v, dout, out) for s in (t.stride(0), t.stride(1))]
     dims = [b, h, lq, lkv, d]

@@ -57,11 +57,13 @@ def weight_slabs(w):
             .permute(0, 3, 6, 7, 1, 4, 2, 5).contiguous())
 
 
-def eligible(h, w, cin, cout):
-    """The convs the JAX package sends to its kernel (conv2d.py:124), with
-    the bf16 requirement dropped: level-0 generation shapes."""
-    return ((h * w) % 128 == 0 and cout % 128 != 0 and cout % 8 == 0
-            and cin % 8 == 0 and h >= 3 and w >= 3
+def eligible(h, w, cin, cout, dtype):
+    """The convs the JAX package sends to its kernel (conv2d.py:124-135):
+    bf16 compute at the level-0 generation shapes. Every other conv,
+    f32 ones included, takes the library convolution, as JAX sends it to
+    XLA's."""
+    return (dtype == torch.bfloat16 and (h * w) % 128 == 0 and cout % 128 != 0
+            and cout % 8 == 0 and cin % 8 == 0 and h >= 3 and w >= 3
             and (h * w) * 3 * cin * 2 <= 9 * 1024 * 1024)
 
 

@@ -1,6 +1,9 @@
 """GEGLU feed-forward: ``ff_ln`` and ``geglu_out`` (CUDA kernels), their
 backwards ``ff_ln_bwd`` and ``geglu_out_bwd`` (CUDA kernels), the plain
 PyTorch version of each, and the differentiable ``feed_forward`` router.
+Each wrapper launches the bf16 kernel on bf16 operands and its f32
+counterpart (``csrc/ff_f32.cu``, ``csrc/geglu_f32.cu``) on f32 ones, as the
+JAX package runs its Pallas kernels at either dtype.
 
 Counterpart of ``eeg2video_tpu/ops/geglu.py``. Weights are in nn.Linear
 layout: ``wp`` (2I, C) and ``wo`` (C, I). Rounding follows the Pallas
@@ -24,6 +27,7 @@ import torch.nn.functional as F
 from . import _build
 
 FF_MAX_C = 640  # C <= 640 runs the whole block in ff_ln (geglu.py:407)
+FF_GRID = 64    # csrc/ff_ln.cu: C is a multiple of 64; narrower blocks come zero-padded
 # csrc/geglu_out.cu: a row block of GEGLU_ROWS rows is a cluster of blocks
 # along C that share its gate and h2; I is walked in GEGLU_CHUNK-column chunks
 GEGLU_ROWS, GEGLU_CHUNK = 64, 64
@@ -117,65 +121,103 @@ def _param_grads(plain, inputs, params, needs, g):
     return [next(grads) if n else None for n in needs]
 
 
-def ff_ln(x, gamma, beta, wp, bp, wo, bo, eps=1e-5):
-    """Whole pre-LN GEGLU FF block with residual. x (..., C). A CUDA tensor
-    launches the kernel (bf16 x/wp/wo; C % 64 == 0, C <= 640); a CPU tensor
-    takes ``ff_ln_plain``."""
-    if not x.is_cuda:
-        return ff_ln_plain(x, gamma, beta, wp, bp, wo, bo, eps)
-    kernel = "ff_ln"
+def _kernel_dtype(kernel, *tensors):
+    """bf16 or f32: the dtype the operands share, which picks the kernel."""
+    dtype = tensors[0].dtype
+    _build.require(dtype in (torch.bfloat16, torch.float32)
+                   and all(t.is_cuda and t.dtype == dtype for t in tensors), kernel,
+                   "operands must be CUDA tensors of one dtype, bf16 or f32")
+    return dtype
+
+
+def _pad_last(t, width):
+    """t zero-padded along its last dim to ``width``."""
+    return t if t.shape[-1] == width else F.pad(t, (0, width - t.shape[-1]))
+
+
+def _ff_operands(kernel, x, gamma, beta, wp, bp, wo, extra=()):
+    """The shape checks of ff_ln / ff_ln_bwd and their (T, C) views."""
     c = x.shape[-1]
     inner = wo.shape[1]
     req = _build.require
-    req(c % 64 == 0 and c <= FF_MAX_C and inner % 64 == 0, kernel,
-        f"C={c} must be a multiple of 64 and <= {FF_MAX_C}, I={inner} of 64")
-    req(wp.shape == (2 * inner, c) and wo.shape == (c, inner), kernel,
-        "wp must be (2I, C) and wo (C, I)")
-    for t in (x, wp, wo):
-        req(t.is_cuda and t.dtype == torch.bfloat16, kernel,
-            "x, wp and wo must be bf16 CUDA tensors")
-    xc = _aligned16(x.reshape(-1, c).contiguous())
-    wp, wo = _aligned16(wp.contiguous()), _aligned16(wo.contiguous())
-    vecs = [_aligned16(_f32(v)) for v in (gamma, beta, bp, bo)]
-    out = torch.empty_like(xc)
-    rc = _build.library().e2v_ff_ln(
-        xc.data_ptr(), vecs[0].data_ptr(), vecs[1].data_ptr(), wp.data_ptr(),
-        vecs[2].data_ptr(), wo.data_ptr(), vecs[3].data_ptr(), out.data_ptr(),
-        xc.shape[0], c, inner, float(eps), _build.stream_of(x))
+    req(c % 8 == 0 and c <= FF_MAX_C and inner % 64 == 0, kernel,
+        f"C={c} must be a multiple of 8 and <= {FF_MAX_C}, I={inner} of 64")
+    req(wp.shape == (2 * inner, c) and wo.shape == (c, inner)
+        and all(t.shape == x.shape for t in extra), kernel,
+        "wp must be (2I, C), wo (C, I) and g shaped as x")
+    return c, inner, [t.reshape(-1, c).contiguous() for t in (x, *extra)]
+
+
+def _ff_bf16(kernel, x, gamma, beta, wp, bp, wo, bo, extra, eps):
+    """Launch ``e2v_ff_ln`` / ``e2v_ff_ln_bwd``: C is padded with zeros to
+    the kernel's 64-column grid (x, g, gamma, beta, bo, the columns of wp and
+    the rows of wo) and the true C passed, so that LayerNorm uses the real
+    columns only; the padded output columns are never stored."""
+    c, inner, rows = _ff_operands(kernel, x, gamma, beta, wp, bp, wo, extra)
+    cp = -(-c // FF_GRID) * FF_GRID
+    rows = [_aligned16(_pad_last(t, cp)) for t in rows]
+    wp = _aligned16(_pad_last(wp, cp).contiguous())
+    wo = _aligned16(F.pad(wo, (0, 0, 0, cp - c)).contiguous() if cp != c else wo.contiguous())
+    vecs = [None if v is None else _aligned16(_pad_last(_f32(v), cp)) for v in (gamma, beta, bo)]
+    out = torch.empty_like(rows[0])
+    lib, ptr = _build.library(), _build.ptr
+    if kernel == "ff_ln":
+        rc = lib.e2v_ff_ln(rows[0].data_ptr(), ptr(vecs[0]), ptr(vecs[1]), wp.data_ptr(),
+                           ptr(_aligned16(_f32(bp))), wo.data_ptr(), ptr(vecs[2]),
+                           out.data_ptr(), rows[0].shape[0], cp, c, inner, float(eps),
+                           _build.stream_of(x))
+    else:
+        rc = lib.e2v_ff_ln_bwd(rows[0].data_ptr(), rows[1].data_ptr(), ptr(vecs[0]),
+                               ptr(vecs[1]), wp.data_ptr(), ptr(_aligned16(_f32(bp))),
+                               wo.data_ptr(), out.data_ptr(), rows[0].shape[0], cp, c, inner,
+                               float(eps), _build.stream_of(x))
+    _build.check(rc, kernel)
+    _build.launches[kernel] += 1
+    return (out if cp == c else out[:, :c]).reshape(x.shape)
+
+
+def _ff_f32(kernel, x, gamma, beta, wp, bp, wo, bo, extra, eps):
+    """Launch ``e2v_ff_f32`` / ``e2v_ff_f32_bwd`` (any C % 8 == 0 <= 640)."""
+    c, inner, rows = _ff_operands(kernel, x, gamma, beta, wp, bp, wo, extra)
+    wp, wo = wp.contiguous(), wo.contiguous()
+    gamma, beta, bp, bo = (None if v is None else _f32(v) for v in (gamma, beta, bp, bo))
+    out = torch.empty_like(rows[0])
+    lib, ptr = _build.library(), _build.ptr
+    if kernel == "ff_ln_f32":
+        rc = lib.e2v_ff_f32(ptr(rows[0]), ptr(gamma), ptr(beta), ptr(wp), ptr(bp), ptr(wo),
+                            ptr(bo), ptr(out), rows[0].shape[0], c, inner, float(eps),
+                            _build.stream_of(x))
+    else:
+        rc = lib.e2v_ff_f32_bwd(ptr(rows[0]), ptr(rows[1]), ptr(gamma), ptr(beta), ptr(wp),
+                                ptr(bp), ptr(wo), ptr(out), rows[0].shape[0], c, inner,
+                                float(eps), _build.stream_of(x))
     _build.check(rc, kernel)
     _build.launches[kernel] += 1
     return out.reshape(x.shape)
 
 
+def ff_ln(x, gamma, beta, wp, bp, wo, bo, eps=1e-5):
+    """Whole pre-LN GEGLU FF block with residual. x (..., C). A CUDA tensor
+    launches the kernel (C % 8 == 0, C <= 640, I % 64 == 0): bf16 x/wp/wo
+    ``ff_ln`` (C padded to its 64-column grid), f32 ones ``ff_ln_f32``; a CPU
+    tensor takes ``ff_ln_plain``."""
+    if not x.is_cuda:
+        return ff_ln_plain(x, gamma, beta, wp, bp, wo, bo, eps)
+    if _kernel_dtype("ff_ln", x, wp, wo) == torch.float32:
+        return _ff_f32("ff_ln_f32", x, gamma, beta, wp, bp, wo, bo, (), eps)
+    return _ff_bf16("ff_ln", x, gamma, beta, wp, bp, wo, bo, (), eps)
+
+
 def ff_ln_bwd(x, g, gamma, beta, wp, bp, wo, eps=1e-5):
     """dx of ``ff_ln`` from its input x and the output's gradient g. A CUDA
-    tensor launches the kernel (same shape rules as ``ff_ln``); a CPU tensor
-    takes ``ff_ln_bwd_plain``."""
+    tensor launches the kernel (same shape rules as ``ff_ln``; bf16
+    ``ff_ln_bwd``, f32 ``ff_ln_bwd_f32``); a CPU tensor takes
+    ``ff_ln_bwd_plain``."""
     if not x.is_cuda:
         return ff_ln_bwd_plain(x, g, gamma, beta, wp, bp, wo, eps)
-    kernel = "ff_ln_bwd"
-    c = x.shape[-1]
-    inner = wo.shape[1]
-    req = _build.require
-    req(c % 64 == 0 and c <= FF_MAX_C and inner % 64 == 0, kernel,
-        f"C={c} must be a multiple of 64 and <= {FF_MAX_C}, I={inner} of 64")
-    req(wp.shape == (2 * inner, c) and wo.shape == (c, inner) and g.shape == x.shape,
-        kernel, "wp must be (2I, C), wo (C, I) and g shaped as x")
-    for t in (x, g, wp, wo):
-        req(t.is_cuda and t.dtype == torch.bfloat16, kernel,
-            "x, g, wp and wo must be bf16 CUDA tensors")
-    xc = _aligned16(x.reshape(-1, c).contiguous())
-    gc = _aligned16(g.reshape(-1, c).contiguous())
-    wp, wo = _aligned16(wp.contiguous()), _aligned16(wo.contiguous())
-    vecs = [_aligned16(_f32(v)) for v in (gamma, beta, bp)]
-    dx = torch.empty_like(xc)
-    rc = _build.library().e2v_ff_ln_bwd(
-        xc.data_ptr(), gc.data_ptr(), vecs[0].data_ptr(), vecs[1].data_ptr(),
-        wp.data_ptr(), vecs[2].data_ptr(), wo.data_ptr(), dx.data_ptr(),
-        xc.shape[0], c, inner, float(eps), _build.stream_of(x))
-    _build.check(rc, kernel)
-    _build.launches[kernel] += 1
-    return dx.reshape(x.shape)
+    if _kernel_dtype("ff_ln_bwd", x, g, wp, wo) == torch.float32:
+        return _ff_f32("ff_ln_bwd_f32", x, gamma, beta, wp, bp, wo, None, (g,), eps)
+    return _ff_bf16("ff_ln_bwd", x, gamma, beta, wp, bp, wo, None, (g,), eps)
 
 
 def geglu_out_l2_read_bytes(t, inner, c):
@@ -188,10 +230,33 @@ def geglu_out_l2_read_bytes(t, inner, c):
     return -(-t // GEGLU_ROWS) * c * (inner * 2 + 4) + t * 2 * inner * 2
 
 
+def _geglu_f32(kernel, h2, w, extra):
+    """Launch ``e2v_geglu_f32`` (extra: b) or ``e2v_geglu_f32_bwd`` (extra: g)."""
+    c, inner = w.shape
+    h2c = h2.reshape(-1, 2 * inner).contiguous()
+    w = w.contiguous()
+    lib = _build.library()
+    if kernel == "geglu_out_f32":
+        out = torch.empty((h2c.shape[0], c), dtype=h2.dtype, device=h2.device)
+        rc = lib.e2v_geglu_f32(h2c.data_ptr(), w.data_ptr(), _f32(extra).data_ptr(),
+                               out.data_ptr(), h2c.shape[0], inner, c, _build.stream_of(h2))
+        shape = (*h2.shape[:-1], c)
+    else:
+        gc = extra.reshape(-1, c).contiguous()
+        out = torch.empty_like(h2c)
+        rc = lib.e2v_geglu_f32_bwd(h2c.data_ptr(), gc.data_ptr(), w.data_ptr(), out.data_ptr(),
+                                   h2c.shape[0], inner, c, _build.stream_of(h2))
+        shape = h2.shape
+    _build.check(rc, kernel)
+    _build.launches[kernel] += 1
+    return out.reshape(shape)
+
+
 def geglu_out(h2, w, b):
     """(h * gelu(g)) w^T + b with the gate fused into the GEMM. h2 (..., 2I),
-    w (C, I), b (C). A CUDA tensor launches the kernel (bf16 h2/w,
-    I % 64 == 0, C % 8 == 0); a CPU tensor takes ``geglu_out_plain``."""
+    w (C, I), b (C). A CUDA tensor launches the kernel (I % 64 == 0,
+    C % 8 == 0): bf16 h2/w ``geglu_out``, f32 ones ``geglu_out_f32``; a CPU
+    tensor takes ``geglu_out_plain``."""
     if not h2.is_cuda:
         return geglu_out_plain(h2, w, b)
     kernel = "geglu_out"
@@ -200,9 +265,8 @@ def geglu_out(h2, w, b):
     req(h2.shape[-1] == 2 * inner and inner % GEGLU_CHUNK == 0 and inner > 0, kernel,
         f"h2 must be (..., 2I) with I={inner} a multiple of {GEGLU_CHUNK}")
     req(c % 8 == 0 and c > 0, kernel, f"C={c} must be a multiple of 8")
-    for t in (h2, w):
-        req(t.is_cuda and t.dtype == torch.bfloat16, kernel,
-            "h2 and w must be bf16 CUDA tensors")
+    if _kernel_dtype(kernel, h2, w) == torch.float32:
+        return _geglu_f32("geglu_out_f32", h2, w, b)
     h2c = _aligned16(h2.reshape(-1, 2 * inner).contiguous())
     w = _aligned16(w.contiguous())
     bf = _f32(b)
@@ -217,8 +281,9 @@ def geglu_out(h2, w, b):
 
 def geglu_out_bwd(h2, g, w):
     """dh2 of ``geglu_out`` from its input h2 and the output's gradient g
-    (..., C). A CUDA tensor launches the kernel (bf16, C % 32 == 0,
-    I % 8 == 0); a CPU tensor takes ``geglu_out_bwd_plain``."""
+    (..., C). A CUDA tensor launches the kernel (C % 32 == 0, I % 8 == 0):
+    bf16 ``geglu_out_bwd``, f32 ``geglu_out_bwd_f32``; a CPU tensor takes
+    ``geglu_out_bwd_plain``."""
     if not h2.is_cuda:
         return geglu_out_bwd_plain(h2, g, w)
     kernel = "geglu_out_bwd"
@@ -227,9 +292,8 @@ def geglu_out_bwd(h2, g, w):
     req(h2.shape[-1] == 2 * inner and inner % 8 == 0 and c % 32 == 0, kernel,
         f"h2 must be (..., 2I) with I={inner} a multiple of 8 and C={c} of 32")
     req(g.shape == (*h2.shape[:-1], c), kernel, "g must be (..., C)")
-    for t in (h2, g, w):
-        req(t.is_cuda and t.dtype == torch.bfloat16, kernel,
-            "h2, g and w must be bf16 CUDA tensors")
+    if _kernel_dtype(kernel, h2, g, w) == torch.float32:
+        return _geglu_f32("geglu_out_bwd_f32", h2, w, g)
     h2c, gc = h2.reshape(-1, 2 * inner).contiguous(), g.reshape(-1, c).contiguous()
     w = w.contiguous()
     dh2 = torch.empty_like(h2c)
@@ -291,15 +355,66 @@ def geglu_out_function(h2, w, b):
     return _GegluOut.apply(h2, w, b)
 
 
+# --- routing: the JAX package's dispatch predicates, one function each ---------
+# Its T < 256 tests (geglu.py:407, :434) are TPU speed rules, like
+# _FLASH_MIN_LQ: here short row counts take the kernels too.
+
+def ff_route(c, inner):
+    """The branch JAX's ``fused_ff_ln`` takes (geglu.py:407-419) for width C
+    and inner width I: "ff_ln" (the whole block in one kernel), "ln_geglu"
+    (C > 640: LayerNorm and the projection as torch ops, then ``geglu``) or
+    "ref" (off the grid: ``ff_ref``)."""
+    if c % 8 or inner % 128:
+        return "ref"
+    return "ln_geglu" if c > FF_MAX_C else "ff_ln"
+
+
+def geglu_route(inner, c):
+    """The branch JAX's ``fused_geglu_out`` takes (geglu.py:434): "geglu_out"
+    or "ref" (``geglu_ref``)."""
+    return "ref" if inner % 128 or c % 128 else "geglu_out"
+
+
+def ff_ref(x, gamma, beta, wp, bp, wo, bo, eps=1e-5):
+    """Counterpart of JAX ``_ff_ref`` (geglu.py:197-210) in torch ops, with its
+    rounding: the normalised x, the projection and the FF output rounded to
+    x.dtype, the gated product to wo.dtype."""
+    xn = _layer_norm_f32(x, eps).to(x.dtype) * gamma + beta
+    h2 = F.linear(xn, wp) + bp
+    inner = wo.shape[1]
+    gated = (h2[..., :inner] * F.gelu(h2[..., inner:])).to(wo.dtype)
+    return x + (F.linear(gated, wo) + bo)
+
+
+def geglu_ref(h2, w, b):
+    """Counterpart of JAX ``_geglu_ref`` (geglu.py:36) in torch ops: the gated
+    product rounded to w.dtype, the GEMM to h2.dtype, then + b."""
+    inner = w.shape[1]
+    gated = (h2[..., :inner] * F.gelu(h2[..., inner:])).to(w.dtype)
+    return F.linear(gated, w).to(h2.dtype) + b.to(h2.dtype)
+
+
+def geglu(h2, w, b):
+    """(h * gelu(g)) w^T + b, routed as ``fused_geglu_out``: the kernel
+    (behind its ``autograd.Function`` where an operand asks for a gradient)
+    or ``geglu_ref``."""
+    if geglu_route(w.shape[1], w.shape[0]) == "ref":
+        return geglu_ref(h2, w, b)
+    return (geglu_out_function if _wants_grad(h2, w, b) else geglu_out)(h2, w, b)
+
+
 def feed_forward(x, gamma, beta, wp, bp, wo, bo, eps=1e-5):
-    """x + FF(LN(x)), routed as the JAX package routes it (geglu.py:407-419):
-    C <= 640 through ``ff_ln``; wider C with LN and the projection as torch
-    ops (rounded as at geglu.py:411-417) and the gate + out GEMM through
-    ``geglu_out``. Where an operand asks for a gradient the kernels run
-    behind their ``autograd.Function``s, with the backward kernels."""
-    grad = _wants_grad(x, gamma, beta, wp, bp, wo, bo)
-    if x.shape[-1] <= FF_MAX_C:
+    """x + FF(LN(x)), routed by ``ff_route`` as the JAX package routes it:
+    ``ff_ln``; LayerNorm and the projection as torch ops (rounded as at
+    geglu.py:411-417) and the gate + out GEMM through ``geglu``; or
+    ``ff_ref``. Where an operand asks for a gradient the kernels run behind
+    their ``autograd.Function``s, with the backward kernels."""
+    route = ff_route(x.shape[-1], wo.shape[1])
+    if route == "ref":
+        return ff_ref(x, gamma, beta, wp, bp, wo, bo, eps)
+    if route == "ff_ln":
+        grad = _wants_grad(x, gamma, beta, wp, bp, wo, bo)
         return (ff_ln_function if grad else ff_ln)(x, gamma, beta, wp, bp, wo, bo, eps)
     xn = _layer_norm_f32(x, eps).to(x.dtype) * gamma + beta
     h2 = F.linear(xn, wp) + bp  # f32-accumulated GEMM, rounded to x.dtype
-    return x + (geglu_out_function if grad else geglu_out)(h2, wo, bo)
+    return x + geglu(h2, wo, bo)

@@ -7,6 +7,10 @@ Counterpart of ``eeg2video_tpu/ops/temporal.py``. q, k, v are packed
 at each token and head, F x F attention over the frames. Nothing is
 rearranged to (B*L, F, C).
 
+bf16 operands launch the bf16 instantiation of ``csrc/temporal_attention.cu``,
+f32 ones its f32 instantiation (counted as ``temporal_attention_*_f32``): the
+JAX dispatch tests no dtype (temporal.py:310).
+
 Rounding: the kernels and the plain versions accumulate in f32 and round only
 their outputs; the TPU kernel rounds q*k*scale and the probabilities to the
 input dtype before its GEMMs, which the comparison tolerances allow for.
@@ -60,7 +64,8 @@ def temporal_attention_bwd_plain(q, k, v, dout, heads, scale=None):
 
 
 def _checked(kernel, tensors, heads):
-    """Contiguous bf16 (B, F, L, H*D) operands and the kernel's head rules."""
+    """Contiguous (B, F, L, H*D) operands of one dtype, bf16 or f32, and the
+    kernel's head rules; the kernel's counter name (``_f32`` for f32)."""
     b, f, l, hd = tensors[0].shape
     d = hd // heads
     req = _build.require
@@ -68,28 +73,31 @@ def _checked(kernel, tensors, heads):
         f"heads={heads} must divide 32 and head_dim={d} be a multiple of 32/heads")
     req(1 <= f <= MAX_FRAMES, kernel, f"frames={f} must be in [1, {MAX_FRAMES}]")
     out = []
+    dtype = tensors[0].dtype
     for t in tensors:
-        req(t.is_cuda and t.dtype == torch.bfloat16 and t.shape == (b, f, l, hd), kernel,
-            "operands must be bf16 CUDA tensors of one (B, F, L, H*D) shape")
+        req(t.is_cuda and t.dtype == dtype and dtype in (torch.bfloat16, torch.float32)
+            and t.shape == (b, f, l, hd), kernel,
+            "operands must be CUDA tensors of one dtype (bf16 or f32) and one "
+            "(B, F, L, H*D) shape")
         out.append(t.contiguous())
-    return out, (b, f, l, d)
+    return out, (b, f, l, d), kernel + ("_f32" if dtype == torch.float32 else "")
 
 
 def temporal_attention_fwd(q, k, v, heads, scale=None):
     """out[b, f, l, h] = sum_g softmax_g(scale q_f . k_g) v_g over the frames.
-    A CUDA tensor launches the kernel (bf16); a CPU tensor takes
+    A CUDA tensor launches the kernel (bf16 or f32); a CPU tensor takes
     ``temporal_attention_plain``."""
     if not q.is_cuda:
         return temporal_attention_plain(q, k, v, heads, scale)
-    (q, k, v), (b, f, l, d) = _checked(KERNEL_FWD, (q, k, v), heads)
+    (q, k, v), (b, f, l, d), kernel = _checked(KERNEL_FWD, (q, k, v), heads)
     if scale is None:
         scale = 1.0 / math.sqrt(d)
     out = torch.empty_like(q)
-    rc = _build.library().e2v_temporal_attention_fwd(
+    rc = getattr(_build.library(), f"e2v_{kernel}")(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), q.stride(0), q.stride(1),
         b, f, l, heads, d, float(scale), _build.stream_of(q))
-    _build.check(rc, KERNEL_FWD)
-    _build.launches[KERNEL_FWD] += 1
+    _build.check(rc, kernel)
+    _build.launches[kernel] += 1
     return out
 
 
@@ -99,16 +107,16 @@ def temporal_attention_bwd(q, k, v, dout, heads, scale=None):
     launches the kernel; a CPU tensor takes ``temporal_attention_bwd_plain``."""
     if not q.is_cuda:
         return temporal_attention_bwd_plain(q, k, v, dout, heads, scale)
-    (q, k, v, dout), (b, f, l, d) = _checked(KERNEL_BWD, (q, k, v, dout), heads)
+    (q, k, v, dout), (b, f, l, d), kernel = _checked(KERNEL_BWD, (q, k, v, dout), heads)
     if scale is None:
         scale = 1.0 / math.sqrt(d)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(q), torch.empty_like(q)
-    rc = _build.library().e2v_temporal_attention_bwd(
+    rc = getattr(_build.library(), f"e2v_{kernel}")(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), dq.data_ptr(),
         dk.data_ptr(), dv.data_ptr(), q.stride(0), q.stride(1), b, f, l, heads, d,
         float(scale), _build.stream_of(q))
-    _build.check(rc, KERNEL_BWD)
-    _build.launches[KERNEL_BWD] += 1
+    _build.check(rc, kernel)
+    _build.launches[kernel] += 1
     return dq, dk, dv
 
 

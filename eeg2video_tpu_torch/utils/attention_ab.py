@@ -14,8 +14,9 @@ tree: the tree, the card's name and power limit, and ms per case. Given in the
 order parent, change, change, parent, the trees compare two versions in one
 call on one card. The cases are the attention forward and backward calls of
 the generation and train paths at full width (batch 2 and 10), with and
-without the gradient of a mask's bias, and ``fused_attention`` at the train
-scale; the inputs are random from a seed. ``--cases ff_ln`` times ``ff_ln``
+without the gradient of a mask's bias, ``fused_attention`` and the temporal
+pair at the train scale; the inputs are random from a seed, and the line also
+gives a digest of each case's output bits (``digest``). ``--cases ff_ln`` times ``ff_ln``
 instead, at the generation and train shapes of levels 0 and 1 (T = 27648 /
 6912 and 138240 / 34560 at C = 320 / 640), and beside each case, as
 ``composed_ms``, the cuBLAS composition layer_norm -> F.linear -> h gelu(g) ->
@@ -54,7 +55,7 @@ import subprocess
 import sys
 
 
-def _cases(torch, attention):
+def _cases(torch, attention, temporal=None):
     g = torch.Generator(device="cuda").manual_seed(0)
 
     def r(*shape):
@@ -102,6 +103,12 @@ def _cases(torch, attention):
         q, k, v, return_lse=True)
     cases["bwd fused (10,8,2304,40)x4608"] = lambda: attention.fused_attention_bwd(
         q, k, v, dout, out, lse)
+    if temporal is not None:  # the frame-axis pair at the train step's level-0 shape
+        tq, tk, tv, tdo = (r(10, 6, 2304, 320) for _ in range(4))
+        cases["temporal fwd (10,6,2304,320)"] = lambda: temporal.temporal_attention_fwd(
+            tq, tk, tv, heads)
+        cases["temporal bwd (10,6,2304,320)"] = lambda: temporal.temporal_attention_bwd(
+            tq, tk, tv, tdo, heads)
     return cases
 
 
@@ -283,7 +290,7 @@ def _time(torch, fn, reps=10):
 def _one(tree, which="attention"):
     import torch
 
-    from eeg2video_tpu_torch.ops import _build, attention, conv2d, geglu
+    from eeg2video_tpu_torch.ops import _build, attention, conv2d, geglu, temporal
 
     if not torch.cuda.is_available():
         sys.exit("attention_ab: no GPU")
@@ -321,7 +328,10 @@ def _one(tree, which="attention"):
         every = {**cases, **make(torch, geglu, _FF_EDGES)}
         line["digest"] = {label: _digest(torch, fn()) for label, (fn, _) in every.items()}
     else:
-        line["ms"] = {label: _time(torch, fn) for label, fn in _cases(torch, attention).items()}
+        cases = _cases(torch, attention, temporal)
+        line["ms"] = {label: _time(torch, fn) for label, fn in cases.items()}
+        line["digest"] = {label: _digest(torch, *(t for t in _as_tuple(fn()) if t is not None))
+                          for label, fn in cases.items()}
     print(json.dumps(line), flush=True)
 
 

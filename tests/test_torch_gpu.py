@@ -12,15 +12,23 @@ counts that do not fill a tile. chip_smoke.py checks the main paths' own shapes.
 Bound: max |kernel - plain| / max |plain| < 1e-2, the plain version in f32
 on the same bf16 inputs (bf16 rounding of the output and of the in-kernel
 bf16 intermediates). The backward kernels are held to the same bound, each
-gradient against the plain backward's on the same residuals.
+gradient against the plain backward's on the same residuals. The f32
+kernels (f32 operands) compute in f32 throughout: they are held to 1e-4 of
+the output's max (summation order only) and must give the same bits twice.
 """
 
+import dataclasses
+import io
+import json
+
+import numpy as np
 import pytest
 import torch
 
-from eeg2video_tpu_torch.ops import attention, conv2d, geglu, int8_dense, temporal
+from eeg2video_tpu_torch.ops import _build, attention, conv2d, geglu, int8_dense, temporal
 
 BOUND = 1e-2
+F32_BOUND = 1e-4  # the f32 kernels: f32 throughout, summation order only
 
 
 @pytest.fixture
@@ -187,7 +195,8 @@ def test_fused_attention_matches_plain(gen, b, h, lq, lkv, d):
 def test_fused_attention_function_reads_strided_heads_in_place(gen):
     """The differentiable call on head slices of a wider (B, 2H, L, D) tensor (batch and
     head strides that are not the contiguous ones) and a custom scale, against autograd
-    through the plain version; what the kernel does not take raises."""
+    through the plain version, in bf16 and (the f32 kernels) f32; what the kernels do not
+    take raises."""
     b, h, lq, lkv, d = 2, 3, 100, 90, 40
     wide_q, wide_k, wide_v = (_rand(gen, b, 2 * h, l, d).requires_grad_() for l in (lq, lkv, lkv))
     ref = [t.detach().float().requires_grad_() for t in (wide_q, wide_k, wide_v)]
@@ -199,11 +208,17 @@ def test_fused_attention_function_reads_strided_heads_in_place(gen):
     assert _err(out, want) < BOUND
     for g, w in zip(got, wanted):
         assert _err(g, w) < BOUND
+    wide32 = [t.detach().float().requires_grad_() for t in (wide_q, wide_k, wide_v)]
+    out32 = attention.fused_attention(wide32[0][:, ::2], wide32[1][:, h:], wide32[2][:, :h],
+                                      scale=0.2)
+    assert _err(out32, want) < F32_BOUND
+    for g, w in zip(torch.autograd.grad(out32, wide32, dout.float()), wanted):
+        assert _err(g, w) < F32_BOUND
     q = wide_q.detach()
     with pytest.raises(ValueError, match="row stride"):
         attention.fused_attention(q.transpose(1, 2), q.transpose(1, 2), q.transpose(1, 2))
-    with pytest.raises(ValueError, match="bf16"):
-        attention.fused_attention(q.float(), q.float(), q.float())
+    with pytest.raises(ValueError, match="bf16 or f32"):
+        attention.fused_attention(q.double(), q.double(), q.double())
     with pytest.raises(ValueError, match="multiple of 8"):
         attention.fused_attention(q[..., :4].contiguous(), q[..., :4].contiguous(),
                                   q[..., :4].contiguous())
@@ -529,3 +544,232 @@ def test_int8_dense_rejects_what_the_kernel_does_not_take(gen):
         int8_dense.int8_dense(_rand(gen, 4, 65, dtype=torch.float32), w_q, scale, bias, 256)
     with pytest.raises(ValueError, match="device"):
         int8_dense.int8_dense(x, w_q, scale.cpu(), bias, 256)
+
+
+# --- the f32 counterparts (f32 operands) --------------------------------------
+
+
+def _r32(gen, *shape, scale=1.0):
+    return _rand(gen, *shape, scale=scale, dtype=torch.float32)
+
+
+def _twice(fn):
+    """fn's result, after checking that a second run gives the same bits."""
+    first, again = fn(), fn()
+    pairs = zip(*(r if isinstance(r, (tuple, list)) else [r] for r in (first, again)))
+    assert all(a is None and b is None or torch.equal(a, b) for a, b in pairs)
+    return first
+
+
+def _launched(before):
+    return {k: n - before[k] for k, n in _build.launches.items() if n != before[k]}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,m,lq,lkv0,lkv1,hd,heads,bias", [
+    (2, 1, 40, 77, 0, 64, 8, True),       # D = 8: Lq 40 against Lkv 77, bias
+    (2, 2, 77, 40, 40, 320, 8, True),     # D = 40: two segments, dk0 over m = 2
+    (1, 1, 300, 450, 0, 640, 8, False),   # D = 80: 300 x 450
+    (2, 3, 77, 77, 40, 1280, 8, True),    # D = 160: two segments, m = 3, bias
+    (1, 1, 1, 3, 0, 64, 8, True),         # one query row against three keys
+    (1, 2, 1030, 1030, 70, 320, 8, True),  # 17 tiles, the last of 6 rows
+])
+def test_flash_attention_f32_matches_plain(gen, n, m, lq, lkv0, lkv1, hd, heads, bias):
+    q = _r32(gen, n, m, lq, hd) if m > 1 else _r32(gen, n, lq, hd)
+    k0, v0 = _r32(gen, n, lkv0, hd), _r32(gen, n, lkv0, hd)
+    k1 = _r32(gen, n, m, lkv1, hd) if lkv1 else None
+    v1 = _r32(gen, n, m, lkv1, hd) if lkv1 else None
+    b0 = _r32(gen, n, 1, lkv0, scale=2.0) if bias else None
+    seg = dict(k1=k1, v1=v1, bias0=b0)
+    before = dict(_build.launches)
+    out, lse = _twice(lambda: attention.flash_attention_fwd(q, k0, v0, heads, **seg,
+                                                            return_lse=True))
+    want, wlse = attention.flash_attention_plain(q, k0, v0, heads, **seg, return_lse=True)
+    assert _err(out, want) < F32_BOUND and _err(lse, wlse) < F32_BOUND
+    dout = _r32(gen, *q.shape)
+    got = _twice(lambda: attention.flash_attention_bwd(q, k0, v0, heads, dout, out, lse, **seg,
+                                                       need_dbias=bias))
+    want = attention.flash_attention_bwd_plain(q, k0, v0, heads, dout, out, lse, **seg,
+                                               need_dbias=bias)
+    for g, w in zip(got, want):
+        assert (g is None) == (w is None)
+        if w is not None:
+            assert g.shape == w.shape and _err(g, w) < F32_BOUND
+    expected = {"flash_attention_fwd_f32": 2, "flash_attention_bwd_f32": 2}
+    if bias:
+        expected["flash_attention_bwd_dbias_f32"] = 2
+    assert _launched(before) == expected
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,h,lq,lkv,d", [
+    (1, 2, 300, 450, 40), (2, 8, 77, 40, 8), (2, 8, 144, 77, 80), (2, 8, 40, 144, 160)])
+def test_fused_attention_f32_matches_plain(gen, b, h, lq, lkv, d):
+    q, k, v, dout = _r32(gen, b, h, lq, d), _r32(gen, b, h, lkv, d), _r32(gen, b, h, lkv, d), \
+        _r32(gen, b, h, lq, d)
+    before = dict(_build.launches)
+    out, lse = _twice(lambda: attention.fused_attention_fwd(q, k, v, return_lse=True))
+    want, wlse = attention.fused_attention_plain(q, k, v, return_lse=True)
+    assert _err(out, want) < F32_BOUND and _err(lse, wlse) < F32_BOUND
+    got = _twice(lambda: attention.fused_attention_bwd(q, k, v, dout, out, lse))
+    for g, w in zip(got, attention.fused_attention_bwd_plain(q, k, v, dout, out, lse)):
+        assert _err(g, w) < F32_BOUND
+    assert _launched(before) == {"fused_attention_fwd_f32": 2, "fused_attention_bwd_f32": 2}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,f,l,hd,heads", [
+    (2, 6, 50, 320, 8), (1, 3, 33, 32, 4), (2, 2, 7, 1280, 8)])
+def test_temporal_attention_f32_matches_plain(gen, b, f, l, hd, heads):
+    q, k, v, dout = (_r32(gen, b, f, l, hd) for _ in range(4))
+    before = dict(_build.launches)
+    got = _twice(lambda: temporal.temporal_attention_fwd(q, k, v, heads))
+    assert _err(got, temporal.temporal_attention_plain(q, k, v, heads)) < F32_BOUND
+    got = _twice(lambda: temporal.temporal_attention_bwd(q, k, v, dout, heads))
+    for g, w in zip(got, temporal.temporal_attention_bwd_plain(q, k, v, dout, heads)):
+        assert _err(g, w) < F32_BOUND
+    assert _launched(before) == {"temporal_attention_fwd_f32": 2,
+                                 "temporal_attention_bwd_f32": 2}
+
+
+def _ff_args(gen, t, c, dtype):
+    i = 4 * c
+    vec = lambda *s, scale=1.0: _rand(gen, *s, scale=scale, dtype=torch.float32)  # noqa: E731
+    return [_rand(gen, t, c, dtype=dtype), 1.0 + 0.05 * vec(c), 0.02 * vec(c),
+            _rand(gen, 2 * i, c, scale=c ** -0.5, dtype=dtype), 0.02 * vec(2 * i),
+            _rand(gen, c, i, scale=i ** -0.5, dtype=dtype), 0.02 * vec(c)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("c", [32, 320, 640])
+@pytest.mark.parametrize("t", [1, 37, 130])
+def test_ff_ln_f32_matches_plain(gen, t, c):
+    args = _ff_args(gen, t, c, torch.float32)
+    g = _r32(gen, t, c)
+    before = dict(_build.launches)
+    got = _twice(lambda: geglu.ff_ln(*args))
+    assert _err(got, geglu.ff_ln_plain(*args)) < F32_BOUND
+    got = _twice(lambda: geglu.ff_ln_bwd(args[0], g, *args[1:6]))
+    assert _err(got, geglu.ff_ln_bwd_plain(args[0], g, *args[1:6])) < F32_BOUND
+    assert _launched(before) == {"ff_ln_f32": 2, "ff_ln_bwd_f32": 2}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("t", [1, 37, 130])
+def test_geglu_out_f32_matches_plain(gen, t):
+    h2, w, b = _r32(gen, t, 10240), _r32(gen, 1280, 5120, scale=5120 ** -0.5), \
+        0.02 * _r32(gen, 1280)
+    g = _r32(gen, t, 1280)
+    before = dict(_build.launches)
+    assert _err(_twice(lambda: geglu.geglu_out(h2, w, b)), geglu.geglu_out_plain(h2, w, b)) \
+        < F32_BOUND
+    assert _err(_twice(lambda: geglu.geglu_out_bwd(h2, g, w)),
+                geglu.geglu_out_bwd_plain(h2, g, w)) < F32_BOUND
+    assert _launched(before) == {"geglu_out_f32": 2, "geglu_out_bwd_f32": 2}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("c", [32, 96])
+@pytest.mark.parametrize("t", [37, 130])
+def test_ff_ln_bf16_pads_narrow_widths(gen, t, c):
+    """C % 64 != 0 (the tiny configs' C = 32) runs the bf16 kernels on operands
+    zero-padded to 64 columns, LayerNorm over the true C."""
+    args = _ff_args(gen, t, c, torch.bfloat16)
+    g = _rand(gen, t, c)
+    before = dict(_build.launches)
+    got = _twice(lambda: geglu.ff_ln(*args))
+    assert got.shape == (t, c) and _err(got, geglu.ff_ln_plain(*_f32(args))) < BOUND
+    got = _twice(lambda: geglu.ff_ln_bwd(args[0], g, *args[1:6]))
+    want = geglu.ff_ln_bwd_plain(*_f32([args[0], g, *args[1:6]]))
+    assert got.shape == (t, c) and _err(got, want) < BOUND
+    assert _launched(before) == {"ff_ln": 2, "ff_ln_bwd": 2}
+
+
+def _tiny_unet(dtype, cross_dim=16):
+    from eeg2video_tpu_torch.models.init import random_init_
+    from eeg2video_tpu_torch.models.unet3d import UNet3DConditionModel, UNet3DConfig
+
+    cfg = dataclasses.replace(UNet3DConfig.tiny(), cross_attention_dim=cross_dim)
+    g = torch.Generator(device="cuda").manual_seed(4)
+    return random_init_(UNet3DConditionModel(cfg).to("cuda"), g).to(dtype).eval()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_attention_refuses_heads_wider_than_160(gen, dtype):
+    """A settled divergence: no configuration has D > 160, and the kernels
+    refuse it by name (the JAX kernels have no such limit)."""
+    q = _rand(gen, 1, 16, 8 * 168, dtype=dtype)
+    before = dict(_build.launches)
+    with pytest.raises(ValueError, match="head_dim 168 must be a multiple of 8 and <= 160"):
+        attention.flash_attention_fwd(q, q, q, 8)
+    assert _build.launches == before
+
+
+@pytest.mark.gpu
+def test_f32_unet_forward_launches_only_f32_kernels(gen):
+    """An f32 UNet3DConfig.tiny() forward: every attention and feed-forward
+    call on the f32 kernels, no bf16 kernel and no conv kernel (JAX sends f32
+    convs to XLA)."""
+    unet = _tiny_unet(torch.float32)
+    sample, ctx = _r32(gen, 2, 6, 16, 16, 4), _r32(gen, 2, 77, 16)
+    before = dict(_build.launches)
+    with torch.inference_mode():
+        out = unet(sample, torch.tensor([10, 900], device="cuda"), ctx)
+    torch.cuda.synchronize()
+    launched = _launched(before)
+    assert out.shape == sample.shape and bool(torch.isfinite(out).all())
+    assert set(launched) == {"flash_attention_fwd_f32", "ff_ln_f32"}, launched
+
+
+@pytest.mark.gpu
+def test_bf16_tiny_unet_forward_runs_ff_ln_at_c32(gen):
+    """UNet3DConfig.tiny() in bf16 on the card: C = 32 through the padded ff_ln."""
+    unet = _tiny_unet(torch.bfloat16)
+    sample, ctx = _rand(gen, 2, 6, 16, 16, 4), _rand(gen, 2, 77, 16)
+    before = dict(_build.launches)
+    with torch.inference_mode():
+        out = unet(sample, torch.tensor([10, 900], device="cuda"), ctx)
+    launched = _launched(before)
+    assert bool(torch.isfinite(out.float()).all())
+    assert launched.get("ff_ln", 0) > 0 and launched.get("flash_attention_fwd", 0) > 0
+    assert not any(k.endswith("_f32") for k in launched)
+
+
+@pytest.mark.gpu
+def test_f32_server_answers_through_f32_kernels(gen, monkeypatch, tmp_path):
+    """``serve --dtype float32`` on a tiny pipeline: one embeddings request
+    answered, its GIF written, through the f32 kernels only."""
+    from eeg2video_tpu_torch.cli import serve
+    from eeg2video_tpu_torch.diffusion.pipeline import EEG2VideoPipeline
+    from eeg2video_tpu_torch.models.init import random_init_
+    from eeg2video_tpu_torch.models.unet3d import UNet3DConfig
+    from eeg2video_tpu_torch.models.vae import VAEConfig
+
+    def load(unet, vae, dtype="bfloat16", device="cuda"):
+        cfg = dataclasses.replace(UNet3DConfig.tiny(), cross_attention_dim=768)
+        pipe = EEG2VideoPipeline.create(None, None, cfg, VAEConfig.tiny(),
+                                        dtype=getattr(torch, dtype), device=device)
+        g = torch.Generator(device=device).manual_seed(5)
+        random_init_(pipe.unet, g)
+        random_init_(pipe.vae, g)
+        return pipe
+
+    emb = tmp_path / "emb.npy"
+    np.save(emb, np.random.default_rng(6).standard_normal((2, 77 * 768)).astype(np.float32))
+    monkeypatch.setattr(serve, "load_pipeline", load)
+    monkeypatch.setattr("sys.stdin", io.StringIO(
+        json.dumps({"id": "e", "embeddings": str(emb), "indices": [1]}) + "\n"
+        + json.dumps({"cmd": "shutdown"}) + "\n"))
+    out = io.StringIO()
+    monkeypatch.setattr("sys.stdout", out)
+    before = dict(_build.launches)
+    rc = serve.main(["--dtype", "float32", "--device", "cuda", "--height", "32", "--width", "32",
+                     "--video_length", "2", "--num_inference_steps", "2",
+                     "--gif_encoder", "native", "--out_dir", str(tmp_path / "out")])
+    monkeypatch.undo()
+    replies = [json.loads(line) for line in out.getvalue().splitlines() if line.strip()]
+    launched = _launched(before)
+    assert rc == 0 and replies[1]["ok"] and replies[1]["id"] == "e", replies
+    assert list((tmp_path / "out").rglob("*.gif"))
+    assert set(launched) == {"flash_attention_fwd_f32", "ff_ln_f32"}, launched

@@ -105,8 +105,10 @@ def rand(rng, *shape):
 
 
 # (x shape (B, F, H, W, Cx), skip channels or 0, cout, fused conv calls):
-# H*W % 128 == 0 and Cout % 128 != 0 route the port's convs to the kernel
-# (here its plain version); the JAX module in float32 runs its XLA path.
+# H*W % 128 == 0 and Cout % 128 != 0 route the port's bf16 convs to the
+# kernel; at float32 both packages take the library / XLA conv. The test
+# also takes the bf16 route at float32 (the kernel's plain version here)
+# against the JAX module's XLA path.
 RESNET_CASES = {
     "plain": ((1, 2, 4, 6, 16), 0, 32, 0),
     "stats": ((1, 2, 8, 16, 16), 0, 32, 2),
@@ -132,9 +134,20 @@ def test_resnet_block_parity(case, monkeypatch):
                         lambda *a, **k: calls.append(1) or real(*a, **k))
     mod = resnet3d.ResnetBlock3D(xshape[-1] + cs, cout, 24, groups=8, eps=1e-5)
     mod.load_state_dict(to_state(ed._resnet3d, params), strict=True)
-    with torch.no_grad():
-        out = mod(torch.from_numpy(x), torch.from_numpy(temb),
-                  skip=None if skip is None else torch.from_numpy(skip))
+
+    def run():
+        with torch.no_grad():
+            return mod(torch.from_numpy(x), torch.from_numpy(temb),
+                       skip=None if skip is None else torch.from_numpy(skip))
+
+    out = run()  # float32: the library conv, as JAX's eligible routes it
+    assert not calls
+    np.testing.assert_allclose(out.numpy(), ref, **BLOCK_TOL)
+    bf16_route = resnet3d.conv_eligible
+    monkeypatch.setattr(resnet3d, "conv_eligible",
+                        lambda h, w, cin, cout_, dtype: bf16_route(h, w, cin, cout_,
+                                                                   torch.bfloat16))
+    out = run()
     assert len(calls) == fused_calls
     np.testing.assert_allclose(out.numpy(), ref, **BLOCK_TOL)
 

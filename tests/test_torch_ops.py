@@ -135,8 +135,8 @@ def test_ff_ln_matches_ff_kernel(c):
 
 
 def test_feed_forward_wide_route_matches_jax_route():
-    """C > 640 runs LN + projection as torch ops and the gate + GEMM in
-    geglu_out (geglu.py:407-419); checked against the JAX dispatcher."""
+    """C = 648 against the JAX dispatcher (geglu.py:407-419): I = 2592 is off
+    the 128 grid, so both packages take their reference route."""
     rng = np.random.default_rng(5)
     t, c = 8, 648
     inner = 4 * c
@@ -177,10 +177,15 @@ def test_conv3x3_matches_conv_kernel(temb_on, stats):
         np.testing.assert_allclose(out.numpy(), np.asarray(ref), **TOL)
 
 
-def test_conv_eligible_matches_jax_without_dtype():
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_conv_eligible_matches_jax_without_dtype(dtype):
+    """The port's conv route is JAX's ``eligible`` (conv2d.py:124-135) at
+    both compute dtypes: the kernel at bf16 level-0 shapes, the library conv
+    for every f32 conv (JAX sends f32 to XLA's)."""
     for shape in [(36, 64, 320, 320), (36, 64, 640, 320), (36, 64, 960, 320),
                   (18, 32, 640, 640), (16, 16, 128, 64), (5, 8, 1280, 1280)]:
-        assert conv2d.eligible(*shape) == jconv.eligible(*shape, jnp.bfloat16)
+        assert (conv2d.eligible(*shape, getattr(torch, dtype))
+                == jconv.eligible(*shape, getattr(jnp, dtype)))
 
 
 @pytest.mark.parametrize("n,h,w,cin,cout", [

@@ -344,11 +344,13 @@ def test_temporal_attention_function_is_consistent_with_its_plain_forward():
 
 
 def test_feed_forward_functions_are_consistent_with_their_plain_forwards():
-    """Both routes of ``feed_forward`` (C <= 640: ff_ln; wider: LN + proj as
-    torch ops and geglu_out), with every operand asking for its gradient and
-    with the weights frozen (then no parameter gradient is formed)."""
+    """Every route of ``feed_forward`` (``geglu.ff_route``: C = 16 off the
+    128 grid of I: ff_ref; 32: ff_ln; 704 and 768, wider than 640: LN + proj
+    as torch ops, then geglu_ref at C % 128 != 0 and geglu_out at 768), with
+    every operand asking for its gradient and with the weights frozen (then
+    no parameter gradient is formed)."""
     rng = np.random.default_rng(8)
-    for c in (16, 704):
+    for c in (16, 32, 704, 768):
         i = 4 * c
         x, = _leaves(rng, (6, c))
         params = [tt(1.0 + rand(rng, c, scale=0.1)), tt(rand(rng, c, scale=0.1)),
