@@ -25,7 +25,9 @@ printed on its own line; any failure prints ``FAIL ...`` and exits 1:
    the same rows inside a T = 3456 call; then the f32 counterparts (f32
    operands: the kernels JAX also runs at f32) at the same shapes, each within
    1e-4 of its plain version's max and bit for bit twice, bound_ms at the FP32
-   rate without tensor cores (66.9 TFLOP/s), the same yardsticks in f32;
+   rate without tensor cores (66.9 TFLOP/s), for the f32 attention pair (on
+   3xTF32) three tf32 products per operation at 494.7 TFLOP/s; the same
+   yardsticks in f32;
 4. UNet parity: a narrow UNet3D in bf16 with kernels on the card against the
    same weights through the plain versions in f32 on the CPU; then
    UNet3DConfig.tiny() in bf16 (C = 32: ``ff_ln`` on operands padded to its
@@ -83,9 +85,14 @@ STEPS = 4                      # DDIM steps per request of the slice phase
 SERVE_STEPS = 20               # DPM-Solver++ steps per dispatch of the serve phase
 PEAK_FLOPS = 989e12            # H100 SXM, bf16 dense (NVIDIA data sheet)
 PEAK_F32_FLOPS = 66.9e12       # H100 SXM, FP32 without tensor cores (NVIDIA data sheet)
+PEAK_TF32_FLOPS = 494.7e12     # H100 SXM, TF32 dense on the tensor cores (NVIDIA data sheet)
+# the f32 attention kernels run 3xTF32: three tf32 products for each f32 one
+TF32_PASSES = 3
+F32_ATTENTION = ("flash_attention_fwd_f32", "flash_attention_bwd_f32",
+                 "fused_attention_fwd_f32", "fused_attention_bwd_f32")
 PEAK_BYTES = 3.35e12           # H100 SXM, HBM3 bytes/s
 KERNEL_BOUND = 1e-2            # max|kernel - plain_f32| / max|plain_f32|
-F32_KERNEL_BOUND = 1e-4        # the f32 kernels: f32 throughout, summation order only
+F32_KERNEL_BOUND = 1e-4        # the f32 kernels: summation order and the 3xTF32 split only
 F32_UNET_RTOL, F32_UNET_ATOL = 1e-3, 1e-4  # f32 UNet via the f32 kernels vs via plain
 F32_TRAIN_BOUND = 1e-3         # f32 loss and gradients via the f32 kernels vs via plain
 UNET_BOUND = 5e-2              # ||bf16 card - f32 cpu|| / ||f32 cpu||
@@ -270,6 +277,12 @@ def phase_build(build):
         found = [k for k in res if k.split("<")[0] == name]
         if len(found) != 1 or found[0] in spilled:
             fail(f"build: {name} is missing from build.log or spills: {found}")
+    # the f32 attention pair at the model's D = 40 and 80
+    for name in ("flash_f32_fwd_kernel<{}>", "flash_f32_dq_kernel<{}>",
+                 "flash_f32_dkv_kernel<{},0>", "flash_f32_dkv_kernel<{},1>"):
+        for d in (40, 80):
+            if name.format(d) not in res or name.format(d) in spilled:
+                fail(f"build: {name.format(d)} missing from build.log or spills")
 
 
 def kernel_cases(torch, dev, f32=False):
@@ -282,7 +295,7 @@ def kernel_cases(torch, dev, f32=False):
 
     from eeg2video_tpu_torch.ops import _build, attention, conv2d, geglu, int8_dense, temporal
     from eeg2video_tpu_torch.utils.attention_ab import (conv_args, conv_composed, geglu_args,
-                                                        geglu_composed)
+                                                        geglu_composed, sdpa_views)
 
     g = torch.Generator(device=dev).manual_seed(0)
     dtype = torch.float32 if f32 else torch.bfloat16
@@ -449,15 +462,7 @@ def kernel_cases(torch, dev, f32=False):
                      for i in range(len(outs[0])))
 
     def sdpa_operands(q, k0, v0, k1, v1):
-        hd = q.shape[-1]
-        m = q.shape[1] if q.dim() == 4 else 1
-        q3 = q.flatten(0, 1) if q.dim() == 4 else q
-        kk, vv = k0.repeat_interleave(m, dim=0), v0.repeat_interleave(m, dim=0)
-        if k1 is not None:
-            kk = torch.cat([kk, k1.flatten(0, 1)], dim=1)
-            vv = torch.cat([vv, v1.flatten(0, 1)], dim=1)
-        split = lambda t: t.unflatten(-1, (heads, hd // heads)).transpose(1, 2)
-        return split(q3), split(kk), split(vv)
+        return sdpa_views(torch, q, k0, v0, k1, v1, heads)
 
     def attn_train(label, q, k0, v0, k1=None, v1=None, step=2, primary_bwd=False):
         """Forward with lse (kernel A) and backward (kernel B) of one call."""
@@ -689,6 +694,13 @@ def kernel_cases(torch, dev, f32=False):
     conv("Cin=320 (12,36,64) skip half, zero bias", 12, 320, False, False, zero_bias=True)
     for t in (3456, 8640, 2400, 1, 37, 130):
         geglu_case(t)
+    # attention tile edges: a single query row, Lkv = 130 (two tiles, the
+    # second of 2 rows) and 1030 (17 tiles, the last of 6 rows) with a second
+    # segment of 70
+    attn_train("edge D=40 Lq=1 (2,1,320)x130", r(2, 1, 320), r(2, 130, 320), r(2, 130, 320))
+    attn_dbias("edge D=40 +dbias (1,2,1030,320)x[1030|70] bias0 (1,1,1030)",
+               r(1, 2, 1030, 320), r(1, 1030, 320), r(1, 1030, 320),
+               k1=r(1, 2, 70, 320), v1=r(1, 2, 70, 320))
     return cases
 
 
@@ -712,12 +724,16 @@ def _nbytes(tensors):
 def phase_kernels(torch, report, f32=False):
     """Every case of ``kernel_cases`` (bf16, or with ``f32`` the f32 kernels
     against the same plain versions, bound F32_KERNEL_BOUND, bound_ms at the
-    FP32 rate without tensor cores); the results go into ``report``."""
+    FP32 rate without tensor cores, for the f32 attention pair three tf32
+    products at the TF32 rate); the results go into ``report``."""
     dev = torch.device("cuda")
-    bound, peak = (F32_KERNEL_BOUND, PEAK_F32_FLOPS) if f32 else (KERNEL_BOUND, PEAK_FLOPS)
+    bound = F32_KERNEL_BOUND if f32 else KERNEL_BOUND
     for case in kernel_cases(torch, dev, f32):
         kernel, label, kern, plain, args = (case[k] for k in
                                             ("kernel", "label", "kern", "plain", "args"))
+        # operations a second at the card's peak for this kernel's products
+        peak = (PEAK_TF32_FLOPS / TF32_PASSES if kernel in F32_ATTENTION else
+                PEAK_F32_FLOPS if f32 else PEAK_FLOPS)
         got = [t for t in _outputs(kern()) if t is not None]
         torch.cuda.synchronize()
         if (f32 or kernel.endswith("_bwd")
@@ -741,7 +757,8 @@ def phase_kernels(torch, report, f32=False):
             fail(f"kernels: {kernel} {label}: non-finite output")
         # least time for the same work: every input read once, every output
         # written once, against the operations at the bf16 tensor-core peak
-        # (the f32 kernels: the FP32 peak without tensor cores)
+        # (the f32 kernels: the FP32 peak without tensor cores; the f32
+        # attention pair: three tf32 products each at the TF32 peak)
         nbytes = _nbytes(args) + _nbytes(got)
         t_bytes, t_flops = nbytes / PEAK_BYTES * 1e3, case["flops"] / peak * 1e3
         bound_ms, bound_by = max(t_bytes, t_flops), "bytes" if t_bytes >= t_flops else "operations"

@@ -13,9 +13,10 @@
 // geglu_out_bwd and int8_dense are still the first, simple version: bf16
 // WMMA tiles (16x16x16, f32 accumulation) staged through shared memory
 // (temporal_attention is a warp-per-token f32 kernel without tensor cores).
-// The f32 counterparts that f32 operands launch (flash_f32*.cu, ff_f32.cu,
-// geglu_f32.cu, and temporal_attention.cu's f32 instantiation) are plain
-// SIMT kernels on f32_tiles.cuh. Warp specialisation is later work.
+// Of the f32 counterparts that f32 operands launch, the attention pair
+// (flash_f32*.cu) runs 3xTF32 on mma.sync.m16n8k8 (flash_f32.cuh); ff_f32.cu,
+// geglu_f32.cu and temporal_attention.cu's f32 instantiation are plain SIMT
+// kernels (f32_tiles.cuh). Warp specialisation is later work.
 #pragma once
 
 #include <cuda_bf16.h>

@@ -1,4 +1,5 @@
-// Shared pieces of the f32 kernels (flash_f32*.cu, ff_f32.cu, geglu_f32.cu).
+// Shared pieces of the SIMT f32 kernels (ff_f32.cu, geglu_f32.cu; the f32
+// attention pair, flash_f32*.cu, runs 3xTF32 on the tensor cores instead).
 //
 // These are the f32 counterparts of the Pallas kernels that the JAX package
 // also runs on f32 operands (its dispatch tests no dtype there): plain SIMT
@@ -9,8 +10,8 @@
 // is four xor-shuffles in a fixed order. Operand tiles live in shared memory
 // with odd row strides, so that both a row and a column walk hit distinct
 // banks. What bounds them on the H100 is the FP32 rate without tensor cores
-// (67 TFLOP/s) and the shared-memory loads that feed it; making them fast
-// (3xTF32 on the tensor cores) is later work.
+// (67 TFLOP/s) and the shared-memory loads that feed it; moving them to
+// 3xTF32 on the tensor cores (as flash_f32.cuh did) is later work.
 #pragma once
 
 #include "common.cuh"
@@ -23,16 +24,10 @@ constexpr int kThreads = 256;
 __device__ __forceinline__ int ty() { return threadIdx.x >> 4; }
 __device__ __forceinline__ int tx() { return threadIdx.x & 15; }
 
-// sum and max over the 16 threads of a row group (lane bits 0-3)
+// sum over the 16 threads of a row group (lane bits 0-3)
 __device__ __forceinline__ float group_sum(float v) {
 #pragma unroll
   for (int o = 1; o < 16; o <<= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-__device__ __forceinline__ float group_max(float v) {
-#pragma unroll
-  for (int o = 1; o < 16; o <<= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
   return v;
 }
 

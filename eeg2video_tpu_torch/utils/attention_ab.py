@@ -1,6 +1,7 @@
 """Time the attention kernels (or ``ff_ln``, ``ff_ln_bwd``, ``conv3x3``, ``geglu_out``) of one or more checkouts on one GPU.
 
     python -m eeg2video_tpu_torch.utils.attention_ab --tree PARENT --tree . --tree . --tree PARENT
+    python -m eeg2video_tpu_torch.utils.attention_ab --cases attention_f32 --tree PARENT ...
     python -m eeg2video_tpu_torch.utils.attention_ab --cases ff_ln --tree PARENT --tree . ...
     python -m eeg2video_tpu_torch.utils.attention_ab --cases ff_ln_bwd --tree PARENT --tree . ...
     python -m eeg2video_tpu_torch.utils.attention_ab --cases conv3x3 --tree PARENT --tree . ...
@@ -16,7 +17,15 @@ call on one card. The cases are the attention forward and backward calls of
 the generation and train paths at full width (batch 2 and 10), with and
 without the gradient of a mask's bias, ``fused_attention`` and the temporal
 pair at the train scale; the inputs are random from a seed, and the line also
-gives a digest of each case's output bits (``digest``). ``--cases ff_ln`` times ``ff_ln``
+gives a digest of each case's output bits (``digest``). ``--cases attention_f32``
+times the f32 attention kernels (f32 operands) at the shapes of the f32
+generation forward and train step: the forward at (2,4608,320)x2304,
+(2,4,2304,320)x[2304|2304] and (10,4,...) with lse, the backward at
+(10,2,2304,320)x2304 and (10,4,...) with and without dbias, and the
+head-major pair at (10,8,2304,40)x4608; beside each, as ``library_ms``, one
+scaled_dot_product_attention call on the same f32 tensors (autograd through
+it for a backward, a mask that asks for a gradient for dbias), and a digest
+of each case's output bits. ``--cases ff_ln`` times ``ff_ln``
 instead, at the generation and train shapes of levels 0 and 1 (T = 27648 /
 6912 and 138240 / 34560 at C = 320 / 640), and beside each case, as
 ``composed_ms``, the cuBLAS composition layer_norm -> F.linear -> h gelu(g) ->
@@ -109,6 +118,91 @@ def _cases(torch, attention, temporal=None):
             tq, tk, tv, heads)
         cases["temporal bwd (10,6,2304,320)"] = lambda: temporal.temporal_attention_bwd(
             tq, tk, tv, tdo, heads)
+    return cases
+
+
+def sdpa_views(torch, q, k0, v0, k1, v1, heads):
+    """(n, H, L, D) views of packed operands for one scaled_dot_product_attention
+    call: K0 / V0 repeated per frame, K1 / V1 concatenated after them."""
+    hd = q.shape[-1]
+    m = q.shape[1] if q.dim() == 4 else 1
+    q3 = q.flatten(0, 1) if q.dim() == 4 else q
+    kk, vv = k0.repeat_interleave(m, dim=0), v0.repeat_interleave(m, dim=0)
+    if k1 is not None:
+        kk = torch.cat([kk, k1.flatten(0, 1)], dim=1)
+        vv = torch.cat([vv, v1.flatten(0, 1)], dim=1)
+    split = lambda t: t.unflatten(-1, (heads, hd // heads)).transpose(1, 2)  # noqa: E731
+    return split(q3), split(kk), split(vv)
+
+
+def _f32_cases(torch, attention):
+    """{label: (kernel call, SDPA f32 call)} of the f32 attention kernels at the
+    shapes of the f32 generation forward and train step (chip_smoke.py's f32
+    rows): the library call is one scaled_dot_product_attention on the same
+    f32 tensors (autograd through it for a backward, its forward outside the
+    timed call; a mask that asks for a gradient for dbias)."""
+    import torch.nn.functional as F
+
+    g = torch.Generator(device="cuda").manual_seed(0)
+
+    def r(*shape):
+        return torch.randn(*shape, generator=g, device="cuda")
+
+    heads, cases = 8, {}
+
+    def fwd(label, q, k0, v0, k1=None, v1=None, lse=False):
+        qh, kh, vh = sdpa_views(torch, q, k0, v0, k1, v1, heads)
+        cases[f"fwd {label}{' +lse' if lse else ''}"] = (
+            lambda: attention.flash_attention_fwd(q, k0, v0, heads, k1=k1, v1=v1,
+                                                  return_lse=lse),
+            lambda: F.scaled_dot_product_attention(qh, kh, vh))
+
+    def bwd(label, q, k0, v0, k1=None, v1=None, bias=False):
+        b0 = None
+        if bias:
+            b0 = 0.5 * torch.randn(k0.shape[0], 1, k0.shape[1], generator=g, device="cuda")
+            b0[:, :, ::9] = -1e4
+        out, lse = attention.flash_attention_fwd(q, k0, v0, heads, k1=k1, v1=v1, bias0=b0,
+                                                 return_lse=True)
+        dout = r(*q.shape)
+        leaves = [t.detach().requires_grad_()
+                  for t in sdpa_views(torch, q, k0, v0, k1, v1, heads)]
+        wrt, full = leaves, None
+        if bias:  # the mask asks for a gradient; segment 1's keys take 0
+            mask = b0.clone().requires_grad_()
+            m = q.shape[1] if q.dim() == 4 else 1
+            full = F.pad(mask.repeat_interleave(m, dim=0)[:, None],
+                         (0, leaves[1].shape[2] - k0.shape[1]))
+            wrt = leaves + [mask]
+        sd_out = F.scaled_dot_product_attention(*leaves, attn_mask=full)
+        hd = q.shape[-1]
+        doh = (dout.reshape(-1, dout.shape[-2], hd).unflatten(-1, (heads, hd // heads))
+               .transpose(1, 2))
+        cases[f"bwd {label}{' +dbias' if bias else ''}"] = (
+            lambda: attention.flash_attention_bwd(q, k0, v0, heads, dout, out, lse, k1=k1, v1=v1,
+                                                  bias0=b0, need_dbias=bias),
+            lambda: torch.autograd.grad(sd_out, wrt, doh, retain_graph=True))
+
+    fwd("self (2,4608,320)x2304", r(2, 4608, 320), r(2, 2304, 320), r(2, 2304, 320))
+    fwd("dual (2,4,2304,320)x[2304|2304]", r(2, 4, 2304, 320), r(2, 2304, 320), r(2, 2304, 320),
+        r(2, 4, 2304, 320), r(2, 4, 2304, 320))
+    fwd("dual (10,4,2304,320)x[2304|2304]", r(10, 4, 2304, 320), r(10, 2304, 320),
+        r(10, 2304, 320), r(10, 4, 2304, 320), r(10, 4, 2304, 320), lse=True)
+    bwd("self (10,2,2304,320)x2304", r(10, 2, 2304, 320), r(10, 2304, 320), r(10, 2304, 320))
+    bwd("dual (10,4,2304,320)x[2304|2304]", r(10, 4, 2304, 320), r(10, 2304, 320),
+        r(10, 2304, 320), r(10, 4, 2304, 320), r(10, 4, 2304, 320))
+    bwd("dual (10,4,2304,320)x[2304|2304]", r(10, 4, 2304, 320), r(10, 2304, 320),
+        r(10, 2304, 320), r(10, 4, 2304, 320), r(10, 4, 2304, 320), bias=True)
+    q, k, v, dout = r(10, 8, 2304, 40), r(10, 8, 4608, 40), r(10, 8, 4608, 40), r(10, 8, 2304, 40)
+    out, lse = attention.fused_attention_fwd(q, k, v, return_lse=True)
+    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+    sd_out = F.scaled_dot_product_attention(*leaves)
+    cases["fwd fused (10,8,2304,40)x4608 +lse"] = (
+        lambda: attention.fused_attention_fwd(q, k, v, return_lse=True),
+        lambda: F.scaled_dot_product_attention(q, k, v))
+    cases["bwd fused (10,8,2304,40)x4608"] = (
+        lambda: attention.fused_attention_bwd(q, k, v, dout, out, lse),
+        lambda: torch.autograd.grad(sd_out, leaves, dout, retain_graph=True))
     return cases
 
 
@@ -327,6 +421,12 @@ def _one(tree, which="attention"):
         # the output's bits at the timed shapes and at row counts that end inside a block
         every = {**cases, **make(torch, geglu, _FF_EDGES)}
         line["digest"] = {label: _digest(torch, fn()) for label, (fn, _) in every.items()}
+    elif which == "attention_f32":
+        cases = _f32_cases(torch, attention)
+        line["ms"] = {label: _time(torch, fn) for label, (fn, _) in cases.items()}
+        line["library_ms"] = {label: _time(torch, ref) for label, (_, ref) in cases.items()}
+        line["digest"] = {label: _digest(torch, *(t for t in _as_tuple(fn()) if t is not None))
+                          for label, (fn, _) in cases.items()}
     else:
         cases = _cases(torch, attention, temporal)
         line["ms"] = {label: _time(torch, fn) for label, fn in cases.items()}
@@ -357,7 +457,8 @@ def main(argv=None):
     parser.add_argument("--tree", action="append", required=True,
                         help="root of a checkout (repeat: one process each, in order)")
     parser.add_argument("--cases",
-                        choices=("attention", "ff_ln", "ff_ln_bwd", "conv3x3", "geglu_out"),
+                        choices=("attention", "attention_f32", "ff_ln", "ff_ln_bwd", "conv3x3",
+                                 "geglu_out"),
                         default="attention",
                         help="the kernels to time (default: the attention cases)")
     args = parser.parse_args(argv)
