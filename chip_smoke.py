@@ -25,9 +25,12 @@ printed on its own line; any failure prints ``FAIL ...`` and exits 1:
    the same rows inside a T = 3456 call; then the f32 counterparts (f32
    operands: the kernels JAX also runs at f32) at the same shapes, each within
    1e-4 of its plain version's max and bit for bit twice, bound_ms at the FP32
-   rate without tensor cores (66.9 TFLOP/s), for the f32 attention pair (on
-   3xTF32) three tf32 products per operation at 494.7 TFLOP/s; the same
-   yardsticks in f32;
+   rate without tensor cores (66.9 TFLOP/s), for the kernels on 3xTF32 (the
+   f32 attention and feed-forward pairs) three tf32 products per operation at
+   494.7 TFLOP/s; the feed-forward pair's (T, I) / (T, 2I) intermediate,
+   written and read once, counted in its bytes and printed; rows 0-1727 of
+   a T = 3456 f32 feed-forward call (forward and backward) held to a T = 1728
+   call bit for bit; the same yardsticks in f32;
 4. UNet parity: a narrow UNet3D in bf16 with kernels on the card against the
    same weights through the plain versions in f32 on the CPU; then
    UNet3DConfig.tiny() in bf16 (C = 32: ``ff_ln`` on operands padded to its
@@ -86,10 +89,16 @@ SERVE_STEPS = 20               # DPM-Solver++ steps per dispatch of the serve ph
 PEAK_FLOPS = 989e12            # H100 SXM, bf16 dense (NVIDIA data sheet)
 PEAK_F32_FLOPS = 66.9e12       # H100 SXM, FP32 without tensor cores (NVIDIA data sheet)
 PEAK_TF32_FLOPS = 494.7e12     # H100 SXM, TF32 dense on the tensor cores (NVIDIA data sheet)
-# the f32 attention kernels run 3xTF32: three tf32 products for each f32 one
+# the f32 kernels on 3xTF32: three tf32 products for each f32 one
 TF32_PASSES = 3
-F32_ATTENTION = ("flash_attention_fwd_f32", "flash_attention_bwd_f32",
-                 "fused_attention_fwd_f32", "fused_attention_bwd_f32")
+TF32X3_KERNELS = ("flash_attention_fwd_f32", "flash_attention_bwd_f32",
+                  "fused_attention_fwd_f32", "fused_attention_bwd_f32",
+                  "ff_ln_f32", "ff_ln_bwd_f32")
+# the kernels of csrc/ff_f32.cu (ff_ln_f32: stats, gate, out; ff_ln_bwd_f32:
+# stats, dh2, dxa, the LayerNorm backward's row pass)
+FF_F32_KERNELS = ("ff_f32_ln_stats_kernel", "ff_f32_gate_kernel", "ff_f32_out_kernel",
+                  "ff_f32_bwd_ln_stats_kernel", "ff_f32_bwd_dh2_kernel", "ff_f32_bwd_dxa_kernel",
+                  "ff_f32_bwd_ln_kernel")
 PEAK_BYTES = 3.35e12           # H100 SXM, HBM3 bytes/s
 KERNEL_BOUND = 1e-2            # max|kernel - plain_f32| / max|plain_f32|
 F32_KERNEL_BOUND = 1e-4        # the f32 kernels: summation order and the 3xTF32 split only
@@ -277,6 +286,11 @@ def phase_build(build):
         found = [k for k in res if k.split("<")[0] == name]
         if len(found) != 1 or found[0] in spilled:
             fail(f"build: {name} is missing from build.log or spills: {found}")
+    # the f32 feed-forward pair: each kernel of ff_f32.cu is one instance that
+    # serves every C, the model's 320 and 640 among them
+    for name in FF_F32_KERNELS:
+        if name not in res or name in spilled:
+            fail(f"build: {name} missing from build.log or spills")
     # the f32 attention pair at the model's D = 40 and 80
     for name in ("flash_f32_fwd_kernel<{}>", "flash_f32_dq_kernel<{}>",
                  "flash_f32_dkv_kernel<{},0>", "flash_f32_dkv_kernel<{},1>"):
@@ -306,13 +320,20 @@ def kernel_cases(torch, dev, f32=False):
     cases = []
 
     def add(kernel, label, kern, plain, args, flops, library=None, primary=False,
-            plain_takes_args=False, l2_bytes=None, composed=None):
+            plain_takes_args=False, l2_bytes=None, composed=None, inter_bytes=None):
         if f32 and kernel in ("conv3x3_gn_silu", "int8_dense"):
             return
         cases.append(dict(kernel=kernel + ("_f32" if f32 else ""), label=label, kern=kern,
                           plain=plain, args=args, flops=flops, library=library, primary=primary,
                           plain_takes_args=plain_takes_args,
-                          l2_bytes=None if f32 else l2_bytes, composed=composed))
+                          l2_bytes=None if f32 else l2_bytes, composed=composed,
+                          inter_bytes=inter_bytes if f32 else None))
+
+    def ff_inter(t, i, backward=False):
+        """Bytes the f32 pair moves through its workspace (the (T, I) or
+        (T, 2I) intermediate and the LayerNorm statistics), written once and
+        read once."""
+        return 2 * geglu.ff_f32_workspace_bytes(t, i, backward)
 
     def ff_composed(args):
         """layer_norm -> F.linear -> h gelu(g) -> F.linear + x in the operands'
@@ -410,7 +431,7 @@ def kernel_cases(torch, dev, f32=False):
                 r(c, i, scale=i ** -0.5), 0.02 * r(c).float()]
         add("ff_ln", f"T={t} C={c}", lambda a=args: geglu.ff_ln(*a),
             lambda ts: geglu.ff_ln_plain(*ts), args, flops=6 * t * c * i, primary=primary,
-            composed=ff_composed(args) if f32 else None)
+            composed=ff_composed(args) if f32 else None, inter_bytes=ff_inter(t, i))
 
     # geglu_out at the row counts of its launches, I = 5120, C = 1280: level 2
     # and the mid block of one clip's guidance pair (1728, 480) here; a
@@ -655,7 +676,8 @@ def kernel_cases(torch, dev, f32=False):
         add("ff_ln_bwd", f"T={t} C={c}", lambda a=args: geglu.ff_ln_bwd(*a),
             lambda ts: geglu.ff_ln_bwd_plain(*ts), args, flops=10 * t * c * i, primary=primary,
             l2_bytes=None if f32 else (ff_ln_bwd_weight_bytes(_build, t, c, i), "weights"),
-            composed=ff_bwd_composed(args) if f32 else None)
+            composed=ff_bwd_composed(args) if f32 else None,
+            inter_bytes=ff_inter(t, i, backward=True))
     for t, primary in ((tb * 6 * 144, True), (tb * 6 * 40, False)):
         args = [r(t, 10240), r(t, 1280), r(1280, 5120, scale=5120 ** -0.5)]
         add("geglu_out_bwd", f"T={t} I=5120 C=1280", lambda a=args: geglu.geglu_out_bwd(*a),
@@ -724,7 +746,7 @@ def _nbytes(tensors):
 def phase_kernels(torch, report, f32=False):
     """Every case of ``kernel_cases`` (bf16, or with ``f32`` the f32 kernels
     against the same plain versions, bound F32_KERNEL_BOUND, bound_ms at the
-    FP32 rate without tensor cores, for the f32 attention pair three tf32
+    FP32 rate without tensor cores, for the 3xTF32 kernels three tf32
     products at the TF32 rate); the results go into ``report``."""
     dev = torch.device("cuda")
     bound = F32_KERNEL_BOUND if f32 else KERNEL_BOUND
@@ -732,7 +754,7 @@ def phase_kernels(torch, report, f32=False):
         kernel, label, kern, plain, args = (case[k] for k in
                                             ("kernel", "label", "kern", "plain", "args"))
         # operations a second at the card's peak for this kernel's products
-        peak = (PEAK_TF32_FLOPS / TF32_PASSES if kernel in F32_ATTENTION else
+        peak = (PEAK_TF32_FLOPS / TF32_PASSES if kernel in TF32X3_KERNELS else
                 PEAK_F32_FLOPS if f32 else PEAK_FLOPS)
         got = [t for t in _outputs(kern()) if t is not None]
         torch.cuda.synchronize()
@@ -756,10 +778,11 @@ def phase_kernels(torch, report, f32=False):
         if not all(torch.isfinite(a).all().item() for a in got):
             fail(f"kernels: {kernel} {label}: non-finite output")
         # least time for the same work: every input read once, every output
-        # written once, against the operations at the bf16 tensor-core peak
-        # (the f32 kernels: the FP32 peak without tensor cores; the f32
-        # attention pair: three tf32 products each at the TF32 peak)
-        nbytes = _nbytes(args) + _nbytes(got)
+        # written once (and the f32 feed-forward pair's intermediate written
+        # and read once), against the operations at the bf16 tensor-core peak
+        # (the f32 kernels: the FP32 peak without tensor cores; the 3xTF32
+        # kernels: three tf32 products each at the TF32 peak)
+        nbytes = _nbytes(args) + _nbytes(got) + (case["inter_bytes"] or 0)
         t_bytes, t_flops = nbytes / PEAK_BYTES * 1e3, case["flops"] / peak * 1e3
         bound_ms, bound_by = max(t_bytes, t_flops), "bytes" if t_bytes >= t_flops else "operations"
         ms = timed_ms(kern, torch, 10)
@@ -773,6 +796,9 @@ def phase_kernels(torch, report, f32=False):
         l2 = case["l2_bytes"]
         l2 = "" if l2 is None else (f", {l2[1]} from L2 {l2[0]} bytes a call "
                                     f"({l2[0] / ms / 1e9:.2f} TB/s at this time)")
+        if case["inter_bytes"]:
+            l2 += (f", intermediate and LayerNorm statistics {case['inter_bytes']} bytes "
+                   f"written and read")
         say(f"kernel {kernel} [{label}]: max_rel_err {rel_err:.3e} (bound {bound:.0e}) "
             f"max_abs_err {abs_err:.3e}, {ms:.3f} ms, bound {bound_ms:.4f} ms by {bound_by} "
             f"({bound_ms / ms:.3f} of it; {nbytes} bytes, {case['flops']} operations{l2}), "
@@ -785,9 +811,37 @@ def phase_kernels(torch, report, f32=False):
         if case["primary"]:
             rep.update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
                        library_ms=library_ms, composed_ms=composed_ms, shape=label)
-    if not f32:
+    if f32:
+        check_ff_f32_rows(torch, dev)
+    else:
         check_geglu_rows(torch, dev)
     torch.cuda.empty_cache()
+
+
+def check_ff_f32_rows(torch, dev):
+    """A clip's rows of the f32 feed-forward pair give the same bits alone
+    (T = 1728) and beside another's (T = 3456), forward and backward, at
+    C = 320."""
+    from eeg2video_tpu_torch.ops import geglu
+
+    g = torch.Generator(device=dev).manual_seed(4)
+
+    def r(*shape, scale=1.0):
+        return torch.randn(*shape, generator=g, device=dev) * scale
+
+    c, i = 320, 1280
+    x, dout = r(3456, c), r(3456, c)
+    params = [1.0 + 0.05 * r(c), 0.02 * r(c), r(2 * i, c, scale=c ** -0.5), 0.02 * r(2 * i),
+              r(c, i, scale=i ** -0.5)]
+    bo = 0.02 * r(c)
+    head, dhead = x[:1728].clone(), dout[:1728].clone()
+    same = (torch.equal(geglu.ff_ln(x, *params, bo)[:1728], geglu.ff_ln(head, *params, bo))
+            and torch.equal(geglu.ff_ln_bwd(x, dout, *params)[:1728],
+                            geglu.ff_ln_bwd(head, dhead, *params)))
+    say(f"kernel ff_ln_f32 / ff_ln_bwd_f32: rows 0-1727 of a T=3456 call equal a T=1728 call "
+        f"on those rows (C=320): {'ok' if same else 'FAILED'}")
+    if not same:
+        fail("kernels: ff_ln_f32 / ff_ln_bwd_f32: a row's bits depend on the other rows")
 
 
 def check_geglu_rows(torch, dev):

@@ -14,9 +14,10 @@
 // WMMA tiles (16x16x16, f32 accumulation) staged through shared memory
 // (temporal_attention is a warp-per-token f32 kernel without tensor cores).
 // Of the f32 counterparts that f32 operands launch, the attention pair
-// (flash_f32*.cu) runs 3xTF32 on mma.sync.m16n8k8 (flash_f32.cuh); ff_f32.cu,
-// geglu_f32.cu and temporal_attention.cu's f32 instantiation are plain SIMT
-// kernels (f32_tiles.cuh). Warp specialisation is later work.
+// (flash_f32*.cu) and the feed-forward pair (ff_f32.cu) run 3xTF32 on
+// mma.sync.m16n8k8 (tf32_mma.cuh); geglu_f32.cu and temporal_attention.cu's
+// f32 instantiation are plain SIMT kernels (f32_tiles.cuh). Warp
+// specialisation is later work.
 #pragma once
 
 #include <cuda_bf16.h>

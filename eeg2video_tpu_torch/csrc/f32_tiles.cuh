@@ -1,5 +1,6 @@
-// Shared pieces of the SIMT f32 kernels (ff_f32.cu, geglu_f32.cu; the f32
-// attention pair, flash_f32*.cu, runs 3xTF32 on the tensor cores instead).
+// Shared pieces of the SIMT f32 kernels (geglu_f32.cu; the f32 attention
+// and feed-forward pairs, flash_f32*.cu and ff_f32.cu, run 3xTF32 on the
+// tensor cores instead: tf32_mma.cuh).
 //
 // These are the f32 counterparts of the Pallas kernels that the JAX package
 // also runs on f32 operands (its dispatch tests no dtype there): plain SIMT
@@ -11,7 +12,8 @@
 // with odd row strides, so that both a row and a column walk hit distinct
 // banks. What bounds them on the H100 is the FP32 rate without tensor cores
 // (67 TFLOP/s) and the shared-memory loads that feed it; moving them to
-// 3xTF32 on the tensor cores (as flash_f32.cuh did) is later work.
+// 3xTF32 on the tensor cores (as flash_f32.cuh and ff_f32.cu did) is later
+// work.
 #pragma once
 
 #include "common.cuh"

@@ -176,21 +176,35 @@ def _ff_bf16(kernel, x, gamma, beta, wp, bp, wo, bo, extra, eps):
     return (out if cp == c else out[:, :c]).reshape(x.shape)
 
 
+def ff_f32_workspace_bytes(t, inner, backward=False):
+    """Bytes of the f32 feed-forward pair's workspace for t rows
+    (``csrc/ff_f32.cu``): the gated (t, I) intermediate (forward) or dh2
+    (t, 2I) (backward), then each row's LayerNorm mean and rstd, all f32.
+    The kernels write the intermediate once and read it once."""
+    return 4 * t * ((2 if backward else 1) * inner + 2)
+
+
 def _ff_f32(kernel, x, gamma, beta, wp, bp, wo, bo, extra, eps):
-    """Launch ``e2v_ff_f32`` / ``e2v_ff_f32_bwd`` (any C % 8 == 0 <= 640)."""
+    """Launch ``e2v_ff_f32`` / ``e2v_ff_f32_bwd`` (any C % 8 == 0 <= 640) with
+    a workspace from the caching allocator."""
     c, inner, rows = _ff_operands(kernel, x, gamma, beta, wp, bp, wo, extra)
-    wp, wo = wp.contiguous(), wo.contiguous()
+    rows = [_aligned16(t) for t in rows]
+    wp, wo = _aligned16(wp.contiguous()), _aligned16(wo.contiguous())
     gamma, beta, bp, bo = (None if v is None else _f32(v) for v in (gamma, beta, bp, bo))
+    t = rows[0].shape[0]
+    backward = kernel == "ff_ln_bwd_f32"
+    work = torch.empty(ff_f32_workspace_bytes(t, inner, backward) // 4, dtype=torch.float32,
+                       device=x.device)
     out = torch.empty_like(rows[0])
     lib, ptr = _build.library(), _build.ptr
-    if kernel == "ff_ln_f32":
+    if not backward:
         rc = lib.e2v_ff_f32(ptr(rows[0]), ptr(gamma), ptr(beta), ptr(wp), ptr(bp), ptr(wo),
-                            ptr(bo), ptr(out), rows[0].shape[0], c, inner, float(eps),
+                            ptr(bo), ptr(out), ptr(work), t, c, inner, float(eps),
                             _build.stream_of(x))
     else:
         rc = lib.e2v_ff_f32_bwd(ptr(rows[0]), ptr(rows[1]), ptr(gamma), ptr(beta), ptr(wp),
-                                ptr(bp), ptr(wo), ptr(out), rows[0].shape[0], c, inner,
-                                float(eps), _build.stream_of(x))
+                                ptr(bp), ptr(wo), ptr(out), ptr(work), t, c, inner, float(eps),
+                                _build.stream_of(x))
     _build.check(rc, kernel)
     _build.launches[kernel] += 1
     return out.reshape(x.shape)

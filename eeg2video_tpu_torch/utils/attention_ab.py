@@ -1,9 +1,11 @@
-"""Time the attention kernels (or ``ff_ln``, ``ff_ln_bwd``, ``conv3x3``, ``geglu_out``) of one or more checkouts on one GPU.
+"""Time the attention kernels (or ``ff_ln``, ``ff_ln_bwd``, their f32 pair, ``conv3x3``, ``geglu_out``) of one or more checkouts on one GPU.
 
     python -m eeg2video_tpu_torch.utils.attention_ab --tree PARENT --tree . --tree . --tree PARENT
     python -m eeg2video_tpu_torch.utils.attention_ab --cases attention_f32 --tree PARENT ...
     python -m eeg2video_tpu_torch.utils.attention_ab --cases ff_ln --tree PARENT --tree . ...
     python -m eeg2video_tpu_torch.utils.attention_ab --cases ff_ln_bwd --tree PARENT --tree . ...
+    python -m eeg2video_tpu_torch.utils.attention_ab --cases ff_f32 --tree PARENT --tree . ...
+    python -m eeg2video_tpu_torch.utils.attention_ab --cases ff_bwd_f32 --tree PARENT --tree . ...
     python -m eeg2video_tpu_torch.utils.attention_ab --cases conv3x3 --tree PARENT --tree . ...
     python -m eeg2video_tpu_torch.utils.attention_ab --cases geglu_out --tree PARENT --tree . ...
 
@@ -36,7 +38,10 @@ gradient with respect to x (``torch.autograd.grad``) of that composition,
 its forward included, as the kernel recomputes the forward. For both, the
 line also gives a digest of the kernel's output bits (``digest``) at each
 timed shape and at T = 1, 37 and 130 for C = 320 and 640, so that two
-versions can be held to the same bits. ``--cases conv3x3`` times
+versions can be held to the same bits. ``--cases ff_f32`` and ``--cases
+ff_bwd_f32`` do the same on f32 operands (the f32 kernels ``ff_ln_f32`` /
+``ff_ln_bwd_f32``), with the composition in f32 and cuBLAS's TF32 off, and
+digests at the same shapes. ``--cases conv3x3`` times
 ``conv3x3_gn_silu`` at the shapes of a UNet forward's level-0 convolutions
 (chip_smoke.py's conv cases: N = 12 images for one clip's guidance pair, 24
 for a two-clip dispatch; Cin = 320 with stats and temb, without either, the
@@ -210,14 +215,17 @@ def _f32_cases(torch, attention):
 _FF_EDGES = ((1, 320), (37, 320), (130, 320), (1, 640), (37, 640), (130, 640))
 
 
-def _ff_cases(torch, geglu, shapes=((27648, 320), (6912, 640), (138240, 320), (34560, 640))):
-    """{label: (ff_ln call, composed cuBLAS call)} on the inputs chip_smoke.py uses."""
+def _ff_cases(torch, geglu, shapes=((27648, 320), (6912, 640), (138240, 320), (34560, 640)),
+              dtype=None):
+    """{label: (ff_ln call, composed cuBLAS call)} on the inputs chip_smoke.py
+    uses, bf16 operands (or ``dtype``'s)."""
     import torch.nn.functional as F
 
     g = torch.Generator(device="cuda").manual_seed(0)
+    dtype = dtype or torch.bfloat16
 
     def r(*shape, scale=1.0):
-        return (torch.randn(*shape, generator=g, device="cuda") * scale).bfloat16()
+        return (torch.randn(*shape, generator=g, device="cuda") * scale).to(dtype)
 
     cases = {}
     for t, c in shapes:
@@ -226,7 +234,7 @@ def _ff_cases(torch, geglu, shapes=((27648, 320), (6912, 640), (138240, 320), (3
                 r(2 * i, c, scale=c ** -0.5), 0.02 * r(2 * i).float(),
                 r(c, i, scale=i ** -0.5), 0.02 * r(c).float()]
         x, gamma, beta, wp, bp, wo, bo = args
-        vb = [v.bfloat16() for v in (gamma, beta, bp, bo)]
+        vb = [v.to(dtype) for v in (gamma, beta, bp, bo)]
 
         def composed(x=x, wp=wp, wo=wo, vb=vb, c=c):
             h, gate = F.linear(F.layer_norm(x, (c,), vb[0], vb[1]), wp, vb[2]).chunk(2, dim=-1)
@@ -236,15 +244,16 @@ def _ff_cases(torch, geglu, shapes=((27648, 320), (6912, 640), (138240, 320), (3
     return cases
 
 
-def _ff_bwd_cases(torch, geglu, shapes=((138240, 320), (34560, 640))):
+def _ff_bwd_cases(torch, geglu, shapes=((138240, 320), (34560, 640)), dtype=None):
     """{label: (ff_ln_bwd call, autograd through the composed cuBLAS forward)}
-    on the inputs chip_smoke.py uses."""
+    on the inputs chip_smoke.py uses, bf16 operands (or ``dtype``'s)."""
     import torch.nn.functional as F
 
     g = torch.Generator(device="cuda").manual_seed(0)
+    dtype = dtype or torch.bfloat16
 
     def r(*shape, scale=1.0):
-        return (torch.randn(*shape, generator=g, device="cuda") * scale).bfloat16()
+        return (torch.randn(*shape, generator=g, device="cuda") * scale).to(dtype)
 
     cases = {}
     for t, c in shapes:
@@ -253,8 +262,8 @@ def _ff_bwd_cases(torch, geglu, shapes=((138240, 320), (34560, 640))):
                 r(2 * i, c, scale=c ** -0.5), 0.02 * r(2 * i).float(),
                 r(c, i, scale=i ** -0.5)]
         x, dout, gamma, beta, wp, bp, wo = args
-        vb = [v.bfloat16() for v in (gamma, beta, bp)]
-        bo = torch.zeros(c, dtype=torch.bfloat16, device="cuda")
+        vb = [v.to(dtype) for v in (gamma, beta, bp)]
+        bo = torch.zeros(c, dtype=dtype, device="cuda")
 
         def composed(x=x, dout=dout, wp=wp, wo=wo, vb=vb, bo=bo, c=c):
             xl = x.detach().requires_grad_()
@@ -413,13 +422,15 @@ def _one(tree, which="attention"):
         every = {**cases, **_geglu_cases(torch, GEGLU_EDGES)}
         line["digest"] = {label: _digest(torch, geglu.geglu_out(*args))
                           for label, args in every.items()}
-    elif which in ("ff_ln", "ff_ln_bwd"):
-        make = _ff_cases if which == "ff_ln" else _ff_bwd_cases
-        cases = make(torch, geglu)
+    elif which in ("ff_ln", "ff_ln_bwd", "ff_f32", "ff_bwd_f32"):
+        make = _ff_cases if which in ("ff_ln", "ff_f32") else _ff_bwd_cases
+        dtype = torch.float32 if which.endswith("f32") else torch.bfloat16
+        torch.backends.cuda.matmul.allow_tf32 = False  # the f32 composition in full f32
+        cases = make(torch, geglu, dtype=dtype)
         line["ms"] = {label: _time(torch, fn) for label, (fn, _) in cases.items()}
         line["composed_ms"] = {label: _time(torch, ref) for label, (_, ref) in cases.items()}
         # the output's bits at the timed shapes and at row counts that end inside a block
-        every = {**cases, **make(torch, geglu, _FF_EDGES)}
+        every = {**cases, **make(torch, geglu, _FF_EDGES, dtype=dtype)}
         line["digest"] = {label: _digest(torch, fn()) for label, (fn, _) in every.items()}
     elif which == "attention_f32":
         cases = _f32_cases(torch, attention)
@@ -457,8 +468,8 @@ def main(argv=None):
     parser.add_argument("--tree", action="append", required=True,
                         help="root of a checkout (repeat: one process each, in order)")
     parser.add_argument("--cases",
-                        choices=("attention", "attention_f32", "ff_ln", "ff_ln_bwd", "conv3x3",
-                                 "geglu_out"),
+                        choices=("attention", "attention_f32", "ff_ln", "ff_ln_bwd", "ff_f32",
+                                 "ff_bwd_f32", "conv3x3", "geglu_out"),
                         default="attention",
                         help="the kernels to time (default: the attention cases)")
     args = parser.parse_args(argv)

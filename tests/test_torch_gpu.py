@@ -645,9 +645,11 @@ def _ff_args(gen, t, c, dtype):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("c", [32, 320, 640])
-@pytest.mark.parametrize("t", [1, 37, 130])
+@pytest.mark.parametrize("c", [32, 320, 640, 16, 96, 336])
+@pytest.mark.parametrize("t", [1, 37, 130, 127, 129, 255])
 def test_ff_ln_f32_matches_plain(gen, t, c):
+    """T around the kernels' 128-row tiles, C = 16 / 96 / 336 inside their
+    32-wide k slabs and 160-column out tiles."""
     args = _ff_args(gen, t, c, torch.float32)
     g = _r32(gen, t, c)
     before = dict(_build.launches)
@@ -656,6 +658,26 @@ def test_ff_ln_f32_matches_plain(gen, t, c):
     got = _twice(lambda: geglu.ff_ln_bwd(args[0], g, *args[1:6]))
     assert _err(got, geglu.ff_ln_bwd_plain(args[0], g, *args[1:6])) < F32_BOUND
     assert _launched(before) == {"ff_ln_f32": 2, "ff_ln_bwd_f32": 2}
+
+
+@pytest.mark.gpu
+def test_ff_ln_f32_takes_zero_rows(gen):
+    """T = 0: empty outputs of the input's shape, nothing launched on the card."""
+    args = _ff_args(gen, 0, 320, torch.float32)
+    assert geglu.ff_ln(*args).shape == (0, 320)
+    assert geglu.ff_ln_bwd(args[0], args[0], *args[1:6]).shape == (0, 320)
+
+
+@pytest.mark.gpu
+def test_ff_ln_f32_rows_do_not_depend_on_t(gen):
+    """The first 128 rows of a T = 256 call, forward and backward, have the
+    bits of a T = 128 call on those rows."""
+    args = _ff_args(gen, 256, 320, torch.float32)
+    g = _r32(gen, 256, 320)
+    head = [args[0][:128].clone(), *args[1:]]
+    assert torch.equal(geglu.ff_ln(*args)[:128], geglu.ff_ln(*head))
+    assert torch.equal(geglu.ff_ln_bwd(args[0], g, *args[1:6])[:128],
+                       geglu.ff_ln_bwd(head[0], g[:128].clone(), *args[1:6]))
 
 
 @pytest.mark.gpu

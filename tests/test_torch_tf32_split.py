@@ -14,6 +14,16 @@ v at the model's head dims and a two-segment key length:
 - one tf32 product (big b big alone) lands above that bound, which is why the
   kernels take three.
 
+The f32 feed-forward pair (``csrc/ff_f32.cu``) takes the same three
+products over longer sums: K = C (320, 640) in the projection and dgated,
+I (1280, 2560) in the out GEMM, 2I (2560, 5120) in dh2 Wp. The tensor cores
+truncate as they accumulate, so the kernels run each chain of mma over one
+32-wide k slab into fresh accumulators and add the runs by f32 adds. The
+tests below emulate that accumulation (each mma's sum rounded toward zero
+to f32) and show that runs of 32 keep the three products within THREE_BOUND
+at every one of those K, that one tf32 product misses F32_KERNEL_BOUND, and
+that one chain over the whole of K lands further from the f64 product.
+
 The emulation lives here only; nothing on the package's path uses it.
 """
 
@@ -105,3 +115,60 @@ def test_three_tf32_products_keep_f32_accuracy(d):
 def test_one_tf32_product_misses_the_f32_bound(d):
     _, (s_err, o_err) = _attention_errors(d)
     assert max(s_err, o_err) > F32_KERNEL_BOUND
+
+
+FF_RUN = 32                      # csrc/ff_f32.cu kBK: the k of one run of fresh accumulators
+FF_KS = (320, 640, 1280, 2560, 5120)
+
+
+def _rz_f32(x):
+    """f64 values to f32, rounded toward zero."""
+    f = x.float()
+    over = f.double().abs() > x.abs()
+    return torch.where(over, torch.nextafter(f, torch.zeros_like(f)), f)
+
+
+def _ff_product(a, b, run, passes=3):
+    """a @ b (f32) as the feed-forward kernels form it: per k8 step one mma
+    per pass (a_small b_big, a_big b_small, a_big b_big), each adding its
+    eight exact tf32 products to the accumulator and rounding toward zero to
+    f32; each ``run`` of k into fresh accumulators, the runs added in f32."""
+    (ab, as_), (bb, bs) = split(a), split(b)
+    pairs = ((as_, bb), (ab, bs), (ab, bb)) if passes == 3 else ((ab, bb),)
+    pairs = [(x.double(), y.double()) for x, y in pairs]
+    total = torch.zeros(a.shape[0], b.shape[1])
+    for r0 in range(0, a.shape[1], run):
+        t = torch.zeros_like(total)
+        for k0 in range(r0, min(r0 + run, a.shape[1]), 8):
+            for x, y in pairs:
+                t = _rz_f32(t.double() + x[:, k0:k0 + 8] @ y[k0:k0 + 8])
+        total = total + t
+    return total
+
+
+def _ff_errors(k, seed=0):
+    """Relative errors (to the output's max) of a (16, K) x (K, 16) product:
+    three products in runs of FF_RUN, three in one chain, one product."""
+    rng = np.random.default_rng(seed)
+    a = torch.from_numpy(rng.standard_normal((16, k), dtype=np.float32))
+    b = torch.from_numpy(rng.standard_normal((k, 16), dtype=np.float32) * k ** -0.5)
+    want = a.double() @ b.double()
+    return (_rel(_ff_product(a, b, FF_RUN), want), _rel(_ff_product(a, b, k), want),
+            _rel(_ff_product(a, b, FF_RUN, passes=1), want))
+
+
+@pytest.mark.parametrize("k", FF_KS)
+def test_ff_runs_of_32_keep_three_tf32_products_within_bound(k):
+    runs, _, _ = _ff_errors(k)
+    assert runs < THREE_BOUND
+
+
+@pytest.mark.parametrize("k", FF_KS)
+def test_ff_one_tf32_product_misses_the_f32_bound(k):
+    _, _, one = _ff_errors(k)
+    assert one > F32_KERNEL_BOUND
+
+
+def test_ff_one_chain_over_all_of_k_lands_further_than_runs():
+    runs, chain, _ = _ff_errors(FF_KS[-1])
+    assert chain > 4 * runs
