@@ -9,7 +9,10 @@ printed on its own line; any failure prints ``FAIL ...`` and exits 1:
 
 1. device: the card's name and power limit (``nvidia-smi``);
 2. build: compile every kernel from ``eeg2video_tpu_torch/csrc`` (and the
-   host-side GIF encoder, so that no request pays for its build);
+   host-side GIF encoder, so that no request pays for its build); the
+   kernels of the main paths must be in the build log without spills (the
+   temporal backward at the model's D = 40, 80, 160 and F = 6, bf16 and f32;
+   ``geglu_out_bwd``);
 3. kernels: each kernel (forward and backward) against its plain PyTorch
    version in f32 on the same inputs at the main paths' shapes (generation
    at batch 1 with guidance, the train step at batch 10), with its time, the plain version's
@@ -22,13 +25,16 @@ printed on its own line; any failure prints ``FAIL ...`` and exits 1:
    its blocks copy from L2, and every conv case run twice, bit for bit; the
    same for ``geglu_out`` (the cuBLAS composition, at each row count it
    runs at and at T = 1, 37, 130), whose rows of a T = 1728 call must equal
-   the same rows inside a T = 3456 call; then the f32 counterparts (f32
+   the same rows inside a T = 3456 call, and for ``geglu_out_bwd`` (the
+   cuBLAS composition g @ W -> the gate's backward in eager ops); the
+   temporal pair at the train step's levels 0-2; then the f32 counterparts (f32
    operands: the kernels JAX also runs at f32) at the same shapes, each within
    1e-4 of its plain version's max and bit for bit twice, bound_ms at the FP32
    rate without tensor cores (66.9 TFLOP/s), for the kernels on 3xTF32 (the
-   f32 attention and feed-forward pairs) three tf32 products per operation at
-   494.7 TFLOP/s; the feed-forward pair's (T, I) / (T, 2I) intermediate,
-   written and read once, counted in its bytes and printed; rows 0-1727 of
+   f32 attention and feed-forward pairs) and the f32 GEGLU pair three tf32
+   products per operation at 494.7 TFLOP/s; the feed-forward pair's (T, I) /
+   (T, 2I) intermediate, written and read once, counted in its bytes and
+   printed; rows 0-1727 of
    a T = 3456 f32 feed-forward call (forward and backward) held to a T = 1728
    call bit for bit; the same yardsticks in f32;
 4. UNet parity: a narrow UNet3D in bf16 with kernels on the card against the
@@ -94,6 +100,9 @@ TF32_PASSES = 3
 TF32X3_KERNELS = ("flash_attention_fwd_f32", "flash_attention_bwd_f32",
                   "fused_attention_fwd_f32", "fused_attention_bwd_f32",
                   "ff_ln_f32", "ff_ln_bwd_f32")
+# the f32 kernels whose bound_ms counts their products at that rate: those,
+# and the f32 GEGLU pair (SIMT today), whose GEMMs a 3xTF32 kernel could run
+TF32X3_BOUND_KERNELS = (*TF32X3_KERNELS, "geglu_out_f32", "geglu_out_bwd_f32")
 # the kernels of csrc/ff_f32.cu (ff_ln_f32: stats, gate, out; ff_ln_bwd_f32:
 # stats, dh2, dxa, the LayerNorm backward's row pass)
 FF_F32_KERNELS = ("ff_f32_ln_stats_kernel", "ff_f32_gate_kernel", "ff_f32_out_kernel",
@@ -269,10 +278,11 @@ def phase_build(build):
     # spills (-Xptxas -v)
     res = {k: v for k, v in build.kernel_resources(log).items()
            if k.startswith(("flash_", "ff_ln_kernel<", "ff_ln_bwd_kernel<", "conv3x3_",
-                            "geglu_out_kernel", "ff_f32_", "geglu_f32_"))}
+                            "geglu_out_kernel", "geglu_out_bwd_kernel", "ff_f32_", "geglu_f32_",
+                            "temporal_"))}
     spilled = {k: v for k, v in res.items() if v[1] or v[2]}
-    say(f"build: {len(res)} attention (bf16 and f32), ff_ln, ff_ln_bwd, ff_f32, conv3x3, geglu_out "
-        f"and geglu_f32 kernels, registers "
+    say(f"build: {len(res)} attention (bf16 and f32), temporal, ff_ln, ff_ln_bwd, ff_f32, "
+        f"conv3x3, geglu_out, geglu_out_bwd and geglu_f32 kernels, registers "
         f"(spill stores, loads in bytes): "
         f"{'; '.join(f'{k} {r} ({st}, {ld})' for k, (r, st, ld) in sorted(res.items()))}; "
         f"{len(spilled)} spill")
@@ -291,6 +301,17 @@ def phase_build(build):
     for name in FF_F32_KERNELS:
         if name not in res or name in spilled:
             fail(f"build: {name} missing from build.log or spills")
+    # the temporal backward at the model's D = 40, 80 and 160 (H = 8) and
+    # F = 6, bf16 and f32: temporal_bwd_kernel<F, VEC, steps, bytes a value>
+    from eeg2video_tpu_torch.ops import temporal
+
+    for d in (40, 80, 160):
+        for itemsize in (2, 4):
+            _, _, vec, iters = temporal.bwd_plan(8, d, itemsize)
+            name = f"temporal_bwd_kernel<6,{vec},{iters},{itemsize}>"
+            if name not in res or name in spilled:
+                fail(f"build: {name} (D = {d}, {itemsize}-byte values) missing from build.log "
+                     f"or spills")
     # the f32 attention pair at the model's D = 40 and 80
     for name in ("flash_f32_fwd_kernel<{}>", "flash_f32_dq_kernel<{}>",
                  "flash_f32_dkv_kernel<{},0>", "flash_f32_dkv_kernel<{},1>"):
@@ -309,7 +330,8 @@ def kernel_cases(torch, dev, f32=False):
 
     from eeg2video_tpu_torch.ops import _build, attention, conv2d, geglu, int8_dense, temporal
     from eeg2video_tpu_torch.utils.attention_ab import (conv_args, conv_composed, geglu_args,
-                                                        geglu_composed, sdpa_views)
+                                                        geglu_bwd_composed, geglu_composed,
+                                                        sdpa_views)
 
     g = torch.Generator(device=dev).manual_seed(0)
     dtype = torch.float32 if f32 else torch.bfloat16
@@ -643,23 +665,26 @@ def kernel_cases(torch, dev, f32=False):
     # (B, L*H, F, D) views of the same tensors (no copy: frame stride L*H*D),
     # and autograd through it for the backward, the forward outside the
     # timed region.
-    for l, hd, primary in ((2304, 320, True), (144, 1280, False)):
+    def temporal_case(l, hd, primary=False):
         q, k, v, dout = (r(tb, 6, l, hd) for _ in range(4))
-        frames_last = lambda t, l=l, hd=hd: t.view(tb, 6, l * heads, hd // heads).transpose(1, 2)
+        frames_last = lambda t: t.view(tb, 6, l * heads, hd // heads).transpose(1, 2)
         qf, kf, vf = frames_last(q), frames_last(k), frames_last(v)
         add("temporal_attention_fwd", f"({tb},6,{l},{hd}) D={hd // heads}",
-            lambda q=q, k=k, v=v: temporal.temporal_attention_fwd(q, k, v, heads),
+            lambda: temporal.temporal_attention_fwd(q, k, v, heads),
             lambda ts: temporal.temporal_attention_plain(*ts, heads), [q, k, v],
             flops=4 * tb * l * 6 * 6 * hd, primary=primary,
-            library=lambda qf=qf, kf=kf, vf=vf: F.scaled_dot_product_attention(qf, kf, vf))
+            library=lambda: F.scaled_dot_product_attention(qf, kf, vf))
         leaves = [t.detach().requires_grad_() for t in (qf, kf, vf)]
         sd_out = F.scaled_dot_product_attention(*leaves)
         add("temporal_attention_bwd", f"({tb},6,{l},{hd}) D={hd // heads}",
-            lambda q=q, k=k, v=v, d=dout: temporal.temporal_attention_bwd(q, k, v, d, heads),
+            lambda: temporal.temporal_attention_bwd(q, k, v, dout, heads),
             lambda ts: temporal.temporal_attention_bwd_plain(*ts, heads), [q, k, v, dout],
             flops=10 * tb * l * 6 * 6 * hd, primary=primary,
-            library=lambda o=sd_out, ls=leaves, d=frames_last(dout): torch.autograd.grad(
-                o, ls, d, retain_graph=True))
+            library=lambda d=frames_last(dout): torch.autograd.grad(sd_out, leaves, d,
+                                                                    retain_graph=True))
+
+    temporal_case(2304, 320, primary=True)  # level 0
+    temporal_case(144, 1280)  # level 2; level 1 is drawn last, below
 
     # ff_ln_bwd: 10*T*C*I operations (h2, dgated, dh2 Wp); geglu_out_bwd: one
     # 2*T*C*I product. As their forwards, no single PyTorch call computes them.
@@ -682,7 +707,9 @@ def kernel_cases(torch, dev, f32=False):
         args = [r(t, 10240), r(t, 1280), r(1280, 5120, scale=5120 ** -0.5)]
         add("geglu_out_bwd", f"T={t} I=5120 C=1280", lambda a=args: geglu.geglu_out_bwd(*a),
             lambda ts: geglu.geglu_out_bwd_plain(*ts), args, flops=2 * t * 5120 * 1280,
-            primary=primary, composed=geglu_bwd_f32_composed(args) if f32 else None)
+            primary=primary,
+            composed=geglu_bwd_f32_composed(args) if f32 else geglu_bwd_composed(args),
+            l2_bytes=(geglu.geglu_out_bwd_l2_read_bytes(t, 5120, 1280), "g, w and h2"))
 
     # int8_dense at the five layer shapes of the hidden=10000 semantic MLP,
     # one 100-row chunk, f32 activations; the yardstick is a dequantize to
@@ -716,6 +743,7 @@ def kernel_cases(torch, dev, f32=False):
     conv("Cin=320 (12,36,64) skip half, zero bias", 12, 320, False, False, zero_bias=True)
     for t in (3456, 8640, 2400, 1, 37, 130):
         geglu_case(t)
+    temporal_case(576, 640)  # the train step's level 1
     # attention tile edges: a single query row, Lkv = 130 (two tiles, the
     # second of 2 rows) and 1030 (17 tiles, the last of 6 rows) with a second
     # segment of 70
@@ -746,7 +774,7 @@ def _nbytes(tensors):
 def phase_kernels(torch, report, f32=False):
     """Every case of ``kernel_cases`` (bf16, or with ``f32`` the f32 kernels
     against the same plain versions, bound F32_KERNEL_BOUND, bound_ms at the
-    FP32 rate without tensor cores, for the 3xTF32 kernels three tf32
+    FP32 rate without tensor cores, for TF32X3_BOUND_KERNELS three tf32
     products at the TF32 rate); the results go into ``report``."""
     dev = torch.device("cuda")
     bound = F32_KERNEL_BOUND if f32 else KERNEL_BOUND
@@ -754,7 +782,7 @@ def phase_kernels(torch, report, f32=False):
         kernel, label, kern, plain, args = (case[k] for k in
                                             ("kernel", "label", "kern", "plain", "args"))
         # operations a second at the card's peak for this kernel's products
-        peak = (PEAK_TF32_FLOPS / TF32_PASSES if kernel in TF32X3_KERNELS else
+        peak = (PEAK_TF32_FLOPS / TF32_PASSES if kernel in TF32X3_BOUND_KERNELS else
                 PEAK_F32_FLOPS if f32 else PEAK_FLOPS)
         got = [t for t in _outputs(kern()) if t is not None]
         torch.cuda.synchronize()

@@ -1,22 +1,30 @@
 // Hopper (sm_90a) building blocks shared by the kernels on wgmma: the
-// level-0 conv (conv3x3.cu) and the GEGLU out-projection (geglu_out.cu).
+// level-0 conv (conv3x3.cu), the GEGLU out-projection (geglu_out.cu) and its
+// backward (geglu_out_bwd.cu); the temporal backward's bulk copies.
 //
-// - shared-memory matrix descriptors of K-major bf16 operands: the 8 x 8
-//   core-matrix layout without swizzle (smem_desc), and rows of 64 bf16 (128
-//   bytes) in the 128-byte swizzle that a TMA load with
-//   CU_TENSOR_MAP_SWIZZLE_128B writes (smem_desc_sw128);
+// - shared-memory matrix descriptors of bf16 operands: K-major in the 8 x 8
+//   core-matrix layout without swizzle (smem_desc), K-major rows of 64 bf16
+//   (128 bytes) in the 128-byte swizzle that a TMA load with
+//   CU_TENSOR_MAP_SWIZZLE_128B writes (smem_desc_sw128), and MN-major rows
+//   of 64 bf16 along N in the same swizzle (smem_desc_sw128_mn);
 // - wgmma.mma_async m64n160k16 (bf16 -> f32): A from registers (the m16n8k16
 //   A fragment of each warp's 16 rows) or from shared memory, B from shared
-//   memory, 80 f32 accumulators a thread; fence, commit and wait;
+//   memory, 80 f32 accumulators a thread; m64n128k16 with both by descriptor
+//   and B MN-major (64 accumulators); fence, commit and wait;
 // - mbarriers counting the bytes of asynchronous copies: one arrival (the
 //   copying thread's, with the byte count), completed by the copies;
 // - copies by the bulk-copy engine: contiguous bytes device -> shared
-//   (bulk_copy), a 2-D box of a tensor map device -> shared (tma_load_2d), and
-//   contiguous bytes from this block's shared memory to another block's of
-//   the cluster (bulk_copy_to_cluster);
+//   (bulk_copy, bulk_load), a 2-D box of a tensor map device -> shared
+//   (tma_load_2d) and shared -> device (tma_store_2d, with its bulk groups),
+//   and contiguous bytes from this block's shared memory to another block's
+//   of the cluster (bulk_copy_to_cluster);
 // - thread-block clusters: a block's rank, the cluster-wide barrier, and
-//   arrivals on another block's mbarrier.
+//   arrivals on another block's mbarrier;
+// - on the host: 2-D tensor maps of bf16 matrices in the 128-byte swizzle
+//   (make_map_2d, through libcuda's cuTensorMapEncodeTiled).
 #pragma once
+
+#include <cuda.h>
 
 #include "flash_tiles.cuh"
 
@@ -36,6 +44,16 @@ __device__ __forceinline__ uint64_t smem_desc(const void* p, uint32_t lbo, uint3
 // is unused (1). A k16 step inside the row advances p by 16 values (32 bytes).
 __device__ __forceinline__ uint64_t smem_desc_sw128(const void* p) {
   return (uint64_t)((smem_addr(p) & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) |
+         ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
+}
+
+// Descriptor of an MN-major bf16 operand (B read as B^T: rows of the
+// operand's K, each 64 values of N in 128 bytes) in the 128-byte swizzle, as
+// a TMA box of 64 columns writes it: 8-row (K) groups 1024 bytes apart, the
+// next 64 values of N lbo bytes on. A k16 step advances p by 16 rows (2048
+// bytes).
+__device__ __forceinline__ uint64_t smem_desc_sw128_mn(const void* p, uint32_t lbo) {
+  return (uint64_t)((smem_addr(p) & 0x3FFFF) >> 4) | ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
          ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
 }
 
@@ -109,6 +127,43 @@ __device__ __forceinline__ void wgmma_m64n160k16_ss(float (&d)[80], uint64_t des
 #undef E2V_WGMMA_D80
 #undef E2V_WGMMA_D80_LIST
 
+#define E2V_WGMMA_D64                                                                         \
+  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),         \
+      "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), \
+      "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),           \
+      "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),           \
+      "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),           \
+      "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]),           \
+      "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),           \
+      "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),           \
+      "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),           \
+      "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]),           \
+      "+f"(d[62]), "+f"(d[63])
+#define E2V_WGMMA_D64_LIST                                       \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9,"                     \
+  " %10, %11, %12, %13, %14, %15, %16, %17, %18, %19,"           \
+  " %20, %21, %22, %23, %24, %25, %26, %27, %28, %29,"           \
+  " %30, %31, %32, %33, %34, %35, %36, %37, %38, %39,"           \
+  " %40, %41, %42, %43, %44, %45, %46, %47, %48, %49,"           \
+  " %50, %51, %52, %53, %54, %55, %56, %57, %58, %59,"           \
+  " %60, %61, %62, %63}"
+
+// d (64 x 128 f32 over the warpgroup, 64 a thread) += A (64 x 16 bf16,
+// K-major in shared memory, by descriptor) B (16 x 128, MN-major in shared
+// memory, by descriptor: tnsp-b = 1)
+__device__ __forceinline__ void wgmma_m64n128k16_ss_tb(float (&d)[64], uint64_t desc_a,
+                                                       uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " E2V_WGMMA_D64_LIST ","
+      " %64, %65, p, 1, 1, 0, 1;\n}\n"
+      : E2V_WGMMA_D64
+      : "l"(desc_a), "l"(desc_b), "r"(1));
+}
+
+#undef E2V_WGMMA_D64
+#undef E2V_WGMMA_D64_LIST
+
 // mbarrier of a ring slot: one arrival (the copying thread's, with the
 // slot's byte count), completed by the copies' bytes
 __device__ __forceinline__ void mbar_init(uint64_t* bar) {
@@ -129,15 +184,22 @@ __device__ __forceinline__ void mbar_expect(uint64_t* bar, uint32_t bytes) {
                : "memory");
 }
 
-// bytes (a multiple of 16) device -> shared by the bulk-copy engine, counted
-// on bar
-__device__ __forceinline__ void bulk_copy(void* dst, const void* src, uint32_t bytes,
+// bytes (a multiple of 16, both addresses 16-byte aligned) device -> shared
+// by the bulk-copy engine, counted on bar, whose fill expected them (one
+// mbar_expect may cover several copies)
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes,
                                           uint64_t* bar) {
-  mbar_expect(bar, bytes);
   asm volatile(
       "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
       ::"r"(smem_addr(dst)), "l"(src), "r"(bytes), "r"(smem_addr(bar))
       : "memory");
+}
+
+// one copy as above that is its mbarrier's whole fill
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src, uint32_t bytes,
+                                          uint64_t* bar) {
+  mbar_expect(bar, bytes);
+  bulk_load(dst, src, bytes, bar);
 }
 
 // The box of a 2-D tensor map (a __grid_constant__ CUtensorMap) at element
@@ -152,6 +214,34 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const void* map, int x, i
       ::"r"(smem_addr(dst)), "l"(reinterpret_cast<uint64_t>(map)), "r"(x), "r"(y),
         "r"(smem_addr(bar))
       : "memory");
+}
+
+// bytes (a multiple of 16, both addresses 16-byte aligned) shared -> device
+// by the bulk-copy engine, in this thread's current bulk group
+__device__ __forceinline__ void bulk_store(void* dst, const void* src, uint32_t bytes) {
+  asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n"
+               ::"l"(dst), "r"(smem_addr(src)), "r"(bytes)
+               : "memory");
+}
+
+// The box of a 2-D tensor map at element (x, y) shared -> device, in this
+// thread's current bulk group (parts outside the tensor are not written)
+__device__ __forceinline__ void tma_store_2d(const void* map, int x, int y, const void* src) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%1, %2}], [%3];\n"
+      ::"l"(reinterpret_cast<uint64_t>(map)), "r"(x), "r"(y), "r"(smem_addr(src))
+      : "memory");
+}
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+// this thread's bulk groups have read their shared memory (it may be rewritten)
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+// this thread's bulk groups are complete (their writes done)
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
 }
 
 // --- thread-block clusters -------------------------------------------------
@@ -191,6 +281,49 @@ __device__ __forceinline__ void bulk_copy_to_cluster(const void* src, uint32_t b
       ::"r"(cluster_addr(smem_addr(src), rank)), "r"(smem_addr(src)), "r"(bytes),
         "r"(cluster_addr(smem_addr(bar), rank))
       : "memory");
+}
+
+// --- tensor maps (host) -----------------------------------------------------
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// libcuda's cuTensorMapEncodeTiled, looked up through the runtime (no link to libcuda)
+inline EncodeTiled encode_tiled() {
+  static EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                                             cudaEnableDefault, &found);
+#else
+    const cudaError_t err =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(p)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// tensor map of a (rows, cols) bf16 matrix whose rows start row_bytes apart
+// (a multiple of 16, as base's address), boxes of 64 columns x box_rows rows
+// in the 128-byte swizzle, zeros outside the matrix
+inline bool make_map_2d(CUtensorMap* map, const void* base, int rows, int cols,
+                        long long row_bytes, int box_rows) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)row_bytes};
+  const cuuint32_t box[2] = {64, (cuuint32_t)box_rows};
+  const cuuint32_t elem[2] = {1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base), dims, strides,
+                box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 }  // namespace e2v

@@ -225,6 +225,12 @@ def stream_of(t):
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
+def aligned16(t):
+    """``t`` (contiguous) at a 16-byte aligned address: a copy where a view's
+    offset puts it elsewhere (the kernels read it in 16-byte pieces)."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
 def require(cond: bool, kernel: str, what: str):
     if not cond:
         raise ValueError(f"{kernel}: {what}")

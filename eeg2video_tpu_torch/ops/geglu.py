@@ -25,12 +25,15 @@ import torch
 import torch.nn.functional as F
 
 from . import _build
+from ._build import aligned16 as _aligned16
 
 FF_MAX_C = 640  # C <= 640 runs the whole block in ff_ln (geglu.py:407)
 FF_GRID = 64    # csrc/ff_ln.cu: C is a multiple of 64; narrower blocks come zero-padded
 # csrc/geglu_out.cu: a row block of GEGLU_ROWS rows is a cluster of blocks
 # along C that share its gate and h2; I is walked in GEGLU_CHUNK-column chunks
 GEGLU_ROWS, GEGLU_CHUNK = 64, 64
+# csrc/geglu_out_bwd.cu: tiles of GEGLU_BWD_TILE rows x GEGLU_BWD_TILE columns of dgated
+GEGLU_BWD_TILE = 128
 
 
 def _gelu_gate(h2, inner):
@@ -99,12 +102,6 @@ def geglu_out_bwd_plain(h2, g, w):
 
 def _f32(t):
     return t.float().contiguous()
-
-
-def _aligned16(t):
-    """``t`` (contiguous) at a 16-byte aligned address: a copy where a view's
-    offset puts it elsewhere (the kernel reads it in 16-byte vectors)."""
-    return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
 def _param_grads(plain, inputs, params, needs, g):
@@ -244,6 +241,16 @@ def geglu_out_l2_read_bytes(t, inner, c):
     return -(-t // GEGLU_ROWS) * c * (inner * 2 + 4) + t * 2 * inner * 2
 
 
+def geglu_out_bwd_l2_read_bytes(t, inner, c):
+    """Bytes ``geglu_out_bwd``'s blocks copy from L2 in one call, from its
+    tiling (GEGLU_BWD_TILE x GEGLU_BWD_TILE tiles of dgated): each tile reads
+    its rows of g below T (C bf16 each) and W's rows (C) at its columns below
+    I, so g is read once per column of tiles and W once per row of tiles; h2
+    (2I bf16 a row) is read once."""
+    tiles_t, tiles_i = -(-t // GEGLU_BWD_TILE), -(-inner // GEGLU_BWD_TILE)
+    return (tiles_i * t * c + tiles_t * c * inner + t * 2 * inner) * 2
+
+
 def _geglu_f32(kernel, h2, w, extra):
     """Launch ``e2v_geglu_f32`` (extra: b) or ``e2v_geglu_f32_bwd`` (extra: g)."""
     c, inner = w.shape
@@ -308,8 +315,8 @@ def geglu_out_bwd(h2, g, w):
     req(g.shape == (*h2.shape[:-1], c), kernel, "g must be (..., C)")
     if _kernel_dtype(kernel, h2, g, w) == torch.float32:
         return _geglu_f32("geglu_out_bwd_f32", h2, w, g)
-    h2c, gc = h2.reshape(-1, 2 * inner).contiguous(), g.reshape(-1, c).contiguous()
-    w = w.contiguous()
+    h2c = _aligned16(h2.reshape(-1, 2 * inner).contiguous())
+    gc, w = _aligned16(g.reshape(-1, c).contiguous()), _aligned16(w.contiguous())
     dh2 = torch.empty_like(h2c)
     rc = _build.library().e2v_geglu_out_bwd(
         h2c.data_ptr(), gc.data_ptr(), w.data_ptr(), dh2.data_ptr(), h2c.shape[0], inner, c,

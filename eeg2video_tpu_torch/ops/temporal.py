@@ -27,6 +27,29 @@ from . import _build
 KERNEL_FWD = "temporal_attention_fwd"
 KERNEL_BWD = "temporal_attention_bwd"
 MAX_FRAMES = 8  # csrc/temporal_attention.cu instantiates F = 1..8
+# the backward kernel's staging (csrc/temporal_attention.cu): a token's row is
+# cut into units of about BWD_UNIT_BYTES holding whole heads; a run of units
+# is staged in two stages of shared memory of at most BWD_SMEM bytes
+BWD_UNIT_BYTES = 640
+BWD_STAGES = 2
+BWD_SMEM = 220 * 1024
+
+
+def bwd_plan(heads, head_dim, itemsize):
+    """How the backward kernel cuts a (B, F, L, heads * head_dim) operand of
+    ``itemsize``-byte values, as ``temporal_bwd_units`` in the CUDA source:
+    (units a token's row is cut into, values of a unit, values a lane moves a
+    step, steps a lane takes through a unit). A unit holds whole heads and a
+    multiple of 32 values, at least BWD_UNIT_BYTES where the heads allow."""
+    hd = heads * head_dim
+    units = 1
+    while (heads % (2 * units) == 0 and (hd // 32) % (2 * units) == 0
+           and hd * itemsize // (2 * units) >= BWD_UNIT_BYTES):
+        units *= 2
+    width = hd // units
+    per_lane = width // 32
+    vec = 2 if itemsize == 2 and per_lane % 2 == 0 else 1
+    return units, width, vec, per_lane // vec
 
 
 def _split(t, heads):
@@ -104,10 +127,19 @@ def temporal_attention_fwd(q, k, v, heads, scale=None):
 def temporal_attention_bwd(q, k, v, dout, heads, scale=None):
     """(dq, dk, dv) of ``temporal_attention_fwd`` from its operands and the
     output's gradient (the probabilities are recomputed). A CUDA tensor
-    launches the kernel; a CPU tensor takes ``temporal_attention_bwd_plain``."""
+    launches the kernel; a CPU tensor takes ``temporal_attention_bwd_plain``.
+    The kernel stages units of ``bwd_plan`` in shared memory: a unit whose
+    4F slices do not fit two stages (more than 1760 bf16 or 880 f32 values
+    at F = 8; the model's units hold 320 bf16 or 160 f32 values) is refused
+    by name."""
     if not q.is_cuda:
         return temporal_attention_bwd_plain(q, k, v, dout, heads, scale)
     (q, k, v, dout), (b, f, l, d), kernel = _checked(KERNEL_BWD, (q, k, v, dout), heads)
+    q, k, v, dout = (_build.aligned16(t) for t in (q, k, v, dout))
+    width = bwd_plan(heads, d, q.element_size())[1]
+    _build.require(BWD_STAGES * 4 * f * width * q.element_size() <= BWD_SMEM, kernel,
+                   f"a unit of {width} values ({heads} heads of {d}) over {f} frames does not "
+                   f"fit two stages of shared memory")
     if scale is None:
         scale = 1.0 / math.sqrt(d)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(q), torch.empty_like(q)

@@ -1,4 +1,4 @@
-"""Time the attention kernels (or ``ff_ln``, ``ff_ln_bwd``, their f32 pair, ``conv3x3``, ``geglu_out``) of one or more checkouts on one GPU.
+"""Time the attention kernels (or another kernel's cases, ``--cases``) of one or more checkouts on one GPU.
 
     python -m eeg2video_tpu_torch.utils.attention_ab --tree PARENT --tree . --tree . --tree PARENT
     python -m eeg2video_tpu_torch.utils.attention_ab --cases attention_f32 --tree PARENT ...
@@ -8,6 +8,8 @@
     python -m eeg2video_tpu_torch.utils.attention_ab --cases ff_bwd_f32 --tree PARENT --tree . ...
     python -m eeg2video_tpu_torch.utils.attention_ab --cases conv3x3 --tree PARENT --tree . ...
     python -m eeg2video_tpu_torch.utils.attention_ab --cases geglu_out --tree PARENT --tree . ...
+    python -m eeg2video_tpu_torch.utils.attention_ab --cases temporal --tree PARENT --tree . ...
+    python -m eeg2video_tpu_torch.utils.attention_ab --cases geglu_out_bwd --tree PARENT ...
 
 Each ``--tree`` is the root of a checkout. Its ``eeg2video_tpu_torch`` is
 imported in a process of its own (two versions never share a process), its
@@ -55,7 +57,14 @@ dispatch, 8640 and 2400 for the train step at batch 10), with the cuBLAS
 composition F.linear(h * F.gelu(g), W, b) as ``composed_ms``, the bytes the
 kernel's blocks copy from L2 (``l2_bytes``, from the tiling, where the tree
 has ``geglu.geglu_out_l2_read_bytes``) and a digest of the output bits at
-the timed shapes and at T = 1, 37 and 130.
+the timed shapes and at T = 1, 37 and 130. ``--cases temporal`` times the
+temporal pair (forward and backward) in bf16 and in f32 at the train step's
+levels 0-2 ((10, 6, 2304, 320), (10, 6, 576, 640), (10, 6, 144, 1280), H = 8)
+and digests both at those shapes and at lengths 1, 37, 130 of each width,
+F = 1 and F = 8. ``--cases geglu_out_bwd`` times ``geglu_out_bwd`` at the
+train step's T = 8640 and 2400 (I = 5120, C = 1280), with the cuBLAS
+composition g @ W -> the gate's backward in eager ops as ``composed_ms``, and
+digests its output at those and at T = 1, 37, 130.
 """
 
 from __future__ import annotations
@@ -361,6 +370,61 @@ def _geglu_cases(torch, shapes):
     return {f"T={t} I=5120 C=1280": geglu_args(r, t) for t in shapes}
 
 
+# the temporal pair at the train step's levels 0-2 (batch 10, 6 frames, H = 8:
+# D = 40, 80, 160), and edges: lengths that end inside a backward run at each
+# width, and F = 1 and F = 8, compared bit for bit only
+TEMPORAL_SHAPES = ((10, 6, 2304, 320), (10, 6, 576, 640), (10, 6, 144, 1280))
+TEMPORAL_EDGES = (*((2, 6, l, hd) for hd in (320, 640, 1280) for l in (1, 37, 130)),
+                  (2, 1, 37, 320), (1, 8, 130, 1280))
+
+
+def _temporal_cases(torch, temporal, shapes, dtype):
+    """{label: (forward call, backward call)} of the temporal pair, from a seed."""
+    g = torch.Generator(device="cuda").manual_seed(0)
+    cases = {}
+    for shape in shapes:
+        q, k, v, dout = (torch.randn(*shape, generator=g, device="cuda").to(dtype)
+                         for _ in range(4))
+        cases[f"{tuple(shape)} {str(dtype).split('.')[-1]}"] = (
+            lambda q=q, k=k, v=v: temporal.temporal_attention_fwd(q, k, v, 8),
+            lambda q=q, k=k, v=v, d=dout: temporal.temporal_attention_bwd(q, k, v, d, 8))
+    return cases
+
+
+def geglu_bwd_composed(args):
+    """The cuBLAS composition of ``geglu_out_bwd``: dgated = g @ W, then the
+    gate's backward in eager ops (bf16). A yardstick only, which the port
+    never calls."""
+    import torch
+    import torch.nn.functional as F
+
+    h2, g, w = args
+    h, gate = h2.chunk(2, dim=-1)
+
+    def run():
+        dgated = g @ w
+        return torch.cat([dgated * F.gelu(gate),
+                          torch.ops.aten.gelu_backward(dgated * h, gate)], dim=-1)
+    return run
+
+
+# row counts of the geglu_out_bwd launches of a train step (level 2, the mid
+# block), and rows that end inside a tile, compared bit for bit only
+GEGLU_BWD_SHAPES = (8640, 2400)
+GEGLU_BWD_EDGES = (1, 37, 130)
+
+
+def _geglu_bwd_cases(torch, shapes):
+    """{label: (h2, g, w)} of geglu_out_bwd at I = 5120, C = 1280, from a seed."""
+    g = torch.Generator(device="cuda").manual_seed(0)
+
+    def r(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=g, device="cuda") * scale).bfloat16()
+
+    return {f"T={t} I=5120 C=1280": [r(t, 10240), r(t, 1280), r(1280, 5120, scale=5120 ** -0.5)]
+            for t in shapes}
+
+
 def _digest(torch, *outs):
     """The first 16 hex digits of the sha256 of the tensors' bits."""
     h = hashlib.sha256()
@@ -422,6 +486,25 @@ def _one(tree, which="attention"):
         every = {**cases, **_geglu_cases(torch, GEGLU_EDGES)}
         line["digest"] = {label: _digest(torch, geglu.geglu_out(*args))
                           for label, args in every.items()}
+    elif which == "temporal":
+        cases, every = {}, {}
+        for dtype in (torch.bfloat16, torch.float32):
+            cases.update(_temporal_cases(torch, temporal, TEMPORAL_SHAPES, dtype))
+            every.update(_temporal_cases(torch, temporal, TEMPORAL_EDGES, dtype))
+        every.update(cases)
+        line["ms"] = {f"{way} {label}": _time(torch, fns[i]) for label, fns in cases.items()
+                      for i, way in enumerate(("fwd", "bwd"))}
+        line["digest"] = {f"{way} {label}": _digest(torch, *_as_tuple(fns[i]()))
+                          for label, fns in every.items() for i, way in enumerate(("fwd", "bwd"))}
+    elif which == "geglu_out_bwd":
+        cases = _geglu_bwd_cases(torch, GEGLU_BWD_SHAPES)
+        line["ms"] = {label: _time(torch, lambda a=args: geglu.geglu_out_bwd(*a))
+                      for label, args in cases.items()}
+        line["composed_ms"] = {label: _time(torch, geglu_bwd_composed(args))
+                               for label, args in cases.items()}
+        every = {**cases, **_geglu_bwd_cases(torch, GEGLU_BWD_EDGES)}
+        line["digest"] = {label: _digest(torch, geglu.geglu_out_bwd(*args))
+                          for label, args in every.items()}
     elif which in ("ff_ln", "ff_ln_bwd", "ff_f32", "ff_bwd_f32"):
         make = _ff_cases if which in ("ff_ln", "ff_f32") else _ff_bwd_cases
         dtype = torch.float32 if which.endswith("f32") else torch.bfloat16
@@ -469,7 +552,8 @@ def main(argv=None):
                         help="root of a checkout (repeat: one process each, in order)")
     parser.add_argument("--cases",
                         choices=("attention", "attention_f32", "ff_ln", "ff_ln_bwd", "ff_f32",
-                                 "ff_bwd_f32", "conv3x3", "geglu_out"),
+                                 "ff_bwd_f32", "conv3x3", "geglu_out", "temporal",
+                                 "geglu_out_bwd"),
                         default="attention",
                         help="the kernels to time (default: the attention cases)")
     args = parser.parse_args(argv)
