@@ -11,8 +11,8 @@ printed on its own line; any failure prints ``FAIL ...`` and exits 1:
 2. build: compile every kernel from ``eeg2video_tpu_torch/csrc`` (and the
    host-side GIF encoder, so that no request pays for its build); the
    kernels of the main paths must be in the build log without spills (the
-   temporal backward at the model's D = 40, 80, 160 and F = 6, bf16 and f32;
-   ``geglu_out_bwd``);
+   temporal pair's staged route at the model's D = 40, 80, 160 and F = 6,
+   bf16 and f32; ``geglu_out_bwd``);
 3. kernels: each kernel (forward and backward) against its plain PyTorch
    version in f32 on the same inputs at the main paths' shapes (generation
    at batch 1 with guidance, the train step at batch 10), with its time, the plain version's
@@ -27,7 +27,10 @@ printed on its own line; any failure prints ``FAIL ...`` and exits 1:
    runs at and at T = 1, 37, 130), whose rows of a T = 1728 call must equal
    the same rows inside a T = 3456 call, and for ``geglu_out_bwd`` (the
    cuBLAS composition g @ W -> the gate's backward in eager ops); the
-   temporal pair at the train step's levels 0-2; then the f32 counterparts (f32
+   temporal pair at the train step's levels 0-2 and at 12 heads over 10
+   frames, 10 heads, 8 heads over 32 frames (the kernels' any route), the
+   attention at 12 heads of D = 53 (heads padded to 56 around the kernels);
+   then the f32 counterparts (f32
    operands: the kernels JAX also runs at f32) at the same shapes, each within
    1e-4 of its plain version's max and bit for bit twice, bound_ms at the FP32
    rate without tensor cores (66.9 TFLOP/s), for the kernels on 3xTF32 (the
@@ -63,7 +66,8 @@ printed on its own line; any failure prints ``FAIL ...`` and exits 1:
    no conv), against the same forward with the plain versions patched into
    ``models.attention3d`` (rtol 1e-3, atol 1e-4), then profiled;
 9. train parity and train: a narrow train step and ``mask.grad`` via the
-   kernels against the plain versions, and the narrow step at f32;
+   kernels against the plain versions, the narrow step at 12 heads over 10
+   frames, and the narrow step at f32;
    ``cli.train_tuneavideo.train`` at full width (three optimizer steps at
    batch 10, checkpoints, resume), one masked forward/backward with a soft
    ``attention_mask`` that asks for a gradient (the dbias launches counted),
@@ -171,9 +175,9 @@ KERNEL_SOURCES = {
     "fused_attention_bwd": ("eeg2video_tpu_torch/csrc/flash_attention_bhld.cu",
                             "eeg2video_tpu/ops/attention.py:118 _flash_dq_kernel, "
                             ":147 _flash_dkv_kernel"),
-    "temporal_attention_fwd": ("eeg2video_tpu_torch/csrc/temporal_attention.cu",
+    "temporal_attention_fwd": ("eeg2video_tpu_torch/csrc/temporal_attention.cuh",
                                "eeg2video_tpu/ops/temporal.py:81 _temporal_fwd_kernel"),
-    "temporal_attention_bwd": ("eeg2video_tpu_torch/csrc/temporal_attention.cu",
+    "temporal_attention_bwd": ("eeg2video_tpu_torch/csrc/temporal_attention.cuh",
                                "eeg2video_tpu/ops/temporal.py:95 _temporal_bwd_kernel"),
     "ff_ln": ("eeg2video_tpu_torch/csrc/ff_ln.cu",
               "eeg2video_tpu/ops/geglu.py:213 _ff_kernel"),
@@ -200,9 +204,9 @@ KERNEL_SOURCES = {
                                 "eeg2video_tpu/ops/attention.py:216 _flash_fwd (:75)"),
     "fused_attention_bwd_f32": ("eeg2video_tpu_torch/csrc/flash_f32_bwd.cu",
                                 "eeg2video_tpu/ops/attention.py:269 _flash_bwd (:118, :147)"),
-    "temporal_attention_fwd_f32": ("eeg2video_tpu_torch/csrc/temporal_attention.cu",
+    "temporal_attention_fwd_f32": ("eeg2video_tpu_torch/csrc/temporal_attention.cuh",
                                    "eeg2video_tpu/ops/temporal.py:158 _temporal_fwd_pallas (:81)"),
-    "temporal_attention_bwd_f32": ("eeg2video_tpu_torch/csrc/temporal_attention.cu",
+    "temporal_attention_bwd_f32": ("eeg2video_tpu_torch/csrc/temporal_attention.cuh",
                                    "eeg2video_tpu/ops/temporal.py:179 _temporal_bwd_pallas (:95)"),
     "ff_ln_f32": ("eeg2video_tpu_torch/csrc/ff_f32.cu",
                   "eeg2video_tpu/ops/geglu.py:242 _ff_pallas (:213 _ff_kernel)"),
@@ -301,17 +305,19 @@ def phase_build(build):
     for name in FF_F32_KERNELS:
         if name not in res or name in spilled:
             fail(f"build: {name} missing from build.log or spills")
-    # the temporal backward at the model's D = 40, 80 and 160 (H = 8) and
-    # F = 6, bf16 and f32: temporal_bwd_kernel<F, VEC, steps, bytes a value>
+    # the temporal pair's staged route at the model's D = 40, 80 and 160
+    # (H = 8) and F = 6, bf16 and f32: temporal_{fwd,bwd}_kernel<F, VEC,
+    # steps, bytes a value>
     from eeg2video_tpu_torch.ops import temporal
 
     for d in (40, 80, 160):
         for itemsize in (2, 4):
-            _, _, vec, iters = temporal.bwd_plan(8, d, itemsize)
-            name = f"temporal_bwd_kernel<6,{vec},{iters},{itemsize}>"
-            if name not in res or name in spilled:
-                fail(f"build: {name} (D = {d}, {itemsize}-byte values) missing from build.log "
-                     f"or spills")
+            _, _, vec, iters = temporal.units_of(8, d, itemsize)
+            for kind in ("fwd", "bwd"):
+                name = f"temporal_{kind}_kernel<6,{vec},{iters},{itemsize}>"
+                if name not in res or name in spilled:
+                    fail(f"build: {name} (D = {d}, {itemsize}-byte values) missing from "
+                         f"build.log or spills")
     # the f32 attention pair at the model's D = 40 and 80
     for name in ("flash_f32_fwd_kernel<{}>", "flash_f32_dq_kernel<{}>",
                  "flash_f32_dkv_kernel<{},0>", "flash_f32_dkv_kernel<{},1>"):
@@ -504,10 +510,10 @@ def kernel_cases(torch, dev, f32=False):
         return tuple(torch.cat([o[i] for o in outs]) if outs[0][i] is not None else None
                      for i in range(len(outs[0])))
 
-    def sdpa_operands(q, k0, v0, k1, v1):
+    def sdpa_operands(q, k0, v0, k1, v1, heads=heads):
         return sdpa_views(torch, q, k0, v0, k1, v1, heads)
 
-    def attn_train(label, q, k0, v0, k1=None, v1=None, step=2, primary_bwd=False):
+    def attn_train(label, q, k0, v0, k1=None, v1=None, step=2, primary_bwd=False, heads=heads):
         """Forward with lse (kernel A) and backward (kernel B) of one call."""
         b, hd = k0.shape[0], q.shape[-1]
         n_rows = q.numel() // hd
@@ -515,7 +521,7 @@ def kernel_cases(torch, dev, f32=False):
         dout = r(*q.shape)
         out, lse = attention.flash_attention_fwd(q, k0, v0, heads, k1=k1, v1=v1,
                                                  return_lse=True)
-        qh, kh, vh = sdpa_operands(q, k0, v0, k1, v1)
+        qh, kh, vh = sdpa_operands(q, k0, v0, k1, v1, heads)
         add("flash_attention_fwd", f"{label} +lse",
             lambda: attention.flash_attention_fwd(q, k0, v0, heads, k1=k1, v1=v1,
                                                   return_lse=True),
@@ -665,21 +671,22 @@ def kernel_cases(torch, dev, f32=False):
     # (B, L*H, F, D) views of the same tensors (no copy: frame stride L*H*D),
     # and autograd through it for the backward, the forward outside the
     # timed region.
-    def temporal_case(l, hd, primary=False):
-        q, k, v, dout = (r(tb, 6, l, hd) for _ in range(4))
-        frames_last = lambda t: t.view(tb, 6, l * heads, hd // heads).transpose(1, 2)
+    def temporal_case(l, hd, primary=False, f=6, heads=heads, b=tb):
+        q, k, v, dout = (r(b, f, l, hd) for _ in range(4))
+        frames_last = lambda t: t.view(b, f, l * heads, hd // heads).transpose(1, 2)
         qf, kf, vf = frames_last(q), frames_last(k), frames_last(v)
-        add("temporal_attention_fwd", f"({tb},6,{l},{hd}) D={hd // heads}",
+        label = f"({b},{f},{l},{hd}) {heads} heads of D={hd // heads}"
+        add("temporal_attention_fwd", label,
             lambda: temporal.temporal_attention_fwd(q, k, v, heads),
             lambda ts: temporal.temporal_attention_plain(*ts, heads), [q, k, v],
-            flops=4 * tb * l * 6 * 6 * hd, primary=primary,
+            flops=4 * b * l * f * f * hd, primary=primary,
             library=lambda: F.scaled_dot_product_attention(qf, kf, vf))
         leaves = [t.detach().requires_grad_() for t in (qf, kf, vf)]
         sd_out = F.scaled_dot_product_attention(*leaves)
-        add("temporal_attention_bwd", f"({tb},6,{l},{hd}) D={hd // heads}",
+        add("temporal_attention_bwd", label,
             lambda: temporal.temporal_attention_bwd(q, k, v, dout, heads),
             lambda ts: temporal.temporal_attention_bwd_plain(*ts, heads), [q, k, v, dout],
-            flops=10 * tb * l * 6 * 6 * hd, primary=primary,
+            flops=10 * b * l * f * f * hd, primary=primary,
             library=lambda d=frames_last(dout): torch.autograd.grad(sd_out, leaves, d,
                                                                     retain_graph=True))
 
@@ -744,6 +751,18 @@ def kernel_cases(torch, dev, f32=False):
     for t in (3456, 8640, 2400, 1, 37, 130):
         geglu_case(t)
     temporal_case(576, 640)  # the train step's level 1
+    # the any route: head and frame counts off the staged route's grid (12
+    # heads of D = 53 over 10 frames, 10 heads of D = 64, 8 heads over 32
+    # frames), at batch 2
+    temporal_case(576, 636, f=10, heads=12, b=2)
+    temporal_case(576, 640, heads=10, b=2)
+    temporal_case(576, 320, f=32, b=2)
+    # attention at 12 heads of D = 53, which the wrappers pad to 56 around the
+    # kernels (one segment and two)
+    attn_train("D=53 12 heads (2,576,636)x77", r(2, 576, 636), r(2, 77, 636), r(2, 77, 636),
+               heads=12)
+    attn_train("D=53 12 heads (2,2,576,636)x[576|576]", r(2, 2, 576, 636), r(2, 576, 636),
+               r(2, 576, 636), k1=r(2, 2, 576, 636), v1=r(2, 2, 576, 636), heads=12)
     # attention tile edges: a single query row, Lkv = 130 (two tiles, the
     # second of 2 rows) and 1030 (17 tiles, the last of 6 rows) with a second
     # segment of 70
@@ -1417,12 +1436,15 @@ def _nonzero(launches):
     return {k: n for k, n in launches.items() if n}
 
 
-def phase_train_parity(torch, build, f32=False):
+def phase_train_parity(torch, build, f32=False, heads=8, frames=6):
     """A narrow UNet on the card: the fine-tune loss and its trainable
     gradients through the kernels, against the same model with the plain
     versions (f32 inside, autograd through them) in the kernels' place; in
-    bf16, then the gradient of a soft mask; with ``f32`` at
-    compute_dtype="float32" through the f32 kernels alone."""
+    bf16, then (at 8 heads) the gradient of a soft mask; with ``f32`` at
+    compute_dtype="float32" through the f32 kernels alone. ``heads`` = 12 and
+    ``frames`` = 10: head dims 5 and 10 (the attention on heads padded to 8
+    and 16, the temporal pair on its any route) and more frames than the
+    staged route takes."""
     import copy
 
     from eeg2video_tpu_torch.models.init import random_init_
@@ -1430,19 +1452,19 @@ def phase_train_parity(torch, build, f32=False):
     from eeg2video_tpu_torch.train import videodiffusion as vd
 
     dev = torch.device("cuda")
-    cfg = UNet3DConfig(block_out_channels=(64, 128, 128, 128), attention_heads=8)
+    cfg = UNet3DConfig(block_out_channels=(64, 128, 128, 128), attention_heads=heads)
     tcfg = vd.VideoDiffusionTrainConfig(remat=True, remat_min_hw=64,
                                         compute_dtype="float32" if f32 else "bfloat16")
     g = torch.Generator(device=dev).manual_seed(5)
     unet = random_init_(UNet3DConditionModel(cfg).to(dev), g)
     twin = copy.deepcopy(unet)
     masked_pair = (copy.deepcopy(unet), copy.deepcopy(unet))  # for the mask.grad parity below
-    post = torch.cat([torch.randn(2, 6, 16, 16, 4, generator=g, device=dev),
-                      0.3 * torch.randn(2, 6, 16, 16, 4, generator=g, device=dev)], dim=-1)
+    post = torch.cat([torch.randn(2, frames, 16, 16, 4, generator=g, device=dev),
+                      0.3 * torch.randn(2, frames, 16, 16, 4, generator=g, device=dev)], dim=-1)
     ctx = torch.randn(2, 77, 768, generator=g, device=dev)
     draws = dict(t=torch.tensor([10, 900], device=dev),
-                 noise=torch.randn(2, 6, 16, 16, 4, generator=g, device=dev),
-                 eps=torch.randn(12, 16, 16, 4, generator=g, device=dev))
+                 noise=torch.randn(2, frames, 16, 16, 4, generator=g, device=dev),
+                 eps=torch.randn(2 * frames, 16, 16, 4, generator=g, device=dev))
 
     def loss_and_grads(model):
         state = vd.init_video_train_state(model, tcfg, dev)
@@ -1461,19 +1483,21 @@ def phase_train_parity(torch, build, f32=False):
     bound = F32_TRAIN_BOUND if f32 else TRAIN_BOUND
     wanted = {"flash_attention_fwd", "flash_attention_bwd", "temporal_attention_fwd",
               "temporal_attention_bwd", "ff_ln", "ff_ln_bwd"}
+    if heads != 8:  # the attention and temporal kernels; the feed-forward's route varies
+        wanted -= {"ff_ln", "ff_ln_bwd"}
     if f32:  # the f32 kernels only, each of the narrow model's
         wanted = {f"{k}_f32" for k in wanted}
     ok = (abs(loss_k - loss_p) <= bound * abs(loss_p) and total < bound
           and all(bool(torch.isfinite(v).all()) for v in grads_k.values())
           and (set(launched) == wanted if f32 else wanted <= set(launched)))
-    say(f"train parity (64,128,128,128) 8 heads, batch 2, 6 frames of 16x16, "
+    say(f"train parity (64,128,128,128) {heads} heads, batch 2, {frames} frames of 16x16, "
         f"{'f32' if f32 else 'bf16'}, levels 0-1 recomputed: loss {loss_k:.6f} via kernels vs "
         f"{loss_p:.6f} via plain; {len(grads_p)} trainable gradients, rel_err of all {total:.3e} "
         f"(bound {bound:.0e}), worst tensor {worst[0]:.3e} ({worst[1]}); launches {launched} "
         f"{'ok' if ok else 'FAILED'}")
     if not ok:
-        fail(f"train parity ({'f32' if f32 else 'bf16'})")
-    if f32:
+        fail(f"train parity ({'f32' if f32 else 'bf16'}, {heads} heads, {frames} frames)")
+    if f32 or heads != 8:
         return
 
     # the same step with a soft attention_mask that asks for a gradient:
@@ -1965,6 +1989,7 @@ def main():
     torch.cuda.empty_cache()
     f32_gen_launches = phase_f32_generation(torch, build)
     phase_train_parity(torch, build)
+    phase_train_parity(torch, build, heads=12, frames=10)
     phase_train_parity(torch, build, f32=True)
     train_launches, dbias_launches = phase_train(torch, build, pipe.vae, dana_latents)
     f32_train_launches, f32_dbias_launches = phase_f32_train(torch, build)

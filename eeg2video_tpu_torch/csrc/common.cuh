@@ -10,15 +10,14 @@
 // copies) from shared memory by descriptor; geglu_out (geglu_out.cu) reads
 // both operands by descriptor, its gated A tile written by the block, W and
 // h2 brought by TMA (the wgmma and copy helpers of both: hopper.cuh), and so
-// does geglu_out_bwd (geglu_out_bwd.cu, W read MN-major). The temporal
-// backward stages runs of its operands by bulk copies (temporal_attention.cu,
-// f32 arithmetic without tensor cores). Two first versions remain:
-// int8_dense (bf16 WMMA tiles, 16x16x16 with f32 accumulation, staged through
-// shared memory) and the temporal forward (a warp per token, no tensor cores).
-// Of the f32 counterparts that f32 operands launch, the attention pair
-// (flash_f32*.cu) and the feed-forward pair (ff_f32.cu) run 3xTF32 on
-// mma.sync.m16n8k8 (tf32_mma.cuh); geglu_f32.cu and temporal_attention.cu's
-// f32 instantiation are plain SIMT kernels (f32_tiles.cuh). Warp
+// does geglu_out_bwd (geglu_out_bwd.cu, W read MN-major). The temporal pair
+// stages runs of its operands by bulk copies (temporal_attention.cuh, f32
+// arithmetic without tensor cores, bf16 and f32 instantiations). One first
+// version remains: int8_dense (bf16 WMMA tiles, 16x16x16 with f32
+// accumulation, staged through shared memory). Of the f32 counterparts that
+// f32 operands launch, the attention pair (flash_f32*.cu) and the
+// feed-forward pair (ff_f32.cu) run 3xTF32 on mma.sync.m16n8k8
+// (tf32_mma.cuh); geglu_f32.cu is a plain SIMT kernel (f32_tiles.cuh). Warp
 // specialisation is later work.
 #pragma once
 

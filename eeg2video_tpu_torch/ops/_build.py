@@ -8,9 +8,11 @@ first use, never at import, into
 hash of the sources and flags, so a changed source rebuilds and an
 unchanged one loads the existing library.
 
-Each C entry point returns the CUDA launch status; ``check`` raises on any
-non-zero value. ``launches`` counts, per kernel, the launches its wrapper
-made; a wrapper adds one only where it launches its kernel.
+Each C entry point returns the CUDA launch status, or DOES_NOT_FIT for a
+call whose operands do not fit a block's shared memory; ``check`` raises on
+any non-zero value (a ValueError naming the kernel for DOES_NOT_FIT).
+``launches`` counts, per kernel, the launches its wrapper made; a wrapper
+adds one only where it launches its kernel.
 """
 
 from __future__ import annotations
@@ -70,7 +72,8 @@ SIGNATURES = {
 # "flash_attention_bwd_dbias" counts those launches of flash_attention_bwd
 # that also wrote the gradient of bias0 (it is no kernel of its own). The
 # "_f32" names count the f32 counterparts (csrc/*_f32.cu, the f32
-# instantiation of temporal_attention.cu), which f32 operands launch.
+# instantiation of the temporal pair, csrc/temporal_attention.cuh), which f32
+# operands launch.
 BF16_KERNELS = ("flash_attention_fwd", "flash_attention_bwd", "flash_attention_bwd_dbias",
                 "fused_attention_fwd", "fused_attention_bwd",
                 "temporal_attention_fwd", "temporal_attention_bwd",
@@ -211,7 +214,13 @@ def _short_name(mangled: str) -> str:
     return f"{base}<{','.join(args)}>" if args else base
 
 
+DOES_NOT_FIT = -1  # csrc/temporal_plan.cuh kDoesNotFit
+
+
 def check(rc: int, kernel: str):
+    if rc == DOES_NOT_FIT:
+        raise ValueError(f"{kernel}: the operands of one work item do not fit a block's "
+                         "shared memory")
     if rc != 0:
         raise RuntimeError(f"{kernel}: CUDA launch failed with error {rc}")
 

@@ -24,6 +24,14 @@ segment 0 only, shared across heads and query rows. Any outer strides are
 accepted as long as each row is H*D contiguous values, so frame slices of a
 (B, F, L, H*D) projection go to the kernels without copies.
 
+Head dims: the kernels take D <= 160 (MAX_HEAD_DIM) in multiples of 8. A
+head dim that is not one (12 heads of the model's widths give D = 26, 53,
+106) goes to the same kernels on heads zero-padded to the next multiple of 8
+(``pad_heads``), with the scale of the true D, and the padding is dropped
+again (``unpad_heads``): zero columns add exact zeros to q . k, and lse and
+dbias0 do not see them. Calls whose D is a multiple of 8 take the kernels
+directly.
+
 The backward takes what the forward saved (q, k, v, out and the row
 log-sum-exp ``lse`` (N, H, Lq), f32, natural log) and returns dq, dk0, dv0
 (summed over the m groups that shared K0/V0) and dk1, dv1. A bias is used in
@@ -184,6 +192,32 @@ def _kernel_views(kernel, q, k0, v0, k1, v1, heads, extra=()):
     return m, b, lq, d, q4, k04, v04, k14, v14, like_q
 
 
+def _off_grid_head_dim(q, heads):
+    """The head dim of a call whose heads the kernels take only padded: D not
+    a multiple of 8 (and at most MAX_HEAD_DIM); else None."""
+    hd = q.shape[-1]
+    d = hd // heads
+    return d if heads * d == hd and d % 8 and d <= MAX_HEAD_DIM else None
+
+
+def pad_heads(t, heads):
+    """(..., H*D) -> (..., H*DP): each head's D values followed by zeros up
+    to DP, the next multiple of 8. Zero columns add exact zeros to q . k and
+    give output columns that ``unpad_heads`` drops, so the kernels run a head
+    dim that is not a multiple of 8 on their multiple-of-8 instantiations."""
+    if t is None:
+        return None
+    d = t.shape[-1] // heads
+    return torch.nn.functional.pad(t.unflatten(-1, (heads, d)), (0, -d % 8)).flatten(-2)
+
+
+def unpad_heads(t, heads, d):
+    """(..., H*DP) -> (..., H*D): the first D values of each head."""
+    if t is None:
+        return None
+    return t.unflatten(-1, (heads, t.shape[-1] // heads))[..., :d].flatten(-2)
+
+
 def _bias_rows(bias0, b, lkv0):
     return None if bias0 is None else bias0.float().reshape(b, lkv0).contiguous()
 
@@ -224,6 +258,15 @@ def flash_attention_fwd(q, k0, v0, heads, *, k1=None, v1=None, bias0=None,
         if out is None:
             return res
         return (out.copy_(res[0]), res[1]) if return_lse else out.copy_(res)
+    d = _off_grid_head_dim(q, heads)
+    if d is not None:  # heads padded to a multiple of 8, the padding dropped again
+        res = flash_attention_fwd(
+            *(pad_heads(t, heads) for t in (q, k0, v0)), heads, k1=pad_heads(k1, heads),
+            v1=pad_heads(v1, heads), bias0=bias0,
+            scale=1.0 / math.sqrt(d) if scale is None else scale, return_lse=return_lse)
+        o = unpad_heads(res[0] if return_lse else res, heads, d)
+        o = o if out is None else out.copy_(o)
+        return (o, res[1]) if return_lse else o
     if out is None:
         out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     m, b, lq, d, q4, k04, v04, k14, v14, (o4,) = _kernel_views(
@@ -271,6 +314,14 @@ def flash_attention_bwd(q, k0, v0, heads, dout, out, lse, *, k1=None, v1=None,
     if not q.is_cuda:
         return flash_attention_bwd_plain(q, k0, v0, heads, dout, out, lse, k1=k1, v1=v1,
                                          bias0=bias0, scale=scale, need_dbias=need_dbias)
+    d = _off_grid_head_dim(q, heads)
+    if d is not None:  # as in flash_attention_fwd; lse and dbias0 do not see the padding
+        grads = flash_attention_bwd(
+            *(pad_heads(t, heads) for t in (q, k0, v0)), heads,
+            *(pad_heads(t, heads) for t in (dout, out)), lse, k1=pad_heads(k1, heads),
+            v1=pad_heads(v1, heads), bias0=bias0,
+            scale=1.0 / math.sqrt(d) if scale is None else scale, need_dbias=need_dbias)
+        return (*(unpad_heads(t, heads, d) for t in grads[:5]), grads[5])
     if dout.stride(-1) != 1 or dout.stride(-2) != dout.shape[-1]:
         dout = dout.contiguous()
     m, b, lq, d, q4, k04, v04, k14, v14, (do4, o4) = _kernel_views(

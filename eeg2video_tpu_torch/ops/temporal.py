@@ -7,9 +7,13 @@ Counterpart of ``eeg2video_tpu/ops/temporal.py``. q, k, v are packed
 at each token and head, F x F attention over the frames. Nothing is
 rearranged to (B*L, F, C).
 
-bf16 operands launch the bf16 instantiation of ``csrc/temporal_attention.cu``,
-f32 ones its f32 instantiation (counted as ``temporal_attention_*_f32``): the
-JAX dispatch tests no dtype (temporal.py:310).
+bf16 operands launch the bf16 instantiation of the kernels
+(``csrc/temporal_attention.cuh``, entries in ``temporal_attention.cu`` and
+``temporal_attention_bwd.cu``), f32 ones their f32 instantiation (counted as
+``temporal_attention_*_f32``): the JAX dispatch tests no dtype
+(temporal.py:310), nor the head count, head dim or frame count
+(temporal.py:310-319), and neither do the kernels: csrc/temporal_plan.cuh
+picks their route from the shape.
 
 Rounding: the kernels and the plain versions accumulate in f32 and round only
 their outputs; the TPU kernel rounds q*k*scale and the probabilities to the
@@ -26,25 +30,22 @@ from . import _build
 
 KERNEL_FWD = "temporal_attention_fwd"
 KERNEL_BWD = "temporal_attention_bwd"
-MAX_FRAMES = 8  # csrc/temporal_attention.cu instantiates F = 1..8
-# the backward kernel's staging (csrc/temporal_attention.cu): a token's row is
-# cut into units of about BWD_UNIT_BYTES holding whole heads; a run of units
-# is staged in two stages of shared memory of at most BWD_SMEM bytes
-BWD_UNIT_BYTES = 640
-BWD_STAGES = 2
-BWD_SMEM = 220 * 1024
+# A token's row is cut into units of about UNIT_BYTES holding whole heads on
+# the kernels' staged route (csrc/temporal_plan.cuh, which also picks the
+# route and refuses a call whose (token, head) does not fit shared memory).
+UNIT_BYTES = 640
 
 
-def bwd_plan(heads, head_dim, itemsize):
-    """How the backward kernel cuts a (B, F, L, heads * head_dim) operand of
-    ``itemsize``-byte values, as ``temporal_bwd_units`` in the CUDA source:
-    (units a token's row is cut into, values of a unit, values a lane moves a
-    step, steps a lane takes through a unit). A unit holds whole heads and a
-    multiple of 32 values, at least BWD_UNIT_BYTES where the heads allow."""
+def units_of(heads, head_dim, itemsize):
+    """(units a token's row is cut into, values of a unit, values a lane moves
+    a step, steps a lane takes through a unit) on the staged route, as
+    ``units_of`` in csrc/temporal_plan.cuh: a unit holds whole heads and a
+    multiple of 32 values, at least UNIT_BYTES where the heads allow. Names
+    the instantiation a shape takes (``temporal_fwd_kernel<F,VEC,ITERS,ELEM>``)."""
     hd = heads * head_dim
     units = 1
     while (heads % (2 * units) == 0 and (hd // 32) % (2 * units) == 0
-           and hd * itemsize // (2 * units) >= BWD_UNIT_BYTES):
+           and hd * itemsize // (2 * units) >= UNIT_BYTES):
         units *= 2
     width = hd // units
     per_lane = width // 32
@@ -86,70 +87,57 @@ def temporal_attention_bwd_plain(q, k, v, dout, heads, scale=None):
     return tuple(t.reshape(q.shape).to(q.dtype) for t in (dq, dk, dv))
 
 
-def _checked(kernel, tensors, heads):
-    """Contiguous (B, F, L, H*D) operands of one dtype, bf16 or f32, and the
-    kernel's head rules; the kernel's counter name (``_f32`` for f32)."""
+def _launch(kernel, tensors, n_out, heads, scale):
+    """Check contiguous (B, F, L, H*D) CUDA operands of one dtype, bf16 or f32,
+    and launch the entry point (``_f32`` for f32 operands, named and counted
+    so). A call whose (token, head) does not fit a block's shared memory is
+    refused by name (the entry returns ``_build.DOES_NOT_FIT`` before any
+    launch)."""
     b, f, l, hd = tensors[0].shape
-    d = hd // heads
-    req = _build.require
-    req(heads * d == hd and 32 % heads == 0 and d % (32 // heads) == 0, kernel,
-        f"heads={heads} must divide 32 and head_dim={d} be a multiple of 32/heads")
-    req(1 <= f <= MAX_FRAMES, kernel, f"frames={f} must be in [1, {MAX_FRAMES}]")
-    out = []
     dtype = tensors[0].dtype
+    name = kernel + ("_f32" if dtype == torch.float32 else "")
+    req = _build.require
+    req(heads >= 1 and hd % heads == 0, name, f"heads={heads} must divide H*D={hd}")
     for t in tensors:
         req(t.is_cuda and t.dtype == dtype and dtype in (torch.bfloat16, torch.float32)
-            and t.shape == (b, f, l, hd), kernel,
+            and t.shape == (b, f, l, hd), name,
             "operands must be CUDA tensors of one dtype (bf16 or f32) and one "
             "(B, F, L, H*D) shape")
-        out.append(t.contiguous())
-    return out, (b, f, l, d), kernel + ("_f32" if dtype == torch.float32 else "")
+    req(f >= 1, name, "frames must be at least 1")
+    # the staged route copies 16-byte pieces: contiguous rows at an aligned address
+    ts = [_build.aligned16(t.contiguous()) for t in tensors]
+    d = hd // heads
+    if scale is None:
+        scale = 1.0 / math.sqrt(d)
+    outs = [torch.empty_like(ts[0]) for _ in range(n_out)]
+    rc = getattr(_build.library(), f"e2v_{name}")(
+        *(t.data_ptr() for t in ts), *(o.data_ptr() for o in outs), ts[0].stride(0),
+        ts[0].stride(1), b, f, l, heads, d, float(scale), _build.stream_of(ts[0]))
+    _build.check(rc, name)
+    _build.launches[name] += 1
+    return outs
 
 
 def temporal_attention_fwd(q, k, v, heads, scale=None):
     """out[b, f, l, h] = sum_g softmax_g(scale q_f . k_g) v_g over the frames.
-    A CUDA tensor launches the kernel (bf16 or f32); a CPU tensor takes
-    ``temporal_attention_plain``."""
+    A CUDA tensor launches the kernel (bf16 or f32; any heads dividing H*D,
+    any F); a CPU tensor takes ``temporal_attention_plain``. A call whose
+    3 F D values of one head do not fit a block's shared memory is refused by
+    name."""
     if not q.is_cuda:
         return temporal_attention_plain(q, k, v, heads, scale)
-    (q, k, v), (b, f, l, d), kernel = _checked(KERNEL_FWD, (q, k, v), heads)
-    if scale is None:
-        scale = 1.0 / math.sqrt(d)
-    out = torch.empty_like(q)
-    rc = getattr(_build.library(), f"e2v_{kernel}")(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), q.stride(0), q.stride(1),
-        b, f, l, heads, d, float(scale), _build.stream_of(q))
-    _build.check(rc, kernel)
-    _build.launches[kernel] += 1
-    return out
+    return _launch(KERNEL_FWD, (q, k, v), 1, heads, scale)[0]
 
 
 def temporal_attention_bwd(q, k, v, dout, heads, scale=None):
     """(dq, dk, dv) of ``temporal_attention_fwd`` from its operands and the
     output's gradient (the probabilities are recomputed). A CUDA tensor
     launches the kernel; a CPU tensor takes ``temporal_attention_bwd_plain``.
-    The kernel stages units of ``bwd_plan`` in shared memory: a unit whose
-    4F slices do not fit two stages (more than 1760 bf16 or 880 f32 values
-    at F = 8; the model's units hold 320 bf16 or 160 f32 values) is refused
-    by name."""
+    A call whose 4 F D values of one head, with two F x F rows of floats,
+    do not fit a block's shared memory is refused by name."""
     if not q.is_cuda:
         return temporal_attention_bwd_plain(q, k, v, dout, heads, scale)
-    (q, k, v, dout), (b, f, l, d), kernel = _checked(KERNEL_BWD, (q, k, v, dout), heads)
-    q, k, v, dout = (_build.aligned16(t) for t in (q, k, v, dout))
-    width = bwd_plan(heads, d, q.element_size())[1]
-    _build.require(BWD_STAGES * 4 * f * width * q.element_size() <= BWD_SMEM, kernel,
-                   f"a unit of {width} values ({heads} heads of {d}) over {f} frames does not "
-                   f"fit two stages of shared memory")
-    if scale is None:
-        scale = 1.0 / math.sqrt(d)
-    dq, dk, dv = torch.empty_like(q), torch.empty_like(q), torch.empty_like(q)
-    rc = getattr(_build.library(), f"e2v_{kernel}")(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), dq.data_ptr(),
-        dk.data_ptr(), dv.data_ptr(), q.stride(0), q.stride(1), b, f, l, heads, d,
-        float(scale), _build.stream_of(q))
-    _build.check(rc, kernel)
-    _build.launches[kernel] += 1
-    return dq, dk, dv
+    return tuple(_launch(KERNEL_BWD, (q, k, v, dout), 3, heads, scale))
 
 
 class _TemporalAttention(torch.autograd.Function):

@@ -28,6 +28,7 @@ import pytest
 import torch
 
 from eeg2video_tpu_torch.ops import _build, attention, conv2d, geglu, int8_dense, temporal
+from test_torch_kernel_plans import temporal_grid
 
 BOUND = 1e-2
 F32_BOUND = 1e-4  # the f32 kernels: summation order and the 3xTF32 split only
@@ -156,6 +157,54 @@ def test_flash_attention_dbias_matches_plain(gen, n, m, lq, lkv0, lkv1, hd, head
                                             bias0=b0)
     assert without[5] is None
     assert all(a is None or torch.equal(a, b) for a, b in zip(without[:5], got[:5]))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("d", [5, 26, 53, 106])
+def test_flash_attention_runs_head_dims_off_the_multiple_of_8(gen, d, dtype):
+    """12 heads of D = 5, 26, 53, 106 (rows of 60 to 1272 values; ``UNet3DConfig(
+    attention_heads=12)`` gives 26 / 53 / 106): the forward into a caller's frame view,
+    with lse, the backward and dbias0, on one segment and on two (m = 2), through the
+    kernels on heads padded to a multiple of 8 (``attention.pad_heads``): within 1e-2
+    (bf16) or 1e-4 (f32) of the plain versions, lse within 1e-3, the same bits twice,
+    and each call counted as a launch of its kernel."""
+    bound = BOUND if dtype == torch.bfloat16 else F32_BOUND
+    sfx = "_f32" if dtype == torch.float32 else ""
+    heads, hd = 12, 12 * d
+    for m, lkv1 in ((1, 0), (2, 90)):
+        frames = _rand(gen, 2, m + 1, 70, hd, dtype=dtype)  # the forward writes frames 1..m
+        q = _rand(gen, 2, m, 70, hd, dtype=dtype) if m > 1 else _rand(gen, 2, 70, hd, dtype=dtype)
+        k0, v0 = _rand(gen, 2, 77, hd, dtype=dtype), _rand(gen, 2, 77, hd, dtype=dtype)
+        k1 = _rand(gen, 2, m, lkv1, hd, dtype=dtype) if lkv1 else None
+        v1 = _rand(gen, 2, m, lkv1, hd, dtype=dtype) if lkv1 else None
+        b0 = _rand(gen, 2, 1, 77, scale=0.5, dtype=torch.float32)
+        b0[:, :, ::7] = -1e4
+        dout = _rand(gen, *q.shape, dtype=dtype)
+        view = frames[:, 1:] if m > 1 else frames[:, 1]
+        before = dict(_build.launches)
+        out, lse = _twice(lambda: attention.flash_attention_fwd(
+            q, k0, v0, heads, k1=k1, v1=v1, bias0=b0, out=view, return_lse=True))
+        assert out.data_ptr() == view.data_ptr() and torch.equal(frames[:, 1:m + 1].reshape(
+            out.shape), out)
+        q32, k032, v032, k132, v132 = _f32([q, k0, v0, k1, v1])
+        want, want_lse = attention.flash_attention_plain(q32, k032, v032, heads, k1=k132,
+                                                         v1=v132, bias0=b0, return_lse=True)
+        assert _err(out, want) < bound and (lse - want_lse).abs().max().item() < 1e-3
+        got = _twice(lambda: attention.flash_attention_bwd(q, k0, v0, heads, dout, out, lse,
+                                                           k1=k1, v1=v1, bias0=b0,
+                                                           need_dbias=True))
+        ref = attention.flash_attention_bwd_plain(q32, k032, v032, heads, dout.float(),
+                                                  out.float(), lse, k1=k132, v1=v132,
+                                                  bias0=b0, need_dbias=True)
+        for g, r in zip(got, ref):
+            assert (g is None) == (r is None)
+            if g is not None:
+                assert g.shape == r.shape and _err(g, r) < bound, (d, m)
+        assert bool((got[5][:, :, ::7] == 0).all()) and float(got[5].abs().max()) > 0
+        assert _launched(before) == {"flash_attention_fwd" + sfx: 2,
+                                     "flash_attention_bwd" + sfx: 2,
+                                     "flash_attention_bwd_dbias" + sfx: 2}
 
 
 @pytest.mark.gpu
@@ -388,13 +437,52 @@ def test_temporal_attention_bwd_repeats_and_tokens_do_not_depend_on_l(gen, hd, d
 
 @pytest.mark.gpu
 def test_temporal_attention_bwd_refuses_units_that_do_not_fit(gen):
-    """One f32 head of 1280 values over 6 frames: its unit's slices do not fit two
-    stages of shared memory, and the wrapper says so by name before any launch."""
-    q = _rand(gen, 1, 6, 4, 1280, dtype=torch.float32)
+    """One f32 head of 1280 values over 32 frames: its operands do not fit a block's
+    shared memory on either route, and the call is refused by the f32 kernel's name
+    before any launch, in both directions. Over 6 frames (refused until the any route
+    came) it runs."""
+    q = _rand(gen, 1, 32, 4, 1280, dtype=torch.float32)
     before = dict(_build.launches)
     with pytest.raises(ValueError, match="temporal_attention_bwd_f32.*shared memory"):
         temporal.temporal_attention_bwd(q, q, q, q, 1)
+    with pytest.raises(ValueError, match="temporal_attention_fwd_f32.*shared memory"):
+        temporal.temporal_attention_fwd(q, q, q, 1)
     assert _build.launches == before
+    q, k, v, dout = (_rand(gen, 1, 6, 4, 1280, dtype=torch.float32) for _ in range(4))
+    for g, w in zip(temporal.temporal_attention_bwd(q, k, v, dout, 1),
+                    temporal.temporal_attention_bwd_plain(q, k, v, dout, 1)):
+        assert _err(g, w) < F32_BOUND
+    assert _launched(before) == {"temporal_attention_bwd_f32": 1}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("width", [320, 640, 1280])
+def test_temporal_attention_runs_every_head_and_frame_count(gen, width, dtype):
+    """Every (heads, F) of the grid at this width: heads that do not divide 32, head
+    dims that are not a multiple of 32 / heads (D = 26, 53, 106 at 12 heads; a 12-head
+    row of 636 bf16 values is 1272 bytes), F up to 32. Both kernels launch, once a
+    call, within 1e-2 (bf16) or 1e-4 (f32) of the plain version's max, give the same
+    bits twice, and tokens 0-10 of an L = 37 call equal an L = 11 call."""
+    bound = BOUND if dtype == torch.bfloat16 else F32_BOUND
+    fwd, bwd = (k + ("_f32" if dtype == torch.float32 else "")
+                for k in (temporal.KERNEL_FWD, temporal.KERNEL_BWD))
+    for _, heads, d, f in temporal_grid((width,)):
+        hd = heads * d
+        q, k, v, dout = (_rand(gen, 2, f, 37, hd, dtype=dtype) for _ in range(4))
+        before = dict(_build.launches)
+        out = _twice(lambda: temporal.temporal_attention_fwd(q, k, v, heads))
+        want = temporal.temporal_attention_plain(*_f32([q, k, v]), heads)
+        assert _err(out, want) < bound, (heads, f)
+        got = _twice(lambda: temporal.temporal_attention_bwd(q, k, v, dout, heads))
+        for g, w in zip(got, temporal.temporal_attention_bwd_plain(*_f32([q, k, v, dout]),
+                                                                   heads)):
+            assert _close(g, w, bound), (heads, f)
+        assert _launched(before) == {fwd: 2, bwd: 2}, (heads, f)
+        head = [t[:, :, :11].contiguous() for t in (q, k, v, dout)]
+        assert torch.equal(temporal.temporal_attention_fwd(*head[:3], heads), out[:, :, :11])
+        for g, h in zip(got, temporal.temporal_attention_bwd(*head, heads)):
+            assert torch.equal(g[:, :, :11], h), (heads, f)
 
 
 @pytest.mark.gpu

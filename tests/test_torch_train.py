@@ -225,6 +225,35 @@ def test_loss_and_trainable_gradients_match_jax(unet_params, batch, jax_loss_and
             assert float(want[name].abs().max()) == 0.0  # stop_gradient on the JAX side
 
 
+def test_twelve_heads_over_ten_frames_match_jax():
+    """The micro UNet at attention_heads=12 (head dims 2 and 5: not a multiple of 8,
+    nor of 32 / heads, 12 not dividing 32) on clips of 10 frames: the loss and the
+    trainable gradients against ``jax.value_and_grad`` of the JAX loss, whose
+    temporal attention is its Pallas kernel (interpret mode) at these counts."""
+    jcfg = dataclasses.replace(JCFG, attention_heads=12)
+    cfg = UNet3DConfig(**{f.name: getattr(jcfg, f.name) for f in dataclasses.fields(UNet3DConfig)})
+    frames, key = 10, jax.random.key(8)
+    params = random_params(JUNet(jcfg), 9, np.zeros((1, frames, HW, HW, 4), np.float32),
+                           jnp.asarray([3]), np.zeros((1, S, jcfg.cross_attention_dim), np.float32))
+    rng = np.random.default_rng(10)
+    post = np.concatenate([rand(rng, 1, frames, HW, HW, 4),
+                           0.3 * rand(rng, 1, frames, HW, HW, 4)], axis=-1)
+    ctx = rand(rng, 1, S, jcfg.cross_attention_dim)
+    loss_fn = jvd._make_loss_fn(jcfg, JVAEConfig.tiny(), JTCFG)
+    jloss, jgrads = jax.jit(jax.value_and_grad(loss_fn))(params, None, post, ctx,
+                                                         jax.random.fold_in(key, 0))
+    state = vd.init_video_train_state(port_unet(params, cfg), TCFG, "cpu")
+    t, noise, eps = jax_draws(key, 0, post.shape)
+    loss = vd.video_loss(state.unet, None, tt(post), tt(ctx), TCFG, t=t, noise=noise, eps=eps)
+    loss.backward()
+    assert abs(float(loss.detach()) - float(jloss)) <= 1e-4 * abs(float(jloss))
+    want = grads_state_dict_from_jax(jgrads, cfg)
+    for name, p in state.unet.named_parameters():
+        if vd.trainable(name):
+            g, w = p.grad.numpy(), want[name].numpy()
+            assert np.abs(g - w).max() <= GRAD_RTOL * np.abs(w).max(), name
+
+
 def test_gradients_are_equal_with_and_without_checkpointing(unet_params, batch):
     with_remat, l1 = _port_loss_and_grads(unet_params, batch, TCFG)
     without, l2 = _port_loss_and_grads(unet_params, batch,

@@ -96,7 +96,12 @@ def test_two_segment_backward_matches_jax_grad_of_the_dual_call():
         assert_grad_close(got.numpy(), want)
 
 
-@pytest.mark.parametrize("n,f,l,heads,d", [(1, 3, 32, 2, 40), (2, 6, 16, 1, 80)])
+@pytest.mark.parametrize("n,f,l,heads,d", [
+    (1, 3, 32, 2, 40), (2, 6, 16, 1, 80),
+    # head and frame counts the kernels once refused: heads that do not divide
+    # 32, head dims that are not a multiple of 32 / heads or of 8, F > 8
+    (1, 6, 24, 10, 32), (1, 6, 20, 12, 26), (1, 10, 16, 12, 53), (1, 6, 40, 5, 64),
+    (1, 10, 24, 8, 40), (1, 16, 20, 8, 40), (1, 32, 16, 8, 40)])
 def test_temporal_attention_matches_pallas(n, f, l, heads, d):
     rng = np.random.default_rng(2)
     hd = heads * d
@@ -284,6 +289,88 @@ def test_two_segment_dbias0_is_summed_over_the_frames_as_jax_sums_it(b, l, lkv, 
     assert grads[5].shape == bias0.shape
     for got, want in zip(grads, jgrads):
         assert_grad_close(got.numpy().reshape(want.shape), want, rtol=2e-5)
+
+
+# --- head dims that are not a multiple of 8 ----------------------------------
+
+@pytest.mark.parametrize("d", [5, 26, 53])
+def test_head_dims_off_the_multiple_of_8_match_jax(d):
+    """12 heads of D = 5, 26, 53 (``UNet3DConfig(attention_heads=12)`` gives D = 26 /
+    53 / 106 at the model's widths): one segment with a bias, then two segments
+    (m = 2) with bias0 in the concat formulation, output and every gradient, dbias0
+    included, against ``jax.grad`` of ``fused_attention_packed`` (its Pallas passes in
+    interpret mode); 2e-5 of each gradient's largest entry."""
+    rng = np.random.default_rng(13)
+    heads, l, m = 12, 256, 2
+    hd = heads * d
+    q, k, v, w = (rand(rng, 1, l, hd) for _ in range(4))
+    bias = _mask_bias(rng, 1, 1, l)
+    jout = ja.fused_attention_packed(q, k, v, heads, bias=bias)
+    jgrads = jax.grad(lambda *a: jnp.sum(ja.fused_attention_packed(*a[:3], heads, bias=a[3])
+                                         * w), argnums=(0, 1, 2, 3))(q, k, v, bias)
+    ops = [tt(a).requires_grad_() for a in (q, k, v, bias)]
+    out = attention.flash_attention(ops[0], ops[1], ops[2], heads, bias0=ops[3])
+    np.testing.assert_allclose(out.detach().numpy(), np.asarray(jout), atol=FWD_TOL, rtol=0)
+    for got, want in zip(torch.autograd.grad(out, ops, tt(w)), jgrads):
+        assert_grad_close(got.numpy(), want, rtol=2e-5)
+
+    q, w, k1, v1 = (rand(rng, m, l, hd) for _ in range(4))
+
+    def jdual(q, k0, v0, k1, v1, b0):
+        rep = lambda t: jnp.repeat(t, m, axis=0)
+        kg, vg = jnp.concatenate([rep(k0), k1], axis=1), jnp.concatenate([rep(v0), v1], axis=1)
+        bias = rep(jnp.concatenate([b0, jnp.zeros_like(b0)], axis=-1))
+        return ja.fused_attention_packed(q, kg, vg, heads, bias=bias)
+
+    args = (q, k, v, k1, v1, bias)
+    jout = jdual(*args)
+    jgrads = jax.grad(lambda *a: jnp.sum(jdual(*a) * w), argnums=tuple(range(6)))(*args)
+    grouped = lambda a: tt(a).unflatten(0, (1, m))
+    ops = [t.requires_grad_() for t in (grouped(q), tt(k), tt(v), grouped(k1), grouped(v1),
+                                        tt(bias))]
+    out = attention.flash_attention(ops[0], ops[1], ops[2], heads, k1=ops[3], v1=ops[4],
+                                    bias0=ops[5])
+    np.testing.assert_allclose(out.detach().numpy().reshape(jout.shape), np.asarray(jout),
+                               atol=FWD_TOL, rtol=0)
+    for got, want in zip(torch.autograd.grad(out, ops, grouped(w)), jgrads):
+        assert_grad_close(got.numpy().reshape(want.shape), want, rtol=2e-5)
+
+
+@pytest.mark.parametrize("d", [5, 26, 53, 106])
+def test_padded_heads_give_the_plain_results(d):
+    """The CUDA wrappers run D % 8 != 0 on heads zero-padded to the next multiple of 8
+    (``pad_heads``), with the scale of the true D, and drop the padding
+    (``unpad_heads``): on the plain versions at f32 that is the same forward, bit for
+    bit, the same lse, and the same gradients within 1e-6 of their largest entry (the
+    padded sums over D add zeros in another blocking)."""
+    rng = np.random.default_rng(14)
+    heads = 12
+    hd = heads * d
+    q, dout = tt(rand(rng, 1, 2, 37, hd)), tt(rand(rng, 1, 2, 37, hd))
+    k0, v0, k1, v1 = tt(rand(rng, 1, 29, hd)), tt(rand(rng, 1, 29, hd)), \
+        tt(rand(rng, 1, 2, 11, hd)), tt(rand(rng, 1, 2, 11, hd))
+    bias0 = tt(_mask_bias(rng, 1, 1, 29))
+    pad = lambda t: attention.pad_heads(t, heads)
+    assert pad(q).shape[-1] == heads * -(-d // 8) * 8
+    # the CUDA wrappers take this route at D % 8 != 0 only, and refuse D > 160
+    assert attention._off_grid_head_dim(q, heads) == d
+    assert attention._off_grid_head_dim(pad(q), heads) is None
+    assert attention._off_grid_head_dim(torch.zeros(1, 2, 8 * 163), 8) is None
+    assert torch.equal(attention.unpad_heads(pad(q), heads, d), q)
+    want, lse = attention.flash_attention_plain(q, k0, v0, heads, k1=k1, v1=v1, bias0=bias0,
+                                                return_lse=True)
+    got, lse_p = attention.flash_attention_plain(pad(q), pad(k0), pad(v0), heads, k1=pad(k1),
+                                                 v1=pad(v1), bias0=bias0,
+                                                 scale=1.0 / math.sqrt(d), return_lse=True)
+    assert torch.equal(attention.unpad_heads(got, heads, d), want) and torch.equal(lse_p, lse)
+    grads = attention.flash_attention_bwd_plain(q, k0, v0, heads, dout, want, lse, k1=k1,
+                                                v1=v1, bias0=bias0, need_dbias=True)
+    padded = attention.flash_attention_bwd_plain(
+        pad(q), pad(k0), pad(v0), heads, pad(dout), pad(want), lse, k1=pad(k1), v1=pad(v1),
+        bias0=bias0, scale=1.0 / math.sqrt(d), need_dbias=True)
+    for i, (g, w) in enumerate(zip(padded, grads)):
+        g = g if i == 5 else attention.unpad_heads(g, heads, d)
+        assert_grad_close(g.numpy(), w.numpy(), rtol=1e-6)
 
 
 # --- head-major (B, H, L, D) attention against the JAX package's flash kernels --
