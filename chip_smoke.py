@@ -12,7 +12,8 @@ printed on its own line; any failure prints ``FAIL ...`` and exits 1:
    host-side GIF encoder, so that no request pays for its build); the
    kernels of the main paths must be in the build log without spills (the
    temporal pair's staged route at the model's D = 40, 80, 160 and F = 6,
-   bf16 and f32; ``geglu_out_bwd``);
+   bf16 and f32; ``geglu_out_bwd``; every kernel of the f32 feed-forward
+   and GEGLU pairs);
 3. kernels: each kernel (forward and backward) against its plain PyTorch
    version in f32 on the same inputs at the main paths' shapes (generation
    at batch 1 with guidance, the train step at batch 10), with its time, the plain version's
@@ -34,12 +35,12 @@ printed on its own line; any failure prints ``FAIL ...`` and exits 1:
    operands: the kernels JAX also runs at f32) at the same shapes, each within
    1e-4 of its plain version's max and bit for bit twice, bound_ms at the FP32
    rate without tensor cores (66.9 TFLOP/s), for the kernels on 3xTF32 (the
-   f32 attention and feed-forward pairs) and the f32 GEGLU pair three tf32
-   products per operation at 494.7 TFLOP/s; the feed-forward pair's (T, I) /
-   (T, 2I) intermediate, written and read once, counted in its bytes and
-   printed; rows 0-1727 of
-   a T = 3456 f32 feed-forward call (forward and backward) held to a T = 1728
-   call bit for bit; the same yardsticks in f32;
+   f32 attention, feed-forward and GEGLU pairs) three tf32 products per
+   operation at 494.7 TFLOP/s; the feed-forward pair's (T, I) / (T, 2I)
+   intermediate, written and read once, counted in its bytes and printed;
+   the f32 GEGLU pair's L2 bytes from its tiling; rows 0-1727 of a T = 3456
+   f32 feed-forward call and of a T = 3456 f32 GEGLU call (forward and
+   backward) held to a T = 1728 call bit for bit; the same yardsticks in f32;
 4. UNet parity: a narrow UNet3D in bf16 with kernels on the card against the
    same weights through the plain versions in f32 on the CPU; then
    UNet3DConfig.tiny() in bf16 (C = 32: ``ff_ln`` on operands padded to its
@@ -99,19 +100,21 @@ SERVE_STEPS = 20               # DPM-Solver++ steps per dispatch of the serve ph
 PEAK_FLOPS = 989e12            # H100 SXM, bf16 dense (NVIDIA data sheet)
 PEAK_F32_FLOPS = 66.9e12       # H100 SXM, FP32 without tensor cores (NVIDIA data sheet)
 PEAK_TF32_FLOPS = 494.7e12     # H100 SXM, TF32 dense on the tensor cores (NVIDIA data sheet)
-# the f32 kernels on 3xTF32: three tf32 products for each f32 one
+# the f32 kernels on 3xTF32: three tf32 products for each f32 one, which
+# bound_ms counts at that rate
 TF32_PASSES = 3
 TF32X3_KERNELS = ("flash_attention_fwd_f32", "flash_attention_bwd_f32",
                   "fused_attention_fwd_f32", "fused_attention_bwd_f32",
-                  "ff_ln_f32", "ff_ln_bwd_f32")
-# the f32 kernels whose bound_ms counts their products at that rate: those,
-# and the f32 GEGLU pair (SIMT today), whose GEMMs a 3xTF32 kernel could run
-TF32X3_BOUND_KERNELS = (*TF32X3_KERNELS, "geglu_out_f32", "geglu_out_bwd_f32")
+                  "ff_ln_f32", "ff_ln_bwd_f32", "geglu_out_f32", "geglu_out_bwd_f32")
 # the kernels of csrc/ff_f32.cu (ff_ln_f32: stats, gate, out; ff_ln_bwd_f32:
 # stats, dh2, dxa, the LayerNorm backward's row pass)
 FF_F32_KERNELS = ("ff_f32_ln_stats_kernel", "ff_f32_gate_kernel", "ff_f32_out_kernel",
                   "ff_f32_bwd_ln_stats_kernel", "ff_f32_bwd_dh2_kernel", "ff_f32_bwd_dxa_kernel",
                   "ff_f32_bwd_ln_kernel")
+# the kernels of csrc/geglu_f32.cu (geglu_out_f32: the gate's row pass, the
+# out GEMM over runs of K, the partials' sum; geglu_out_bwd_f32: one kernel)
+GEGLU_F32_KERNELS = ("geglu_f32_gate_kernel", "geglu_f32_out_kernel", "geglu_f32_sum_kernel",
+                     "geglu_f32_bwd_kernel")
 PEAK_BYTES = 3.35e12           # H100 SXM, HBM3 bytes/s
 KERNEL_BOUND = 1e-2            # max|kernel - plain_f32| / max|plain_f32|
 F32_KERNEL_BOUND = 1e-4        # the f32 kernels: summation order and the 3xTF32 split only
@@ -302,7 +305,8 @@ def phase_build(build):
             fail(f"build: {name} is missing from build.log or spills: {found}")
     # the f32 feed-forward pair: each kernel of ff_f32.cu is one instance that
     # serves every C, the model's 320 and 640 among them
-    for name in FF_F32_KERNELS:
+    # and the f32 GEGLU pair's, each one instance for every shape
+    for name in (*FF_F32_KERNELS, *GEGLU_F32_KERNELS):
         if name not in res or name in spilled:
             fail(f"build: {name} missing from build.log or spills")
     # the temporal pair's staged route at the model's D = 40, 80 and 160
@@ -354,7 +358,7 @@ def kernel_cases(torch, dev, f32=False):
         cases.append(dict(kernel=kernel + ("_f32" if f32 else ""), label=label, kern=kern,
                           plain=plain, args=args, flops=flops, library=library, primary=primary,
                           plain_takes_args=plain_takes_args,
-                          l2_bytes=None if f32 else l2_bytes, composed=composed,
+                          l2_bytes=l2_bytes, composed=composed,
                           inter_bytes=inter_bytes if f32 else None))
 
     def ff_inter(t, i, backward=False):
@@ -466,13 +470,17 @@ def kernel_cases(torch, dev, f32=False):
     # two-clip dispatch (3456), the train step (8640, 2400) and rows that end
     # inside a 64-row block at the end; the yardstick composed_ms is the
     # cuBLAS composition (attention_ab.geglu_composed), with the L2 bytes the
-    # kernel's blocks copy (w and h2, computed from its tiling)
+    # kernel's blocks copy (w and h2, computed from its tiling; at f32 also the
+    # gated workspace and the partial sums, which the bound does not count:
+    # the function need not move them)
     def geglu_case(t, primary=False):
         args = geglu_args(r, t)
+        l2 = ((geglu.geglu_f32_l2_read_bytes(t, 5120, 1280), "h2, gated, w and the partial sums")
+              if f32 else (geglu.geglu_out_l2_read_bytes(t, 5120, 1280), "w and h2"))
         add("geglu_out", f"T={t} I=5120 C=1280", lambda a=args: geglu.geglu_out(*a),
             lambda ts: geglu.geglu_out_plain(*ts), args, flops=2 * t * 5120 * 1280,
             primary=primary, composed=geglu_f32_composed(args) if f32 else geglu_composed(args),
-            l2_bytes=(geglu.geglu_out_l2_read_bytes(t, 5120, 1280), "w and h2"))
+            l2_bytes=l2)
 
     geglu_case(1728, primary=True)
     geglu_case(480)
@@ -716,7 +724,8 @@ def kernel_cases(torch, dev, f32=False):
             lambda ts: geglu.geglu_out_bwd_plain(*ts), args, flops=2 * t * 5120 * 1280,
             primary=primary,
             composed=geglu_bwd_f32_composed(args) if f32 else geglu_bwd_composed(args),
-            l2_bytes=(geglu.geglu_out_bwd_l2_read_bytes(t, 5120, 1280), "g, w and h2"))
+            l2_bytes=(geglu.geglu_f32_l2_read_bytes(t, 5120, 1280, backward=True) if f32 else
+                      geglu.geglu_out_bwd_l2_read_bytes(t, 5120, 1280), "g, w and h2"))
 
     # int8_dense at the five layer shapes of the hidden=10000 semantic MLP,
     # one 100-row chunk, f32 activations; the yardstick is a dequantize to
@@ -793,7 +802,7 @@ def _nbytes(tensors):
 def phase_kernels(torch, report, f32=False):
     """Every case of ``kernel_cases`` (bf16, or with ``f32`` the f32 kernels
     against the same plain versions, bound F32_KERNEL_BOUND, bound_ms at the
-    FP32 rate without tensor cores, for TF32X3_BOUND_KERNELS three tf32
+    FP32 rate without tensor cores, for TF32X3_KERNELS three tf32
     products at the TF32 rate); the results go into ``report``."""
     dev = torch.device("cuda")
     bound = F32_KERNEL_BOUND if f32 else KERNEL_BOUND
@@ -801,7 +810,7 @@ def phase_kernels(torch, report, f32=False):
         kernel, label, kern, plain, args = (case[k] for k in
                                             ("kernel", "label", "kern", "plain", "args"))
         # operations a second at the card's peak for this kernel's products
-        peak = (PEAK_TF32_FLOPS / TF32_PASSES if kernel in TF32X3_BOUND_KERNELS else
+        peak = (PEAK_TF32_FLOPS / TF32_PASSES if kernel in TF32X3_KERNELS else
                 PEAK_F32_FLOPS if f32 else PEAK_FLOPS)
         got = [t for t in _outputs(kern()) if t is not None]
         torch.cuda.synchronize()
@@ -844,8 +853,7 @@ def phase_kernels(torch, report, f32=False):
         l2 = "" if l2 is None else (f", {l2[1]} from L2 {l2[0]} bytes a call "
                                     f"({l2[0] / ms / 1e9:.2f} TB/s at this time)")
         if case["inter_bytes"]:
-            l2 += (f", intermediate and LayerNorm statistics {case['inter_bytes']} bytes "
-                   f"written and read")
+            l2 += f", workspace {case['inter_bytes']} bytes written and read"
         say(f"kernel {kernel} [{label}]: max_rel_err {rel_err:.3e} (bound {bound:.0e}) "
             f"max_abs_err {abs_err:.3e}, {ms:.3f} ms, bound {bound_ms:.4f} ms by {bound_by} "
             f"({bound_ms / ms:.3f} of it; {nbytes} bytes, {case['flops']} operations{l2}), "
@@ -868,8 +876,9 @@ def phase_kernels(torch, report, f32=False):
 def check_ff_f32_rows(torch, dev):
     """A clip's rows of the f32 feed-forward pair give the same bits alone
     (T = 1728) and beside another's (T = 3456), forward and backward, at
-    C = 320."""
+    C = 320; so do the f32 GEGLU pair's at I = 5120, C = 1280."""
     from eeg2video_tpu_torch.ops import geglu
+    from eeg2video_tpu_torch.utils.attention_ab import geglu_args
 
     g = torch.Generator(device=dev).manual_seed(4)
 
@@ -889,6 +898,17 @@ def check_ff_f32_rows(torch, dev):
         f"on those rows (C=320): {'ok' if same else 'FAILED'}")
     if not same:
         fail("kernels: ff_ln_f32 / ff_ln_bwd_f32: a row's bits depend on the other rows")
+    del x, dout, head, dhead
+    h2, w, b = geglu_args(r, 3456)
+    dout = r(3456, 1280)
+    h2_head = h2[:1728].clone()
+    same = (torch.equal(geglu.geglu_out(h2, w, b)[:1728], geglu.geglu_out(h2_head, w, b))
+            and torch.equal(geglu.geglu_out_bwd(h2, dout, w)[:1728],
+                            geglu.geglu_out_bwd(h2_head, dout[:1728].clone(), w)))
+    say(f"kernel geglu_out_f32 / geglu_out_bwd_f32: rows 0-1727 of a T=3456 call equal a "
+        f"T=1728 call on those rows: {'ok' if same else 'FAILED'}")
+    if not same:
+        fail("kernels: geglu_out_f32 / geglu_out_bwd_f32: a row's bits depend on the other rows")
 
 
 def check_geglu_rows(torch, dev):

@@ -14,10 +14,10 @@
 // stages runs of its operands by bulk copies (temporal_attention.cuh, f32
 // arithmetic without tensor cores, bf16 and f32 instantiations). One first
 // version remains: int8_dense (bf16 WMMA tiles, 16x16x16 with f32
-// accumulation, staged through shared memory). Of the f32 counterparts that
-// f32 operands launch, the attention pair (flash_f32*.cu) and the
-// feed-forward pair (ff_f32.cu) run 3xTF32 on mma.sync.m16n8k8
-// (tf32_mma.cuh); geglu_f32.cu is a plain SIMT kernel (f32_tiles.cuh). Warp
+// accumulation, staged through shared memory). The f32 counterparts that f32
+// operands launch run 3xTF32 on mma.sync.m16n8k8 (tf32_mma.cuh): the
+// attention pair (flash_f32*.cu), and the feed-forward pair (ff_f32.cu) and
+// the GEGLU pair (geglu_f32.cu) on the GEMM tiles of tf32_gemm.cuh. Warp
 // specialisation is later work.
 #pragma once
 

@@ -1,5 +1,6 @@
 // 3xTF32 on mma.sync.m16n8k8: the f32 products of the f32 attention pair
-// (flash_f32.cuh) and of the f32 feed-forward pair (ff_f32.cu).
+// (flash_f32.cuh) and of the f32 feed-forward and GEGLU pairs (ff_f32.cu,
+// geglu_f32.cu, through tf32_gemm.cuh).
 //
 // An f32 product a b is taken on the tensor cores from tf32 parts: each
 // element x is split into big = cvt.rna.tf32(x) and small = cvt.rna.tf32(x -

@@ -65,7 +65,7 @@ SIGNATURES = {
     "e2v_temporal_attention_bwd_f32": [P, P, P, P, P, P, P, LL, LL, I, I, I, I, I, F, P],
     "e2v_ff_f32": [P, P, P, P, P, P, P, P, P, I, I, I, F, P],
     "e2v_ff_f32_bwd": [P, P, P, P, P, P, P, P, P, I, I, I, F, P],
-    "e2v_geglu_f32": [P, P, P, P, I, I, I, P],
+    "e2v_geglu_f32": [P, P, P, P, P, I, I, I, P],
     "e2v_geglu_f32_bwd": [P, P, P, P, I, I, I, P],
 }
 

@@ -34,6 +34,10 @@ FF_GRID = 64    # csrc/ff_ln.cu: C is a multiple of 64; narrower blocks come zer
 GEGLU_ROWS, GEGLU_CHUNK = 64, 64
 # csrc/geglu_out_bwd.cu: tiles of GEGLU_BWD_TILE rows x GEGLU_BWD_TILE columns of dgated
 GEGLU_BWD_TILE = 128
+# csrc/geglu_f32.cu (tf32_gemm.cuh kBM, kOutN): GEGLU_F32_ROWS x GEGLU_F32_COLS
+# tiles of the forward's output and of the backward's dgated; the forward
+# splits K = I into min(GEGLU_F32_SPLIT, I / 32) runs (kSplitK)
+GEGLU_F32_ROWS, GEGLU_F32_COLS, GEGLU_F32_SPLIT = 128, 160, 4
 
 
 def _gelu_gate(h2, inner):
@@ -251,23 +255,59 @@ def geglu_out_bwd_l2_read_bytes(t, inner, c):
     return (tiles_i * t * c + tiles_t * c * inner + t * 2 * inner) * 2
 
 
+def _geglu_f32_splits(inner):
+    return min(GEGLU_F32_SPLIT, inner // 32)
+
+
+def geglu_f32_workspace_bytes(t, inner, c):
+    """Bytes of ``geglu_out_f32``'s workspace for t rows (``csrc/geglu_f32.cu``),
+    f32: the gated (t, I) product, written once by a row pass and read by the
+    out GEMM, then the GEMM's partial (t, C) sums over its runs of K, summed
+    by a row pass."""
+    return 4 * t * (inner + _geglu_f32_splits(inner) * c)
+
+
+def geglu_f32_l2_read_bytes(t, inner, c, backward=False):
+    """Bytes the f32 GEGLU pair's blocks copy from L2 in one call, from the
+    tiling (GEGLU_F32_ROWS x GEGLU_F32_COLS tiles, f32). Forward: the gate's
+    row pass reads h2 (2I a row) once; the out tiles of a run of K copy their
+    rows of gated below T and W's rows below C over that run, so gated is read
+    once per column of tiles and W once per row of tiles; the sum's row pass
+    reads the partial (T, C) sums once. Backward: each tile copies its rows
+    of g below T (C each) and W's rows (C) at its columns below I, so g is
+    read once per column of tiles and W once per row of tiles; the epilogue
+    reads h2 once."""
+    tiles_t = -(-t // GEGLU_F32_ROWS)
+    if backward:
+        return 4 * (-(-inner // GEGLU_F32_COLS) * t * c + tiles_t * c * inner + t * 2 * inner)
+    return 4 * (t * 2 * inner + -(-c // GEGLU_F32_COLS) * t * inner + tiles_t * c * inner
+                + _geglu_f32_splits(inner) * t * c)
+
+
 def _geglu_f32(kernel, h2, w, extra):
-    """Launch ``e2v_geglu_f32`` (extra: b) or ``e2v_geglu_f32_bwd`` (extra: g)."""
+    """Launch ``e2v_geglu_f32`` (extra: b; a workspace from the caching
+    allocator) or ``e2v_geglu_f32_bwd`` (extra: g). A call of no rows launches
+    nothing and is not counted."""
     c, inner = w.shape
-    h2c = h2.reshape(-1, 2 * inner).contiguous()
-    w = w.contiguous()
+    h2c = _aligned16(h2.reshape(-1, 2 * inner).contiguous())
+    t = h2c.shape[0]
+    forward = kernel == "geglu_out_f32"
+    out = torch.empty((t, c) if forward else (t, 2 * inner), dtype=h2.dtype, device=h2.device)
+    shape = (*h2.shape[:-1], c) if forward else h2.shape
+    if t == 0:
+        return out.reshape(shape)
+    w = _aligned16(w.contiguous())
     lib = _build.library()
-    if kernel == "geglu_out_f32":
-        out = torch.empty((h2c.shape[0], c), dtype=h2.dtype, device=h2.device)
-        rc = lib.e2v_geglu_f32(h2c.data_ptr(), w.data_ptr(), _f32(extra).data_ptr(),
-                               out.data_ptr(), h2c.shape[0], inner, c, _build.stream_of(h2))
-        shape = (*h2.shape[:-1], c)
+    if forward:
+        work = torch.empty(geglu_f32_workspace_bytes(t, inner, c) // 4, dtype=torch.float32,
+                           device=h2.device)
+        rc = lib.e2v_geglu_f32(h2c.data_ptr(), w.data_ptr(), _aligned16(_f32(extra)).data_ptr(),
+                               out.data_ptr(), work.data_ptr(), t, inner, c,
+                               _build.stream_of(h2))
     else:
-        gc = extra.reshape(-1, c).contiguous()
-        out = torch.empty_like(h2c)
+        gc = _aligned16(extra.reshape(-1, c).contiguous())
         rc = lib.e2v_geglu_f32_bwd(h2c.data_ptr(), gc.data_ptr(), w.data_ptr(), out.data_ptr(),
-                                   h2c.shape[0], inner, c, _build.stream_of(h2))
-        shape = h2.shape
+                                   t, inner, c, _build.stream_of(h2))
     _build.check(rc, kernel)
     _build.launches[kernel] += 1
     return out.reshape(shape)

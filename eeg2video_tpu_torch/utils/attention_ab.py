@@ -10,6 +10,7 @@
     python -m eeg2video_tpu_torch.utils.attention_ab --cases geglu_out --tree PARENT --tree . ...
     python -m eeg2video_tpu_torch.utils.attention_ab --cases temporal --tree PARENT --tree . ...
     python -m eeg2video_tpu_torch.utils.attention_ab --cases geglu_out_bwd --tree PARENT ...
+    python -m eeg2video_tpu_torch.utils.attention_ab --cases geglu_f32 --tree PARENT ...
 
 Each ``--tree`` is the root of a checkout. Its ``eeg2video_tpu_torch`` is
 imported in a process of its own (two versions never share a process), its
@@ -64,7 +65,11 @@ and digests both at those shapes and at lengths 1, 37, 130 of each width,
 F = 1 and F = 8. ``--cases geglu_out_bwd`` times ``geglu_out_bwd`` at the
 train step's T = 8640 and 2400 (I = 5120, C = 1280), with the cuBLAS
 composition g @ W -> the gate's backward in eager ops as ``composed_ms``, and
-digests its output at those and at T = 1, 37, 130.
+digests its output at those and at T = 1, 37, 130. ``--cases geglu_f32``
+times the f32 pair on f32 operands: ``geglu_out`` at the forward's row
+counts and ``geglu_out_bwd`` at the train step's, each with its composition
+in f32 (cuBLAS's TF32 off) as ``composed_ms`` and digests at those shapes
+and at T = 1, 37, 130.
 """
 
 from __future__ import annotations
@@ -351,21 +356,23 @@ def geglu_args(r, t):
 
 def geglu_composed(args):
     """The cuBLAS composition of ``geglu_out``: F.linear(h * F.gelu(g), W, b)
-    in bf16. A yardstick only, which the port never calls."""
+    in the operands' dtype (bf16, or f32). A yardstick only, which the port
+    never calls."""
     import torch.nn.functional as F
 
     h2, w, b = args
     h, g = h2.chunk(2, dim=-1)
-    bb = b.bfloat16()
+    bb = b.to(h2.dtype)
     return lambda: F.linear(h * F.gelu(g), w, bb)
 
 
-def _geglu_cases(torch, shapes):
-    """{label: args} of geglu_out, from a seed."""
+def _geglu_cases(torch, shapes, dtype=None):
+    """{label: args} of geglu_out, from a seed (bf16 unless ``dtype``)."""
     g = torch.Generator(device="cuda").manual_seed(0)
+    dtype = dtype or torch.bfloat16
 
     def r(*shape, scale=1.0):
-        return (torch.randn(*shape, generator=g, device="cuda") * scale).bfloat16()
+        return (torch.randn(*shape, generator=g, device="cuda") * scale).to(dtype)
 
     return {f"T={t} I=5120 C=1280": geglu_args(r, t) for t in shapes}
 
@@ -393,8 +400,8 @@ def _temporal_cases(torch, temporal, shapes, dtype):
 
 def geglu_bwd_composed(args):
     """The cuBLAS composition of ``geglu_out_bwd``: dgated = g @ W, then the
-    gate's backward in eager ops (bf16). A yardstick only, which the port
-    never calls."""
+    gate's backward in eager ops, in the operands' dtype. A yardstick only,
+    which the port never calls."""
     import torch
     import torch.nn.functional as F
 
@@ -414,12 +421,14 @@ GEGLU_BWD_SHAPES = (8640, 2400)
 GEGLU_BWD_EDGES = (1, 37, 130)
 
 
-def _geglu_bwd_cases(torch, shapes):
-    """{label: (h2, g, w)} of geglu_out_bwd at I = 5120, C = 1280, from a seed."""
+def _geglu_bwd_cases(torch, shapes, dtype=None):
+    """{label: (h2, g, w)} of geglu_out_bwd at I = 5120, C = 1280, from a seed
+    (bf16 unless ``dtype``)."""
     g = torch.Generator(device="cuda").manual_seed(0)
+    dtype = dtype or torch.bfloat16
 
     def r(*shape, scale=1.0):
-        return (torch.randn(*shape, generator=g, device="cuda") * scale).bfloat16()
+        return (torch.randn(*shape, generator=g, device="cuda") * scale).to(dtype)
 
     return {f"T={t} I=5120 C=1280": [r(t, 10240), r(t, 1280), r(1280, 5120, scale=5120 ** -0.5)]
             for t in shapes}
@@ -505,6 +514,22 @@ def _one(tree, which="attention"):
         every = {**cases, **_geglu_bwd_cases(torch, GEGLU_BWD_EDGES)}
         line["digest"] = {label: _digest(torch, geglu.geglu_out_bwd(*args))
                           for label, args in every.items()}
+    elif which == "geglu_f32":
+        torch.backends.cuda.matmul.allow_tf32 = False  # the f32 composition in full f32
+        f32 = torch.float32
+        fwd, bwd = _geglu_cases(torch, GEGLU_SHAPES, f32), _geglu_bwd_cases(
+            torch, GEGLU_BWD_SHAPES, f32)
+        run = {**{f"fwd {k}": (lambda a=a: geglu.geglu_out(*a), geglu_composed(a))
+                  for k, a in fwd.items()},
+               **{f"bwd {k}": (lambda a=a: geglu.geglu_out_bwd(*a), geglu_bwd_composed(a))
+                  for k, a in bwd.items()}}
+        line["ms"] = {label: _time(torch, fn) for label, (fn, _) in run.items()}
+        line["composed_ms"] = {label: _time(torch, ref) for label, (_, ref) in run.items()}
+        every = {**{f"fwd {k}": lambda a=a: geglu.geglu_out(*a) for k, a in
+                    {**fwd, **_geglu_cases(torch, GEGLU_EDGES, f32)}.items()},
+                 **{f"bwd {k}": lambda a=a: geglu.geglu_out_bwd(*a) for k, a in
+                    {**bwd, **_geglu_bwd_cases(torch, GEGLU_BWD_EDGES, f32)}.items()}}
+        line["digest"] = {label: _digest(torch, fn()) for label, fn in every.items()}
     elif which in ("ff_ln", "ff_ln_bwd", "ff_f32", "ff_bwd_f32"):
         make = _ff_cases if which in ("ff_ln", "ff_f32") else _ff_bwd_cases
         dtype = torch.float32 if which.endswith("f32") else torch.bfloat16
@@ -553,7 +578,7 @@ def main(argv=None):
     parser.add_argument("--cases",
                         choices=("attention", "attention_f32", "ff_ln", "ff_ln_bwd", "ff_f32",
                                  "ff_bwd_f32", "conv3x3", "geglu_out", "temporal",
-                                 "geglu_out_bwd"),
+                                 "geglu_out_bwd", "geglu_f32"),
                         default="attention",
                         help="the kernels to time (default: the attention cases)")
     args = parser.parse_args(argv)

@@ -13,10 +13,10 @@ Bound: max |kernel - plain| / max |plain| < 1e-2, the plain version in f32
 on the same bf16 inputs (bf16 rounding of the output and of the in-kernel
 bf16 intermediates). The backward kernels are held to the same bound, each
 gradient against the plain backward's on the same residuals. The f32
-kernels (f32 operands) keep f32 accuracy (the attention pair by three tf32
-tensor-core products for each f32 one, about 2^-21 relative each; the others
-in f32 throughout): they are held to 1e-4 of the output's max and must give
-the same bits twice.
+kernels (f32 operands) keep f32 accuracy (the attention, feed-forward and
+GEGLU pairs by three tf32 tensor-core products for each f32 one, about 2^-21
+relative each; the others in f32 throughout): they are held to 1e-4 of the
+output's max and must give the same bits twice.
 """
 
 import dataclasses
@@ -835,18 +835,85 @@ def test_ff_ln_f32_rows_do_not_depend_on_t(gen):
                        geglu.ff_ln_bwd(head[0], g[:128].clone(), *args[1:6]))
 
 
+def _geglu_f32_args(gen, t, i=5120, c=1280):
+    """h2 (t, 2I), W (C, I), b (C) and the output's gradient g (t, C), f32."""
+    return (_r32(gen, t, 2 * i), _r32(gen, c, i, scale=i ** -0.5), 0.02 * _r32(gen, c),
+            _r32(gen, t, c))
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("t", [1, 37, 130])
+@pytest.mark.parametrize("t", [1, 37, 130, 127, 128, 129, 255, 1728])
 def test_geglu_out_f32_matches_plain(gen, t):
-    h2, w, b = _r32(gen, t, 10240), _r32(gen, 1280, 5120, scale=5120 ** -0.5), \
-        0.02 * _r32(gen, 1280)
-    g = _r32(gen, t, 1280)
+    """The model's I = 5120, C = 1280 at row counts around the kernels'
+    128-row tiles and at one clip's level 2 (T = 1728)."""
+    h2, w, b, g = _geglu_f32_args(gen, t)
     before = dict(_build.launches)
     assert _err(_twice(lambda: geglu.geglu_out(h2, w, b)), geglu.geglu_out_plain(h2, w, b)) \
         < F32_BOUND
     assert _err(_twice(lambda: geglu.geglu_out_bwd(h2, g, w)),
                 geglu.geglu_out_bwd_plain(h2, g, w)) < F32_BOUND
     assert _launched(before) == {"geglu_out_f32": 2, "geglu_out_bwd_f32": 2}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("i,c", [(64, 8), (64, 40), (192, 8), (192, 40), (64, 1288)])
+@pytest.mark.parametrize("t", [37, 130])
+def test_geglu_out_f32_tile_edges_match_plain(gen, t, i, c):
+    """The forward off its 160-column out tiles and at one or six 32-wide k
+    slabs (I = 64, 192; C = 8, 40, 1288)."""
+    h2, w, b, _ = _geglu_f32_args(gen, t, i, c)
+    assert _err(_twice(lambda: geglu.geglu_out(h2, w, b)), geglu.geglu_out_plain(h2, w, b)) \
+        < F32_BOUND
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("i,c", [(64, 32), (64, 96), (192, 32), (192, 96), (200, 96)])
+@pytest.mark.parametrize("t", [37, 130])
+def test_geglu_out_bwd_f32_tile_edges_match_plain(gen, t, i, c):
+    """The backward off its 160-column dgated tiles (I = 64, 192, 200) and at
+    one or three 32-wide k slabs (C = 32, 96)."""
+    h2, w, _, g = _geglu_f32_args(gen, t, i, c)
+    assert _err(_twice(lambda: geglu.geglu_out_bwd(h2, g, w)),
+                geglu.geglu_out_bwd_plain(h2, g, w)) < F32_BOUND
+
+
+@pytest.mark.gpu
+def test_geglu_out_f32_takes_zero_rows(gen):
+    """T = 0: empty outputs of the right shape, nothing launched on the card."""
+    h2, w, b, g = _geglu_f32_args(gen, 0)
+    before = dict(_build.launches)
+    assert geglu.geglu_out(h2, w, b).shape == (0, 1280)
+    assert geglu.geglu_out_bwd(h2, g, w).shape == (0, 10240)
+    assert _launched(before) == {}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("t1,t2", [(37, 130), (128, 256)])
+def test_geglu_out_f32_rows_do_not_depend_on_t(gen, t1, t2):
+    """The first t1 rows of a t2-row call, forward and backward, have the bits
+    of a t1-row call on those rows."""
+    h2, w, b, g = _geglu_f32_args(gen, t2)
+    head, ghead = h2[:t1].clone(), g[:t1].clone()
+    assert torch.equal(geglu.geglu_out(h2, w, b)[:t1], geglu.geglu_out(head, w, b))
+    assert torch.equal(geglu.geglu_out_bwd(h2, g, w)[:t1], geglu.geglu_out_bwd(head, ghead, w))
+
+
+@pytest.mark.gpu
+def test_geglu_out_f32_reads_misaligned_views(gen):
+    """h2, W, b and g at addresses that are not 16-byte aligned (a view's
+    offset) give the bits of aligned copies, both directions."""
+    t, i, c = 37, 192, 96
+
+    def view(*shape, scale=1.0):
+        n = int(np.prod(shape))
+        return (_r32(gen, n + 1, scale=scale)[1:]).view(*shape)
+
+    h2, w, b, g = view(t, 2 * i), view(c, i, scale=i ** -0.5), view(c), view(t, c)
+    assert all(x.data_ptr() % 16 != 0 for x in (h2, w, b, g))
+    aligned = [x.clone() for x in (h2, w, b, g)]
+    assert torch.equal(geglu.geglu_out(h2, w, b), geglu.geglu_out(*aligned[:3]))
+    assert torch.equal(geglu.geglu_out_bwd(h2, g, w),
+                       geglu.geglu_out_bwd(aligned[0], aligned[3], aligned[1]))
 
 
 @pytest.mark.gpu

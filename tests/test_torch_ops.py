@@ -118,6 +118,27 @@ def test_geglu_out_l2_read_bytes_matches_a_hand_count():
         27 * 4 * 320 * 5120 * 2 + 27 * 1280 * 4 + 1728 * 10240 * 2)
 
 
+def test_geglu_f32_l2_read_bytes_match_a_hand_count():
+    """The f32 pair's 128 x 160 tiles, f32. Forward at T = 200, I = 64, C = 200: two row
+    tiles (128 + 72 rows), two column tiles (160 + 40), K = 64 in two runs of one slab; the
+    gate's pass reads h2's 200 x 128 once, each column tile the 200 gated rows of 64, each
+    row tile W's 200 rows of 64, the sum's pass the two 200 x 200 partials. Backward at
+    T = 200, I = 200, C = 64: each of two column tiles reads g's 200 rows of 64, each of two
+    row tiles W's 64 rows at its columns (200 in all); the epilogue reads h2's 200 x 400
+    once. The workspace is the (T, I) gated product and the partials."""
+    assert geglu.geglu_f32_l2_read_bytes(200, 64, 200) == 4 * (
+        200 * 128 + 2 * 200 * 64 + 2 * 200 * 64 + 2 * 200 * 200) == 627200
+    assert geglu.geglu_f32_l2_read_bytes(200, 200, 64, backward=True) == 4 * (
+        2 * 200 * 64 + 2 * 64 * 200 + 200 * 400) == 524800
+    assert geglu.geglu_f32_workspace_bytes(200, 64, 200) == 4 * (200 * 64 + 2 * 200 * 200)
+    # the train step's level 2: 68 row tiles, 8 column tiles of C, 32 of I, K in 4 runs
+    assert geglu.geglu_f32_l2_read_bytes(8640, 5120, 1280) == 4 * (
+        8640 * 10240 + 8 * 8640 * 5120 + 68 * 1280 * 5120 + 4 * 8640 * 1280)
+    assert geglu.geglu_f32_l2_read_bytes(8640, 5120, 1280, backward=True) == 4 * (
+        32 * 8640 * 1280 + 68 * 1280 * 5120 + 8640 * 10240)
+    assert geglu.geglu_f32_workspace_bytes(8640, 5120, 1280) == 4 * 8640 * (5120 + 4 * 1280)
+
+
 @pytest.mark.parametrize("c", [32, 64])
 def test_ff_ln_matches_ff_kernel(c):
     rng = np.random.default_rng(4)
