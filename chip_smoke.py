@@ -13,7 +13,8 @@ printed on its own line; any failure prints ``FAIL ...`` and exits 1:
    kernels of the main paths must be in the build log without spills (the
    temporal pair's staged route at the model's D = 40, 80, 160 and F = 6,
    bf16 and f32; ``geglu_out_bwd``; every kernel of the f32 feed-forward
-   and GEGLU pairs);
+   and GEGLU pairs; ``int8_dense`` at both of its widths, whose SASS must
+   hold no conversion instruction);
 3. kernels: each kernel (forward and backward) against its plain PyTorch
    version in f32 on the same inputs at the main paths' shapes (generation
    at batch 1 with guidance, the train step at batch 10), with its time, the plain version's
@@ -41,6 +42,10 @@ printed on its own line; any failure prints ``FAIL ...`` and exits 1:
    the f32 GEGLU pair's L2 bytes from its tiling; rows 0-1727 of a T = 3456
    f32 feed-forward call and of a T = 3456 f32 GEGLU call (forward and
    backward) held to a T = 1728 call bit for bit; the same yardsticks in f32;
+   ``int8_dense`` at the semantic MLP's four layer shapes, each run twice
+   bit for bit and held to F32_KERNEL_BOUND (its plain version has the same
+   bf16 operands and f32 sums), with the bytes of x its blocks read from L2,
+   and rows 0-6 of a 100-row call held to a 7-row call bit for bit;
 4. UNet parity: a narrow UNet3D in bf16 with kernels on the card against the
    same weights through the plain versions in f32 on the CPU; then
    UNet3DConfig.tiny() in bf16 (C = 32: ``ff_ln`` on operands padded to its
@@ -165,6 +170,7 @@ FUSED_OP_KERNELS = ("fused_attention_fwd", "fused_attention_bwd")
 F32_GENERATION_KERNELS = ("flash_attention_fwd_f32", "ff_ln_f32", "geglu_out_f32")
 DE_BOUND = 1e-3               # worst relative error of de_psd's psd against the f64 oracle
 INT8_LAYERS = 5               # int8_dense launches per 100-row chunk: fc0..fc3, out
+INT8_WIDTHS = (8, 104)        # x rows a block of int8_dense (csrc/int8_plan.cuh kWidths)
 KERNEL_SOURCES = {
     "flash_attention_fwd": ("eeg2video_tpu_torch/csrc/flash_attention.cu",
                             "eeg2video_tpu/ops/attention.py:415 _packed_single_kernel, "
@@ -328,6 +334,27 @@ def phase_build(build):
         for d in (40, 80):
             if name.format(d) not in res or name.format(d) in spilled:
                 fail(f"build: {name.format(d)} missing from build.log or spills")
+    # int8_dense at each x width it instantiates (csrc/int8_plan.cuh kWidths),
+    # and its int8 -> bf16 step: byte permutes and f32 subtracts, no
+    # conversion instruction in the SASS
+    int8 = {k: v for k, v in build.kernel_resources(log).items()
+            if k.startswith("int8_dense_kernel<")}
+    say(f"build: int8_dense_kernel registers (spill stores, loads in bytes): "
+        f"{'; '.join(f'{k} {r} ({st}, {ld})' for k, (r, st, ld) in sorted(int8.items()))}")
+    for w in INT8_WIDTHS:
+        name = f"int8_dense_kernel<{w}>"
+        if name not in int8 or int8[name][1] or int8[name][2]:
+            fail(f"build: {name} missing from build.log or spills")
+    ops = build.sass_opcodes("int8_dense_kernel")
+    if len(ops) != len(INT8_WIDTHS):
+        fail(f"build: the SASS holds {len(ops)} int8_dense_kernel functions, "
+             f"not {len(INT8_WIDTHS)}")
+    for name, count in sorted(ops.items()):
+        conv = {op: n for op, n in count.items() if op in build.CONVERSION_OPCODES}
+        say(f"build: SASS of {name}: " + ", ".join(f"{op} {count[op]}" for op in (
+            "LDSM", "LOP3", "PRMT", "FADD", "HGMMA") if op in count) + f"; conversions {conv}")
+        if conv:
+            fail(f"build: {name} converts with {conv}")
 
 
 def kernel_cases(torch, dev, f32=False):
@@ -748,7 +775,7 @@ def kernel_cases(torch, dev, f32=False):
         add("int8_dense", label, lambda: int8_dense.int8_dense(x, w_q, scale, bias, n),
             lambda ts: int8_dense.int8_dense_plain(*ts, n),
             [x, w_q, scale, bias], flops=2 * m * kp * np_, library=library, primary=primary,
-            plain_takes_args=True)
+            plain_takes_args=True, l2_bytes=(int8_dense.plan(m, kp, np_)["x_l2_bytes"], "x"))
 
     int8("fc0 M=100 (310->10000)", 100, 310, 10000)
     int8("fc1-3 M=100 (10000->10000)", 100, 10000, 10000, primary=True)
@@ -805,17 +832,19 @@ def phase_kernels(torch, report, f32=False):
     FP32 rate without tensor cores, for TF32X3_KERNELS three tf32
     products at the TF32 rate); the results go into ``report``."""
     dev = torch.device("cuda")
-    bound = F32_KERNEL_BOUND if f32 else KERNEL_BOUND
     for case in kernel_cases(torch, dev, f32):
         kernel, label, kern, plain, args = (case[k] for k in
                                             ("kernel", "label", "kern", "plain", "args"))
+        # int8_dense and its plain version share the bf16 operands and f32
+        # sums: only the summation order differs, as for the f32 kernels
+        bound = F32_KERNEL_BOUND if f32 or kernel == "int8_dense" else KERNEL_BOUND
         # operations a second at the card's peak for this kernel's products
         peak = (PEAK_TF32_FLOPS / TF32_PASSES if kernel in TF32X3_KERNELS else
                 PEAK_F32_FLOPS if f32 else PEAK_FLOPS)
         got = [t for t in _outputs(kern()) if t is not None]
         torch.cuda.synchronize()
         if (f32 or kernel.endswith("_bwd")
-                or kernel in ("ff_ln", "conv3x3_gn_silu", "geglu_out")):
+                or kernel in ("ff_ln", "conv3x3_gn_silu", "geglu_out", "int8_dense")):
             again = [t for t in _outputs(kern()) if t is not None]
             if not all(torch.equal(a, b) for a, b in zip(got, again)):
                 fail(f"kernels: {kernel} [{label}]: two runs gave different bits")
@@ -870,6 +899,7 @@ def phase_kernels(torch, report, f32=False):
         check_ff_f32_rows(torch, dev)
     else:
         check_geglu_rows(torch, dev)
+        check_int8_rows(torch, dev)
     torch.cuda.empty_cache()
 
 
@@ -926,6 +956,35 @@ def check_geglu_rows(torch, dev):
         f"{'ok' if same else 'FAILED'}")
     if not same:
         fail("kernels: geglu_out: a row's bits depend on the other rows in the call")
+
+
+def check_int8_rows(torch, dev):
+    """Rows 0-6 of a 100-row int8_dense call (x rows as wgmma's N = 104)
+    equal a 7-row call (N = 8) bit for bit, at a middle layer (K split three
+    ways) and at the out layer (no split)."""
+    from eeg2video_tpu_torch.ops import int8_dense
+
+    # each layer's plan: its blocks in clusters of CLUSTER, and how many of
+    # those clusters the card holds at once (the launch's waves)
+    for label, m, kp, np_ in (("fc0", 100, 320, 10240), ("fc1-3", 100, 10016, 10240),
+                              ("fc1-3 M=1", 1, 10016, 10240), ("out", 100, 10016, 59392)):
+        p = int8_dense.plan(m, kp, np_, occupancy=True)
+        at_once = p["clusters_at_once"]
+        clusters = p["tiles"] // int8_dense.CLUSTER * p["splits"] * p["row_blocks"]
+        say(f"kernel int8_dense [{label}]: {p['tiles']} column tiles x {p['splits']} splits x "
+            f"{p['row_blocks']} row blocks of {p['width']} rows = {clusters} clusters of "
+            f"{int8_dense.CLUSTER}, {at_once} at once: {clusters / max(at_once, 1):.2f} waves")
+    g = torch.Generator(device=dev).manual_seed(5)
+    for k, n in ((10000, 10000), (10000, 77 * 768)):
+        w_q, scale = int8_dense.quantize_int8(torch.randn(k, n, generator=g, device=dev) * k ** -0.5)
+        bias = 0.1 * torch.randn(n, generator=g, device=dev)
+        x = torch.randn(100, k, generator=g, device=dev).relu()
+        same = torch.equal(int8_dense.int8_dense(x, w_q, scale, bias, n)[:7],
+                           int8_dense.int8_dense(x[:7].clone(), w_q, scale, bias, n))
+        say(f"kernel int8_dense: rows 0-6 of an M=100 call equal an M=7 call ({k}->{n}): "
+            f"{'ok' if same else 'FAILED'}")
+        if not same:
+            fail("kernels: int8_dense: a row's bits depend on the other rows in the call")
 
 
 def phase_unet_parity(torch):

@@ -12,9 +12,9 @@
 // h2 brought by TMA (the wgmma and copy helpers of both: hopper.cuh), and so
 // does geglu_out_bwd (geglu_out_bwd.cu, W read MN-major). The temporal pair
 // stages runs of its operands by bulk copies (temporal_attention.cuh, f32
-// arithmetic without tensor cores, bf16 and f32 instantiations). One first
-// version remains: int8_dense (bf16 WMMA tiles, 16x16x16 with f32
-// accumulation, staged through shared memory). The f32 counterparts that f32
+// arithmetic without tensor cores, bf16 and f32 instantiations). int8_dense
+// (int8_dense.cu) runs wgmma with A from registers: int8 weight tiles by TMA,
+// turned into bf16 fragments by byte permutes. The f32 counterparts that f32
 // operands launch run 3xTF32 on mma.sync.m16n8k8 (tf32_mma.cuh): the
 // attention pair (flash_f32*.cu), and the feed-forward pair (ff_f32.cu) and
 // the GEGLU pair (geglu_f32.cu) on the GEMM tiles of tf32_gemm.cuh. Warp
@@ -23,18 +23,11 @@
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 #include <stdint.h>
 
 namespace e2v {
 
 using bf16 = __nv_bfloat16;
-namespace wmma = nvcuda::wmma;
-
-using FragA = wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major>;
-using FragBRow = wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major>;
-using FragBCol = wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major>;
-using FragC = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
 
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;

@@ -1,6 +1,7 @@
 // Hopper (sm_90a) building blocks shared by the kernels on wgmma: the
 // level-0 conv (conv3x3.cu), the GEGLU out-projection (geglu_out.cu) and its
-// backward (geglu_out_bwd.cu); the temporal backward's bulk copies.
+// backward (geglu_out_bwd.cu), the int8 dense layer (int8_dense.cu); the
+// temporal backward's bulk copies.
 //
 // - shared-memory matrix descriptors of bf16 operands: K-major in the 8 x 8
 //   core-matrix layout without swizzle (smem_desc), K-major rows of 64 bf16
@@ -10,18 +11,21 @@
 // - wgmma.mma_async m64n160k16 (bf16 -> f32): A from registers (the m16n8k16
 //   A fragment of each warp's 16 rows) or from shared memory, B from shared
 //   memory, 80 f32 accumulators a thread; m64n128k16 with both by descriptor
-//   and B MN-major (64 accumulators); fence, commit and wait;
+//   and B MN-major (64 accumulators); m64nNk16 with A from registers and B
+//   K-major by descriptor at N = 8 and 104; fence, commit and wait;
 // - mbarriers counting the bytes of asynchronous copies: one arrival (the
 //   copying thread's, with the byte count), completed by the copies;
 // - copies by the bulk-copy engine: contiguous bytes device -> shared
 //   (bulk_copy, bulk_load), a 2-D box of a tensor map device -> shared
-//   (tma_load_2d) and shared -> device (tma_store_2d, with its bulk groups),
+//   (tma_load_2d; into every block of a cluster: tma_load_2d_multicast) and
+//   shared -> device (tma_store_2d, with its bulk groups),
 //   and contiguous bytes from this block's shared memory to another block's
 //   of the cluster (bulk_copy_to_cluster);
 // - thread-block clusters: a block's rank, the cluster-wide barrier, and
 //   arrivals on another block's mbarrier;
-// - on the host: 2-D tensor maps of bf16 matrices in the 128-byte swizzle
-//   (make_map_2d, through libcuda's cuTensorMapEncodeTiled).
+// - on the host: 2-D tensor maps in the 128-byte swizzle (make_map_2d for
+//   bf16 matrices, make_map_2d_of for any element type; through libcuda's
+//   cuTensorMapEncodeTiled).
 #pragma once
 
 #include <cuda.h>
@@ -164,6 +168,50 @@ __device__ __forceinline__ void wgmma_m64n128k16_ss_tb(float (&d)[64], uint64_t 
 #undef E2V_WGMMA_D64
 #undef E2V_WGMMA_D64_LIST
 
+// d (64 x N f32 over the warpgroup, N / 2 a thread) += A (64 x 16 bf16, the
+// m16n8k16 A fragment of each warp's 16 rows, in registers: a[0..3]) B (16 x N,
+// K-major in shared memory, by descriptor), at the widths int8_dense.cu
+// instantiates
+template <int N>
+__device__ __forceinline__ void wgmma_m64k16_rs(float (&d)[N / 2], const uint32_t* a,
+                                                uint64_t desc_b);
+
+template <>
+__device__ __forceinline__ void wgmma_m64k16_rs<8>(float (&d)[4], const uint32_t* a,
+                                                    uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %9, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, %8, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_m64k16_rs<104>(float (&d)[52], const uint32_t* a,
+                                                    uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %57, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n104k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13,"
+      " %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25,"
+      " %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37,"
+      " %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49,"
+      " %50, %51}, "
+      "{%52, %53, %54, %55}, %56, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
+        "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),
+        "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
+        "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]),
+        "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]),
+        "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]),
+        "+f"(d[49]), "+f"(d[50]), "+f"(d[51])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
 // mbarrier of a ring slot: one arrival (the copying thread's, with the
 // slot's byte count), completed by the copies' bytes
 __device__ __forceinline__ void mbar_init(uint64_t* bar) {
@@ -213,6 +261,18 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const void* map, int x, i
       " [%0], [%1, {%2, %3}], [%4];\n"
       ::"r"(smem_addr(dst)), "l"(reinterpret_cast<uint64_t>(map)), "r"(x), "r"(y),
         "r"(smem_addr(bar))
+      : "memory");
+}
+
+// the same box into every block of the cluster in `mask` (bit r: block r),
+// at this block's offsets of dst and bar in each of them
+__device__ __forceinline__ void tma_load_2d_multicast(void* dst, const void* map, int x, int y,
+                                                      uint64_t* bar, uint16_t mask) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      ".multicast::cluster [%0], [%1, {%2, %3}], [%4], %5;\n"
+      ::"r"(smem_addr(dst)), "l"(reinterpret_cast<uint64_t>(map)), "r"(x), "r"(y),
+        "r"(smem_addr(bar)), "h"(mask)
       : "memory");
 }
 
@@ -309,21 +369,28 @@ inline EncodeTiled encode_tiled() {
   return fn;
 }
 
-// tensor map of a (rows, cols) bf16 matrix whose rows start row_bytes apart
-// (a multiple of 16, as base's address), boxes of 64 columns x box_rows rows
-// in the 128-byte swizzle, zeros outside the matrix
-inline bool make_map_2d(CUtensorMap* map, const void* base, int rows, int cols,
-                        long long row_bytes, int box_rows) {
+// tensor map of a (rows, cols) matrix of `type` whose rows start row_bytes
+// apart (a multiple of 16, as base's address), boxes of box_cols columns (128
+// bytes) x box_rows rows in the 128-byte swizzle, zeros outside the matrix
+inline bool make_map_2d_of(CUtensorMap* map, CUtensorMapDataType type, const void* base, int rows,
+                           int cols, long long row_bytes, int box_cols, int box_rows) {
   const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return false;
   const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
   const cuuint64_t strides[1] = {(cuuint64_t)row_bytes};
-  const cuuint32_t box[2] = {64, (cuuint32_t)box_rows};
+  const cuuint32_t box[2] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows};
   const cuuint32_t elem[2] = {1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base), dims, strides,
-                box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+  return encode(map, type, 2, const_cast<void*>(base), dims, strides, box, elem,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// the same for a bf16 matrix, boxes of 64 columns
+inline bool make_map_2d(CUtensorMap* map, const void* base, int rows, int cols,
+                        long long row_bytes, int box_rows) {
+  return make_map_2d_of(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, base, rows, cols, row_bytes, 64,
+                        box_rows);
 }
 
 }  // namespace e2v

@@ -57,7 +57,8 @@ SIGNATURES = {
     "e2v_geglu_out": [P, P, P, P, I, I, I, P],
     "e2v_geglu_out_bwd": [P, P, P, P, I, I, I, P],
     "e2v_conv3x3": [P, P, P, P, P, P, P, P, I, I, I, I, I, P],
-    "e2v_int8_dense": [P, P, P, P, P, P, P, I, I, I, I, I, I, P],
+    "e2v_int8_dense": [P, P, P, P, P, P, LL, I, I, I, I, I, P],
+    "e2v_int8_dense_plan": [I, I, I, I, ctypes.POINTER(LL)],
     # the f32 kernels
     "e2v_flash_f32_fwd": [ctypes.POINTER(P), ctypes.POINTER(LL), ctypes.POINTER(I), F, P],
     "e2v_flash_f32_bwd": [ctypes.POINTER(P), ctypes.POINTER(LL), ctypes.POINTER(I), F, P],
@@ -188,6 +189,29 @@ def kernel_resources(log: str):
         if m and name:
             out[name] = (int(m.group(1)), *spills)
             name = None
+    return out
+
+
+# SASS opcodes of the conversion pipe (int <-> float, float <-> float)
+CONVERSION_OPCODES = ("I2F", "F2F", "F2I", "I2FP", "F2FP", "I2I")
+
+
+def sass_opcodes(prefix: str):
+    """{kernel: {opcode: count}} of the loaded library's kernels whose short
+    name starts with ``prefix``, from ``cuobjdump -sass`` (the opcode without
+    its modifiers, e.g. ``PRMT``, ``HGMMA``)."""
+    tool = os.path.join(os.path.dirname(_nvcc()), "cuobjdump")
+    so = os.path.join(BUILD_ROOT, _digest(), "libe2v_kernels.so")
+    text = subprocess.run([tool, "-sass", so], capture_output=True, text=True,
+                          check=True).stdout
+    out = {}
+    for part in re.split(r"\n\s*Function : ", text)[1:]:
+        name = _short_name(part.split("\n", 1)[0].strip())
+        if not name.startswith(prefix):
+            continue
+        count = out.setdefault(name, {})
+        for op in re.findall(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)", part):
+            count[op] = count.get(op, 0) + 1
     return out
 
 

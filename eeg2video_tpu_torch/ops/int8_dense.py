@@ -15,14 +15,19 @@ f32, then ``acc * scale + bias`` in f32. ReLU stays with the caller.
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 import torch.nn.functional as F
 
 from . import _build
 
-COL_TILE = 128    # columns one block covers (csrc/int8_dense.cu kBN)
-K_STEP = 64       # its step along K (kBK)
-TARGET_BLOCKS = 264  # two resident blocks on each of the 132 SMs
+COL_TILE = 128  # Np is a multiple of it: the width of the kernel's weight box (csrc/int8_dense.cu)
+
+# what k_splits needs of the kernel's plan (csrc/int8_plan.cuh;
+# tests/test_torch_kernel_plans.py holds the mirror to the header): columns a
+# block, K a slab, blocks of a cluster, the SMs it plans for, splits at most
+BLOCK_COLS, SLAB_K, CLUSTER, PLAN_SMS, MAX_SPLITS = 256, 64, 4, 132, 8
 
 
 def quantize_int8(kernel, bn: int = 512):
@@ -69,11 +74,32 @@ def int8_dense_plain(x, w_q, scale, bias, n_out: int):
 
 
 def k_splits(np_: int, kp: int) -> int:
-    """Blocks along K: enough that the grid has about two blocks for each SM,
-    at most one for each K step and at most 8."""
-    col_blocks = np_ // COL_TILE
-    k_steps = -(-kp // K_STEP)
-    return max(1, min(TARGET_BLOCKS // col_blocks, k_steps, 8))
+    """Blocks along K (int8_plan.cuh splits_of): where the clusters of column
+    tiles fill fewer than the card's cluster slots, enough splits to fill
+    them, at most one a K slab and MAX_SPLITS. From (Kp, Np) alone: a row's
+    bits do not depend on M."""
+    clusters = -(-(-(-np_ // BLOCK_COLS)) // CLUSTER)
+    slots = PLAN_SMS // CLUSTER
+    if clusters >= slots:
+        return 1
+    return max(1, min(slots // clusters, -(-kp // SLAB_K), MAX_SPLITS))
+
+
+_PLAN_FIELDS = ("workspace_bytes", "x_l2_bytes", "tiles", "splits", "width", "row_blocks",
+                "clusters_at_once")
+
+
+def plan(m: int, kp: int, np_: int, occupancy: bool = False) -> dict:
+    """The kernel's plan of an (m, Kp, Np) call, from the built library
+    (csrc/int8_plan.cuh through ``e2v_int8_dense_plan``): the workspace bytes
+    a call takes, the bytes of bf16 x its blocks read from L2, column tiles
+    (whole clusters), splits, x rows a block and row blocks; with
+    ``occupancy``, also the clusters the card holds at once."""
+    out = (ctypes.c_longlong * len(_PLAN_FIELDS))()
+    _build.check(_build.library().e2v_int8_dense_plan(m, kp, np_, int(occupancy), out),
+                 "int8_dense")
+    fields = _PLAN_FIELDS if occupancy else _PLAN_FIELDS[:-1]
+    return dict(zip(fields, out))
 
 
 def int8_dense(x, w_q, scale, bias, n_out: int):
@@ -99,14 +125,12 @@ def int8_dense(x, w_q, scale, bias, n_out: int):
         req(t.is_cuda and t.device == x.device, kernel, "all operands must be on x's device")
     xc = x.contiguous()
     scale, bias = scale.float().contiguous(), bias.float().contiguous()
-    splits = k_splits(np_, kp)
     out = torch.empty((m, n_out), dtype=torch.float32, device=x.device)
-    xb = torch.empty((m, kp), dtype=torch.bfloat16, device=x.device)
-    part = (torch.empty((splits, m, np_), dtype=torch.float32, device=x.device)
-            if splits > 1 else None)
+    nbytes = plan(m, kp, np_)["workspace_bytes"]
+    ws = torch.empty(nbytes, dtype=torch.uint8, device=x.device)
     rc = _build.library().e2v_int8_dense(
         xc.data_ptr(), w_q.data_ptr(), scale.data_ptr(), bias.data_ptr(), out.data_ptr(),
-        xb.data_ptr(), _build.ptr(part), m, k, kp, np_, n_out, splits, _build.stream_of(x))
+        ws.data_ptr(), nbytes, m, k, kp, np_, n_out, _build.stream_of(x))
     _build.check(rc, kernel)
     _build.launches[kernel] += 1
     return out

@@ -11,6 +11,7 @@
     python -m eeg2video_tpu_torch.utils.attention_ab --cases temporal --tree PARENT --tree . ...
     python -m eeg2video_tpu_torch.utils.attention_ab --cases geglu_out_bwd --tree PARENT ...
     python -m eeg2video_tpu_torch.utils.attention_ab --cases geglu_f32 --tree PARENT ...
+    python -m eeg2video_tpu_torch.utils.attention_ab --cases int8 --tree PARENT --tree . ...
 
 Each ``--tree`` is the root of a checkout. Its ``eeg2video_tpu_torch`` is
 imported in a process of its own (two versions never share a process), its
@@ -69,7 +70,13 @@ digests its output at those and at T = 1, 37, 130. ``--cases geglu_f32``
 times the f32 pair on f32 operands: ``geglu_out`` at the forward's row
 counts and ``geglu_out_bwd`` at the train step's, each with its composition
 in f32 (cuBLAS's TF32 off) as ``composed_ms`` and digests at those shapes
-and at T = 1, 37, 130.
+and at T = 1, 37, 130. ``--cases int8`` times ``int8_dense`` at the five
+layers of the hidden=10000 semantic MLP (chip_smoke.py's four shapes: the
+first layer, a middle one at 100 rows and at one row, the out layer), with a
+dequantize to bf16 and one ``F.linear`` as ``library_ms``, the bytes of x its
+blocks read from L2 (``l2_bytes``, where the tree has ``int8_dense.plan``),
+and digests of the output bits at those
+shapes and at 7, 113 and 200 rows.
 """
 
 from __future__ import annotations
@@ -434,6 +441,48 @@ def _geglu_bwd_cases(torch, shapes, dtype=None):
             for t in shapes}
 
 
+# (label, rows, K, N) of int8_dense: the semantic MLP's first layer, a middle
+# layer at the serving chunk's 100 rows and at one row, the out layer
+INT8_SHAPES = (("fc0 M=100 (310->10000)", 100, 310, 10000),
+               ("fc1-3 M=100 (10000->10000)", 100, 10000, 10000),
+               ("fc1-3 M=1 (10000->10000)", 1, 10000, 10000),
+               ("out M=100 (10000->59136)", 100, 10000, 77 * 768))
+INT8_EDGES = (("M=7 (10000->10000)", 7, 10000, 10000),
+              ("M=113 (10000->10000)", 113, 10000, 10000),
+              ("M=200 (10000->10000)", 200, 10000, 10000),
+              ("M=7 (10000->59136)", 7, 10000, 77 * 768))
+
+
+def _int8_cases(torch, int8_dense, shapes):
+    """{label: (x, w_q, scale, bias, n)}: random weights from a seed, quantized
+    by the tree's own quantize_int8, ReLU'd activations as the MLP feeds them."""
+    g = torch.Generator(device="cuda").manual_seed(0)
+    cases = {}
+    for label, m, k, n in shapes:
+        w = torch.randn(k, n, generator=g, device="cuda") * k ** -0.5
+        w_q, scale = int8_dense.quantize_int8(w)
+        del w
+        bias = 0.1 * torch.randn(n, generator=g, device="cuda")
+        x = torch.randn(m, k, generator=g, device="cuda").relu()
+        cases[label] = (x, w_q, scale, bias, n)
+    return cases
+
+
+def int8_library(args):
+    """A dequantize to bf16 and one F.linear (cuBLAS) with the same scale and
+    bias epilogue: a yardstick the port never calls."""
+    import torch
+    import torch.nn.functional as F
+
+    x, w_q, scale, bias, n = args
+    kp = w_q.shape[0]
+
+    def run():
+        y = F.linear(F.pad(x, (0, kp - x.shape[1])).bfloat16(), w_q.to(torch.bfloat16).t())
+        return y[:, :n].float() * scale[:n] + bias
+    return run
+
+
 def _digest(torch, *outs):
     """The first 16 hex digits of the sha256 of the tensors' bits."""
     h = hashlib.sha256()
@@ -540,6 +589,25 @@ def _one(tree, which="attention"):
         # the output's bits at the timed shapes and at row counts that end inside a block
         every = {**cases, **make(torch, geglu, _FF_EDGES, dtype=dtype)}
         line["digest"] = {label: _digest(torch, fn()) for label, (fn, _) in every.items()}
+    elif which == "int8":
+        from eeg2video_tpu_torch.ops import int8_dense
+
+        cases = _int8_cases(torch, int8_dense, INT8_SHAPES)
+        line["ms"] = {label: _time(torch, lambda a=args: int8_dense.int8_dense(*a))
+                      for label, args in cases.items()}
+        line["library_ms"] = {label: _time(torch, int8_library(args))
+                              for label, args in cases.items()}
+        plan = getattr(int8_dense, "plan", None)
+        if plan is not None:
+            line["l2_bytes"] = {label: plan(m, -(-k // 32) * 32, -(-n // 512) * 512)["x_l2_bytes"]
+                                for label, m, k, n in INT8_SHAPES}
+        digests = {label: _digest(torch, int8_dense.int8_dense(*args))
+                   for label, args in cases.items()}
+        del cases
+        edges = _int8_cases(torch, int8_dense, INT8_EDGES)
+        digests.update({label: _digest(torch, int8_dense.int8_dense(*args))
+                        for label, args in edges.items()})
+        line["digest"] = digests
     elif which == "attention_f32":
         cases = _f32_cases(torch, attention)
         line["ms"] = {label: _time(torch, fn) for label, (fn, _) in cases.items()}
@@ -578,7 +646,7 @@ def main(argv=None):
     parser.add_argument("--cases",
                         choices=("attention", "attention_f32", "ff_ln", "ff_ln_bwd", "ff_f32",
                                  "ff_bwd_f32", "conv3x3", "geglu_out", "temporal",
-                                 "geglu_out_bwd", "geglu_f32"),
+                                 "geglu_out_bwd", "geglu_f32", "int8"),
                         default="attention",
                         help="the kernels to time (default: the attention cases)")
     args = parser.parse_args(argv)

@@ -669,16 +669,30 @@ def test_conv3x3_repeats_bit_for_bit(gen, n, h, w, cin, stats, temb):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("m,k,n", [
-    (1, 310, 700),      # one row, K and N padded (320, 1024), one K split per step
-    (100, 1000, 3000),  # the serving chunk; split K, second pass
-    (113, 96, 130),     # two row blocks, the second with one row
-    (7, 4100, 33000),   # many column blocks: one split, epilogue in the kernel
+@pytest.mark.parametrize("m,k,n,bn", [
+    (1, 310, 700, 512),       # one row, K and N padded (320, 1024)
+    (100, 1000, 3000, 512),   # the serving chunk's rows; K split, the last block finishes
+    (113, 96, 130, 512),      # two row blocks of 104, the second with 9 rows; two K slabs
+    (7, 4100, 33000, 512),    # 33 clusters of column tiles: no split, epilogue in the kernel
+    (1, 10000, 10000, 512),   # the middle layer at one row: K = 10016 ends inside a slab
+    (7, 10000, 10000, 512),
+    (100, 10000, 10000, 512),
+    (200, 10000, 10000, 512),  # two row blocks of 104
+    (100, 320, 10000, 512),   # the first layer's K = 320: 5 slabs over 3 splits
+    (113, 310, 10000, 512),
+    (100, 20, 200, 256),      # one K step (Kp = 32) and one column tile (Np = 256)
+    (7, 64, 100, 128),        # half a column tile (Np = 128), one slab
+    (37, 640, 1200, 256),     # 5 tiles in 2 clusters: 3 blocks past Np
+    (1, 4096, 100, 128),      # Np = 128, K split 8 ways: the finisher's tile half past Np,
+                              # the cluster's other three tiles wholly past it
+    (7, 10000, 77 * 768, 512),  # the out layer (Np = 59392, 232 tiles): a ragged last wave
+    (100, 10000, 77 * 768, 512),
 ])
-def test_int8_dense_matches_plain(gen, m, k, n):
+def test_int8_dense_matches_plain(gen, m, k, n, bn):
     w = _rand(gen, k, n, scale=k ** -0.5, dtype=torch.float32)
     w[:, 3] = 0.0  # an all-zero column: scale 0
-    w_q, scale = int8_dense.quantize_int8(w)
+    w_q, scale = int8_dense.quantize_int8(w, bn=bn)
+    del w
     bias = _rand(gen, n, scale=0.1, dtype=torch.float32)
     x = _rand(gen, m, k, dtype=torch.float32)
     got = int8_dense.int8_dense(x, w_q, scale, bias, n)
@@ -686,8 +700,27 @@ def test_int8_dense_matches_plain(gen, m, k, n):
     assert got.shape == (m, n) and got.dtype == torch.float32
     # same bf16 operands and f32 accumulation: only the summation order differs
     assert _err(got, want) < 1e-4
+    assert torch.equal(got[:, 3], bias[3].expand(m))  # the zero column: its bias alone
     again = int8_dense.int8_dense(x, w_q, scale, bias, n)
     assert torch.equal(got, again)  # fixed-order split-K sum: same bits every run
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k,n", [(10000, 10000), (310, 10000), (10000, 77 * 768)])
+@pytest.mark.parametrize("m_few,m_many", [(7, 100), (1, 7), (100, 200)])
+def test_int8_dense_rows_do_not_depend_on_m(gen, k, n, m_few, m_many):
+    """Rows 0 .. m_few - 1 of an m_many-row call equal an m_few-row call bit for
+    bit: the split of K comes from the weight's shape alone, and the wgmma widths
+    (8 at 1 and 7 rows, 104 at 100 and in each of 200's two row blocks) give
+    each row the same bits."""
+    w = _rand(gen, k, n, scale=k ** -0.5, dtype=torch.float32)
+    w_q, scale = int8_dense.quantize_int8(w)
+    del w
+    bias = _rand(gen, n, scale=0.1, dtype=torch.float32)
+    x = _rand(gen, m_many, k, dtype=torch.float32)
+    many = int8_dense.int8_dense(x, w_q, scale, bias, n)
+    few = int8_dense.int8_dense(x[:m_few].clone(), w_q, scale, bias, n)
+    assert torch.equal(many[:m_few], few)
 
 
 @pytest.mark.gpu

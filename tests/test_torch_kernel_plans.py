@@ -4,8 +4,10 @@ csrc/temporal_plan.cuh says how ``temporal_attention_fwd`` / ``_bwd`` cut
 their work (these tests compile it with the host's g++ and check its plan at
 every shape of the grid; ``temporal.units_of`` mirrors its unit split);
 ``geglu.geglu_out_bwd_l2_read_bytes`` counts what ``geglu_out_bwd``'s tiles
-copy from L2. The kernels themselves run only on the card
-(tests/test_torch_gpu.py).
+copy from L2; csrc/int8_plan.cuh says how ``int8_dense`` splits K, sizes its
+blocks and workspace and reads x (compiled the same way; ``int8_dense.k_splits``
+mirrors its split). The
+kernels themselves run only on the card (tests/test_torch_gpu.py).
 """
 
 import json
@@ -15,7 +17,7 @@ import subprocess
 
 import pytest
 
-from eeg2video_tpu_torch.ops import _build, geglu, temporal
+from eeg2video_tpu_torch.ops import _build, geglu, int8_dense, temporal
 
 # every (heads, head_dim) the staged route takes at these widths: heads
 # divides 32, head_dim a multiple of 32 / heads
@@ -183,3 +185,122 @@ def test_geglu_out_bwd_l2_read_bytes_matches_a_hand_count():
     # the train step's level 2: 68 x 40 tiles
     assert geglu.geglu_out_bwd_l2_read_bytes(8640, 5120, 1280) == 2 * (
         40 * 8640 * 1280 + 68 * 1280 * 5120 + 8640 * 10240)
+
+
+_INT8_MAIN = r"""
+#include <cstdio>
+#include "int8_plan.cuh"
+using namespace e2v::int8_plan;
+int main() {
+  std::printf("[%d,%d,%d,%d,%d,%d,[", kCols, kSlabK, kCluster, kStages, kSmemMax, kMaxWidth);
+  for (int i = 0; i < kNumWidths; ++i) std::printf(i ? ",%d" : "%d", kWidths[i]);
+  std::printf("]]\n");
+  int m, kp, np;
+  while (std::scanf("%d %d %d", &m, &kp, &np) == 3) {
+    const Plan p = plan(m, kp, np);
+    std::printf("[%d,%d,%d,%d,%d,%lld,%lld,%lld,[", p.slabs, p.tiles, p.splits, p.width,
+                p.row_blocks, p.smem, workspace_bytes(p, m, kp, np), x_l2_read_bytes(p, m, kp));
+    for (int i = 0; i <= p.splits; ++i)
+      std::printf(i ? ",%d" : "%d", split_begin(p.slabs, p.splits, i));
+    std::printf("]]\n");
+  }
+  return 0;
+}
+"""
+# (M, Kp, Np) of the semantic MLP's layers (310 -> 4 x 10000 -> 77 * 768, N
+# padded to 512 by quantize_int8) at one row, the serving chunk's 100 rows,
+# and M around the kernel's widths
+MLP_LAYERS = [(320, 10240), (10016, 10240), (10016, 59392)]
+INT8_ROWS = (1, 7, 8, 9, 64, 65, 100, 104, 105, 113, 200, 1000)
+
+
+@pytest.fixture(scope="module")
+def int8_cplan(tmp_path_factory):
+    """csrc/int8_plan.cuh compiled with the host's C++ compiler: a function of
+    [(M, Kp, Np)] giving the kernel's constants and one dict of plan fields a call."""
+    cxx = shutil.which("g++") or shutil.which("c++")
+    assert cxx is not None, "no C++ compiler (g++) found"
+    tmp = tmp_path_factory.mktemp("int8_plan")
+    src, exe = tmp / "plan.cpp", tmp / "plan"
+    src.write_text(_INT8_MAIN)
+    csrc = os.path.join(os.path.dirname(int8_dense.__file__), "..", "csrc")
+    subprocess.run([cxx, "-std=c++17", "-O1", "-I", csrc, "-o", str(exe), str(src)], check=True)
+
+    def run(calls):
+        out = subprocess.run([str(exe)], input="".join(f"{m} {kp} {np_}\n" for m, kp, np_ in calls),
+                             capture_output=True, text=True, check=True).stdout.split()
+        consts = dict(zip(("cols", "slab_k", "cluster", "stages", "smem_max", "max_width",
+                           "widths"), json.loads(out[0])))
+        fields = ("slabs", "tiles", "splits", "width", "row_blocks", "smem", "workspace_bytes",
+                  "x_l2_bytes", "begins")
+        plans = [dict(zip(fields, json.loads(line))) for line in out[1:]]
+        assert len(plans) == len(calls)
+        return consts, plans
+
+    return run
+
+
+@pytest.mark.parametrize("kp,np_", MLP_LAYERS)
+def test_int8_plan_covers_k_once_and_fits_shared_memory(int8_cplan, kp, np_):
+    """Every layer of the semantic MLP at every row count: the splits cover the K
+    slabs once, each at least one slab; the column tiles cover Np in whole
+    clusters; the rows fit the instantiated width (several row blocks above the
+    widest); a block's ring fits its shared memory; the workspace holds two
+    counters a tile, x in bf16 and, with a split, every split's partial sums."""
+    c, plans = int8_cplan([(m, kp, np_) for m in INT8_ROWS])
+    for m, p in zip(INT8_ROWS, plans):
+        b = p["begins"]
+        assert p["slabs"] * c["slab_k"] >= kp > (p["slabs"] - 1) * c["slab_k"]
+        assert b[0] == 0 and b[-1] == p["slabs"] and len(b) == p["splits"] + 1
+        assert all(hi > lo for lo, hi in zip(b, b[1:])), b
+        assert p["tiles"] % c["cluster"] == 0
+        assert p["tiles"] * c["cols"] >= np_ > (p["tiles"] - c["cluster"]) * c["cols"]
+        assert p["width"] in c["widths"] and p["width"] % 8 == 0
+        assert p["width"] == (8 if m <= 8 else 104)
+        assert p["row_blocks"] * p["width"] >= m > (p["row_blocks"] - 1) * p["width"]
+        assert m > c["max_width"] or p["row_blocks"] == 1
+        assert p["smem"] == 1024 + c["stages"] * (c["cols"] * c["slab_k"] + p["width"] * 128)
+        assert p["smem"] <= c["smem_max"]
+        partials = p["splits"] * m * np_ * 4 if p["splits"] > 1 else 0
+        assert p["workspace_bytes"] >= p["tiles"] * p["row_blocks"] * 8 + m * kp * 2 + partials
+
+
+def test_int8_plan_splits_from_the_weight_shape_alone(int8_cplan):
+    """A row's bits must not depend on M: the split of K is the same at every row
+    count. The middle layers (10 clusters of 4 x 256 columns) take 3 splits, 120
+    blocks for 132 SMs; the first layer too (5 slabs); the out layer (58 clusters)
+    none."""
+    calls = [(m, kp, np_) for kp, np_ in MLP_LAYERS for m in INT8_ROWS]
+    _, plans = int8_cplan(calls)
+    by_layer = {}
+    for (m, kp, np_), p in zip(calls, plans):
+        by_layer.setdefault((kp, np_), set()).add((p["splits"], tuple(p["begins"])))
+    assert all(len(v) == 1 for v in by_layer.values()), by_layer
+    splits = {k: next(iter(v))[0] for k, v in by_layer.items()}
+    assert splits == {(320, 10240): 3, (10016, 10240): 3, (10016, 59392): 1}
+    tiles = {(kp, np_): p["tiles"] for (m, kp, np_), p in zip(calls, plans)}
+    assert tiles == {(320, 10240): 40, (10016, 10240): 40, (10016, 59392): 232}
+
+
+@pytest.mark.parametrize("np_", [128, 256, 1280, 10240, 59392])
+@pytest.mark.parametrize("kp", [32, 64, 96, 320, 6400, 10016])
+def test_int8_plan_mirror_equals_the_header(int8_cplan, kp, np_):
+    """``int8_dense.k_splits``, the one part of the plan with a Python mirror, and
+    the constants it reads give what csrc/int8_plan.cuh gives, at one K step, the
+    MLP's shapes and others."""
+    calls = [(m, kp, np_) for m in INT8_ROWS]
+    c, plans = int8_cplan(calls)
+    assert (c["cols"], c["slab_k"], c["cluster"]) == (int8_dense.BLOCK_COLS, int8_dense.SLAB_K,
+                                                      int8_dense.CLUSTER)
+    for (m, _, _), p in zip(calls, plans):
+        assert int8_dense.k_splits(np_, kp) == p["splits"], (m, kp, np_)
+
+
+def test_int8_x_l2_read_bytes_matches_a_hand_count(int8_cplan):
+    """Each cluster of four 256-column blocks reads x's (M, Kp) bf16 once: the out layer
+    at 100 rows, 58 clusters x 2.0 MB, about 0.19 of its weight's bytes."""
+    _, (out, mid, one) = int8_cplan([(100, 10016, 59392), (100, 10016, 10240), (1, 32, 128)])
+    assert out["x_l2_bytes"] == 58 * 100 * 10016 * 2
+    assert mid["x_l2_bytes"] == 10 * 100 * 10016 * 2
+    assert one["x_l2_bytes"] == 1 * 1 * 32 * 2
+    assert out["x_l2_bytes"] / (10016 * 59392) < 0.25
