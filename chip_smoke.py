@@ -80,7 +80,25 @@ printed on its own line; any failure prints ``FAIL ...`` and exits 1:
    and ``cli.inference_eeg2video.main`` on the checkpoint the trainer wrote
    (fresh-noise and DANA latents, then ``--dtype float32``); then
    compute_dtype="float32" at full width: one optimizer step at batch 10
-   (launches, seconds, peak memory), profiled, and one f32 masked step.
+   (launches, seconds, peak memory), profiled, and one f32 masked step;
+10. the rest of the training recipe, each line beside the card's name and
+   power limit: ``train.semantic.train_semantic`` on ``SemanticPredictor()``
+   (894.5M parameters), one epoch of 37 steps at batch 32 on 1200 seeded rows
+   with f32 Adam and one with 8-bit Adam (s/step, peak memory, optimizer
+   state bytes), then one 8-bit step on the card against the same step on
+   the CPU from the same gradients and state (codes at most 1 apart,
+   parameters within 1e-6 of the step's largest update) and the eager 8-bit
+   step's share of a training step; ``cli.inference_semantic.main --int8`` on
+   the trained weights (200 block-6 rows, ``int8_dense`` launched, cosine
+   against the f32 MLP above 0.999); ``train.seq2seq.train_seq2seq`` on
+   ``Seq2SeqTransformer()``, one epoch at batch 32 on 1200 seeded windows;
+   ``cli.train_tuneavideo.train`` at UNet3DConfig(), batch 10,
+   ``--use_8bit_adam --gradient_accumulation_steps 2``: two optimizer steps
+   of two micro steps, each micro step launching what a plain step does, and
+   the ``CheckpointSession``'s train state restored bit for bit;
+   ``cli.generate_video_latents.encode_gifs`` on two seeded 6-frame 288x512
+   GIFs with VAEConfig() in f32, one frame against the CPU's encode (rtol
+   1e-3 / atol 1e-4).
 
 The third-to-last line is a JSON object with one entry per kernel, then the
 ``nvidia-smi`` line; the last line is ``{"ok": true, "device": {...}}``.
@@ -1983,6 +2001,379 @@ def phase_f32_train(torch, build):
     return launches, dbias
 
 
+# --- the rest of the training recipe: the front-half trainers, the 8-bit and
+# accumulated fine-tune, the semantic CLI and the latent encoder -------------
+
+SEM_ROWS, SEM_BATCH = 1200, 32   # the reference's 6 x 200 rows, batch 32
+S2S_WINDOWS = 1200               # the reference's 6 x 200 training windows
+ACCUM = 2                        # micro steps an optimizer step (--gradient_accumulation_steps)
+ADAMW_TRAIN_PEAK_GIB = 22.02      # the AdamW train step's peak at batch 10 (PERF.md §5)
+
+
+def _sync_clock(torch):
+    torch.cuda.synchronize()
+    return time.perf_counter()
+
+
+def _trainer_steps(torch):
+    """``on_step`` for the trainers: the synchronized seconds between steps
+    and the optimizer's state bytes after the last."""
+    from eeg2video_tpu_torch.train.optim import state_bytes
+
+    rec = {"t": [_sync_clock(torch)], "state_bytes": 0, "losses": []}
+
+    def on_step(step, loss, opt):
+        rec["t"].append(_sync_clock(torch))
+        rec["losses"].append(float(loss))
+        rec["state_bytes"] = state_bytes(opt)
+
+    return rec, on_step
+
+
+def phase_train_semantic(torch, build, card, tmp):
+    """(a) ``train.semantic.train_semantic`` at full width: one epoch with f32
+    Adam and one with 8-bit Adam on 1200 seeded rows; then one 8-bit step on
+    the card against the same step on the CPU from the same gradients and
+    state. Returns the 8-bit run's state dict and the run's launches."""
+    import numpy as np
+
+    from eeg2video_tpu_torch.models.init import lecun_init_
+    from eeg2video_tpu_torch.models.semantic import SemanticPredictor
+    from eeg2video_tpu_torch.train import optim
+    from eeg2video_tpu_torch.train import semantic as sem
+    from eeg2video_tpu_torch.train.checkpoint import host_copy
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(31)
+    # targets a seeded linear map of the features: a function the MLP can learn
+    x = torch.randn(SEM_ROWS, 310, generator=g, device=dev)
+    w = torch.randn(310, 77 * 768, generator=g, device=dev) * (0.1 / 310 ** 0.5)
+    eeg, text = x.cpu().numpy(), (x @ w).cpu().numpy()
+    del x, w
+    build.reset_launches()
+    result = {}
+    for eight_bit in (False, True):
+        cfg = sem.SemanticTrainConfig(epochs=1, batch_size=SEM_BATCH, use_8bit_adam=eight_bit)
+        rec, on_step = _trainer_steps(torch)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        sd, losses = sem.train_semantic(eeg, text, cfg, seed=7, device=dev, on_step=on_step)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        steps = np.diff(rec["t"])
+        n_params = sum(v.numel() for v in sd.values())
+        ok = (len(steps) == SEM_ROWS // SEM_BATCH and all(np.isfinite(rec["losses"]))
+              and np.isfinite(losses[0]) and rec["losses"][-1] < rec["losses"][0])
+        name = "8-bit Adam" if eight_bit else "f32 Adam"
+        say(f"train_semantic: SemanticPredictor() {n_params} params, {name}, one epoch of "
+            f"{len(steps)} steps at batch {SEM_BATCH} on {SEM_ROWS} seeded rows: loss first "
+            f"{rec['losses'][0]:.5f} last {rec['losses'][-1]:.5f} (epoch sum {losses[0]:.4f}), "
+            f"s/step median {np.median(steps[1:]):.4f} (first {steps[0]:.3f}, synchronized), "
+            f"peak memory {peak:.2f} GiB, optimizer state {rec['state_bytes'] / 1e9:.3f} GB "
+            f"[{card}] {'ok' if ok else 'FAILED'}")
+        if not ok:
+            fail(f"train_semantic ({name}): a non-finite loss, or the loss did not fall")
+        result[eight_bit] = (np.median(steps[1:]), rec["state_bytes"])
+        if not eight_bit:
+            del sd
+    launches = dict(build.launches)
+
+    # one 8-bit step: its share of a step, then the card's update against the
+    # CPU's from the same gradients and state
+    with torch.device("meta"):
+        model = SemanticPredictor()
+    model = lecun_init_(model.to_empty(device=dev), torch.Generator(device=dev).manual_seed(8))
+    opt = optim.Adam8bit(model.parameters(), lr=5e-4)
+    x = torch.from_numpy(eeg[:SEM_BATCH]).to(dev)
+    y = torch.from_numpy(text[:SEM_BATCH]).to(dev)
+
+    def grads():
+        opt.zero_grad(set_to_none=True)
+        torch.mean((model(x) - y) ** 2).backward()
+
+    fwd_bwd, step = [], []
+    for _ in range(4):
+        t0 = _sync_clock(torch)
+        grads()
+        t1 = _sync_clock(torch)
+        opt.step()
+        t2 = _sync_clock(torch)
+        fwd_bwd.append(t1 - t0)
+        step.append(t2 - t1)
+    grads()
+    params = {n: p for n, p in model.named_parameters()}
+
+    def rows(t):
+        """The first 2048 of a weight's rows (a row runs along the first axis:
+        a column of the (out, in) weight, scaled as a whole), all of a bias."""
+        return t[:, :2048] if t.dim() == 2 else t
+
+    before = {n: host_copy((rows(p.detach()), rows(p.grad),
+                            {k: rows(v) if torch.is_tensor(v) else v
+                             for k, v in opt.state[p].items()})) for n, p in params.items()}
+    opt.step()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    worst_code, worst_param, n_codes, n_equal = 0, 0.0, 0, 0
+    for n, p in params.items():
+        p0, g0, st = before.pop(n)
+        u, mq, ms, vq, vs = optim.adam8_update(g0, st["mq"], st["ms"], st["vq"], st["vs"],
+                                               st["count"] + 1, 0.9, 0.999, 1e-8)
+        want = p0 + u * -5e-4
+        got = opt.state[p]
+        for cpu_codes, card_codes in ((mq, got["mq"]), (vq, got["vq"])):
+            diff = (cpu_codes.int() - rows(card_codes).cpu().int()).abs()
+            worst_code = max(worst_code, int(diff.max()))
+            n_codes += diff.numel()
+            n_equal += int((diff == 0).sum())
+        largest = float((want - p0).abs().max())
+        worst_param = max(worst_param,
+                          float((rows(p.detach()).cpu() - want).abs().max()) / largest)
+    cpu_s = time.perf_counter() - t0
+    ok = worst_code <= 1 and worst_param <= 1e-6
+    share = np.median(step) / result[True][0]
+    say(f"train_semantic: one 8-bit step on the card vs the CPU from the same gradients and "
+        f"state ({n_codes // 2} of {sum(p.numel() for p in params.values())} values: every "
+        f"bias, 2048 whole rows of each weight): int8 codes at most {worst_code} apart "
+        f"({n_equal / n_codes:.6f} equal), parameters within {worst_param:.2e} of the step's "
+        f"largest update (bound 1 apart, 1e-6); CPU step {cpu_s:.1f} s; card: forward + backward "
+        f"{np.median(fwd_bwd) * 1e3:.2f} ms, the eager 8-bit step {np.median(step) * 1e3:.2f} ms "
+        f"({share:.3f} of the 8-bit training step); optimizer state 8-bit "
+        f"{result[True][1] / 1e9:.3f} GB against f32 Adam's {result[False][1] / 1e9:.3f} GB "
+        f"[{card}] {'ok' if ok else 'FAILED'}")
+    if not ok:
+        fail("train_semantic: the card's 8-bit step differs from the CPU's")
+    del model, opt, params
+    torch.cuda.empty_cache()
+    return sd, launches
+
+
+def phase_inference_semantic(torch, build, card, tmp, sd):
+    """(d) ``cli.inference_semantic --int8`` through its ``main`` on the
+    trained full-width weights: 200 block-6 rows, ``int8_dense`` launched, the
+    embeddings against the f32 MLP's."""
+    import numpy as np
+
+    from eeg2video_tpu_torch.cli import inference_semantic
+    from eeg2video_tpu_torch.data import meta
+    from eeg2video_tpu_torch.train import semantic as sem
+    from eeg2video_tpu_torch.utils import StandardScaler
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(32)
+    feats = (3.0 * torch.randn(7, 40, 5, 62, 5, generator=g, device=dev) + 1.0).cpu().numpy()
+    np.save(os.path.join(tmp, "de.npy"), feats)
+    scaler = StandardScaler().fit(feats[:6].reshape(-1, 310))
+    scaler.save(os.path.join(tmp, "scaler.npz"))
+    torch.save({k: v.cpu() for k, v in sd.items()}, os.path.join(tmp, "semantic.pt"))
+    out = os.path.join(tmp, "emb.npy")
+    build.reset_launches()
+    t0 = _sync_clock(torch)
+    inference_semantic.main(["--features", os.path.join(tmp, "de.npy"), "--ckpt",
+                             os.path.join(tmp, "semantic.pt"), "--scaler",
+                             os.path.join(tmp, "scaler.npz"), "--hidden",
+                             str(sd["fc0.weight"].shape[0]), "--int8", "--out", out])
+    secs = _sync_clock(torch) - t0
+    launches = dict(build.launches)
+    emb = np.load(out)
+    eeg = scaler.transform(meta.reorder_by_gt(feats[6], 6).reshape(-1, 310))
+    ref = sem.predict_semantic(sd, eeg, device=dev)
+    cos = float((emb * ref).sum() / np.sqrt((emb * emb).sum() * (ref * ref).sum()))
+    n_chunks = -(-200 // sem.PREDICT_CHUNK)
+    ok = (emb.shape == (200, 77 * 768) and np.isfinite(emb).all() and cos > 0.999
+          and launches["int8_dense"] == INT8_LAYERS * n_chunks)
+    say(f"inference_semantic --int8: 200 block-6 rows at full width through main, "
+        f"{secs:.2f} s with loading the {os.path.getsize(os.path.join(tmp, 'semantic.pt')) / 1e9:.2f}"
+        f" GB checkpoint and quantizing; embeddings "
+        f"{emb.shape}, cosine against the f32 MLP {cos:.6f} (bound 0.999), int8_dense launches "
+        f"{launches['int8_dense']} ({n_chunks} chunks of {INT8_LAYERS}) [{card}] "
+        f"{'ok' if ok else 'FAILED'}")
+    if not ok:
+        fail("inference_semantic --int8: wrong embeddings, or int8_dense did not launch")
+    return launches
+
+
+def phase_train_seq2seq(torch, build, card):
+    """(b) ``train.seq2seq.train_seq2seq`` on ``Seq2SeqTransformer()``, one
+    epoch at batch 32 on 1200 seeded windows."""
+    import numpy as np
+
+    from eeg2video_tpu_torch.train import seq2seq as s2s
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(33)
+    eeg = torch.randn(S2S_WINDOWS, 7, 62, 100, generator=g, device=dev).cpu().numpy()
+    lat = torch.randn(S2S_WINDOWS, 6, 4, 36, 64, generator=g, device=dev).cpu().numpy()
+    rec, on_step = _trainer_steps(torch)
+    build.reset_launches()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    sd, losses = s2s.train_seq2seq(eeg, lat, s2s.Seq2SeqTrainConfig(epochs=1), seed=9,
+                                   device=dev, on_step=on_step)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    launches = dict(build.launches)
+    steps = np.diff(rec["t"])
+    n_params = sum(v.numel() for k, v in sd.items() if v.is_floating_point()
+                   and "running" not in k and k != "positional_encoding.pe")
+    ok = (len(steps) == S2S_WINDOWS // 32 and all(np.isfinite(rec["losses"]))
+          and rec["losses"][-1] < rec["losses"][0])
+    say(f"train_seq2seq: Seq2SeqTransformer() {n_params} params, dropout on, one epoch of "
+        f"{len(steps)} steps at batch 32 on {S2S_WINDOWS} seeded windows (7, 62, 100) -> "
+        f"(6, 4, 36, 64): loss first {rec['losses'][0]:.4f} last {rec['losses'][-1]:.4f}, "
+        f"s/step median {np.median(steps[1:]):.4f} (first {steps[0]:.3f}, synchronized), "
+        f"peak memory {peak:.2f} GiB [{card}] {'ok' if ok else 'FAILED'}")
+    if not ok:
+        fail("train_seq2seq: a non-finite loss, or the loss did not fall")
+    return launches
+
+
+def phase_train_8bit_accum(torch, build, card, tmp):
+    """(c) the fine-tune through ``cli.train_tuneavideo.train`` at
+    UNet3DConfig(), batch 10, ``--use_8bit_adam --gradient_accumulation_steps
+    2``: two optimizer steps of two micro steps; each micro step launches what
+    a plain step does; the session's save restores bit for bit."""
+    from eeg2video_tpu_torch.cli import train_tuneavideo
+    from eeg2video_tpu_torch.models.init import random_init_
+    from eeg2video_tpu_torch.models.vae import AutoencoderKL, VAEConfig
+    from eeg2video_tpu_torch.train import checkpoint as ckpt
+    from eeg2video_tpu_torch.train.optim import Adam8bit, state_bytes
+
+    dev = torch.device("cuda")
+    unet, g = _full_width_unet(torch, 15)
+    b, n = TRAIN_BATCH, TRAIN_BATCH * 2 * ACCUM
+    post = torch.cat([torch.randn(n, 6, 36, 64, 4, generator=g, device=dev),
+                      -4.0 + 0.1 * torch.randn(n, 6, 36, 64, 4, generator=g, device=dev)], dim=-1)
+    ctx = torch.randn(n, 77, 768, generator=g, device=dev)
+    with torch.device("meta"):
+        vae = AutoencoderKL(VAEConfig())
+    vae = random_init_(vae.to_empty(device=dev), g)  # posteriors are given: no encode
+    micro = []  # (seconds since the previous micro step ended, loss, launches)
+
+    def on_step(state, loss):
+        now = _sync_clock(torch)
+        micro.append((now - clock[0], float(loss), dict(build.launches)))
+        build.reset_launches()
+        clock[0] = _sync_clock(torch)
+
+    out = os.path.join(tmp, "accum")
+    args = train_tuneavideo.build_parser().parse_args([
+        "--device", "cuda", "--epochs", "1", "--train_batch_size", str(b), "--use_8bit_adam",
+        "--gradient_accumulation_steps", str(ACCUM), "--validation_epochs", "9",
+        "--output_dir", out])
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    build.reset_launches()
+    clock = [_sync_clock(torch)]
+    state, losses = train_tuneavideo.train(unet, vae, post, ctx, args, on_step=on_step)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    per_opt = [sum(m[0] for m in micro[i:i + ACCUM]) for i in range(0, len(micro), ACCUM)]
+    total = {k: sum(m[2][k] for m in micro) for k in EXPECTED_PER_TRAIN_STEP}
+    per_step = {k: v // (len(micro) // ACCUM) for k, v in total.items()}
+    ok = (len(micro) == 2 * ACCUM and state.step == 2 * ACCUM and state.mini_step == 0
+          and isinstance(state.optimizer, Adam8bit)
+          and all(m[2] == EXPECTED_PER_TRAIN_STEP for m in micro)
+          and all(0.2 < m[1] < 10.0 for m in micro))
+    say(f"train 8-bit + accumulation: UNet3DConfig(), batch {b}, --use_8bit_adam "
+        f"--gradient_accumulation_steps {ACCUM}: {len(micro)} micro steps = "
+        f"{len(micro) // ACCUM} optimizer steps, losses {[round(m[1], 4) for m in micro]}, "
+        f"s per optimizer step {[round(s, 3) for s in per_opt]} (the first includes building "
+        f"the train state), s per micro step {[round(m[0], 3) for m in micro]}, peak memory "
+        f"{peak:.2f} GiB (AdamW step at batch 10: {ADAMW_TRAIN_PEAK_GIB} GiB, PERF.md), optimizer "
+        f"state {state_bytes(state.optimizer) / 2**20:.1f} MiB for "
+        f"{sum(p.numel() for p in state.masters.values())} trainable values; launches per "
+        f"optimizer step {_nonzero(per_step)} (twice a plain step's) [{card}] "
+        f"{'ok' if ok else 'FAILED'}")
+    if not ok:
+        fail("train 8-bit + accumulation: wrong step counts, launches or losses")
+
+    # the session wrote the train state at the run's end: restore it into the
+    # live state and compare every tensor with the state before the restore
+    file = ckpt.latest_checkpoint(os.path.join(out, "ckpt"))
+    live = ckpt.host_copy(state.state_dict())
+    t0 = time.perf_counter()
+    restored = ckpt.restore_train_state(file, state)
+    load_s = time.perf_counter() - t0
+    again = state.state_dict()
+    same, n_tensors = [], 0
+    for key in ("params", "accum"):
+        for k, v in live[key].items():
+            same.append(torch.equal(v, again[key][k].cpu()))
+    for i, st in live["opt_state"]["state"].items():
+        for k, v in st.items():
+            if torch.is_tensor(v):
+                same.append(torch.equal(v, again["opt_state"]["state"][i][k].cpu())
+                            and again["opt_state"]["state"][i][k].dtype == v.dtype)
+    ok = restored == 2 * ACCUM and all(same) and file.endswith("train_state_1.pt")
+    say(f"train 8-bit + accumulation: CheckpointSession's train state "
+        f"{os.path.getsize(file) / 2**30:.2f} GiB restored in {load_s:.1f} s: {sum(same)} of "
+        f"{len(same)} tensors (parameters, int8 moments and scales, the accumulator) bit-equal "
+        f"[{card}] {'ok' if ok else 'FAILED'}")
+    if not ok:
+        fail("train 8-bit + accumulation: the session's checkpoint does not restore bit for bit")
+    del state, unet, vae, post
+    torch.cuda.empty_cache()
+    return total
+
+
+def phase_generate_latents(torch, build, card, tmp):
+    """(e) ``cli.generate_video_latents.encode_gifs`` on two seeded 6-frame
+    288x512 GIF clips with VAEConfig() in f32: (2, 4, 6, 36, 64); one frame
+    against the same frame encoded on the CPU."""
+    import numpy as np
+
+    from eeg2video_tpu_torch.cli import generate_video_latents as gen
+    from eeg2video_tpu_torch.data.video import save_videos_grid
+    from eeg2video_tpu_torch.models.init import random_init_
+    from eeg2video_tpu_torch.models.vae import AutoencoderKL, VAEConfig
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(34)
+    paths = []
+    for i in range(2):
+        coarse = torch.rand(6, 3, 36, 64, generator=g, device=dev)
+        clip = torch.nn.functional.interpolate(coarse, scale_factor=8, mode="bilinear")
+        path = os.path.join(tmp, "gifs", f"{i}.gif")
+        save_videos_grid(clip.permute(0, 2, 3, 1)[None].clamp(0, 1).cpu().numpy(), path,
+                         encoder="native")
+        paths.append(path)
+    with torch.device("meta"):
+        vae = AutoencoderKL(VAEConfig())
+    vae = random_init_(vae.to_empty(device=dev), g).eval().requires_grad_(False)
+    build.reset_launches()
+    t0 = _sync_clock(torch)
+    z = gen.encode_gifs(vae, paths)
+    secs = _sync_clock(torch) - t0
+    launches = dict(build.launches)
+    frame = torch.from_numpy(gen.load_gif(paths[1])[2]).float().div_(127.5).sub_(1.0)
+    with torch.no_grad():
+        cpu = vae.cpu().encode(frame[None])[0][0].permute(2, 0, 1).numpy()
+    err = np.abs(z[1, :, 2] - cpu)
+    ok = (z.shape == (2, 4, 6, 36, 64) and np.isfinite(z).all()
+          and bool((err <= 1e-4 + 1e-3 * np.abs(cpu)).all()))
+    say(f"generate_video_latents: 2 seeded GIF clips of 6 x 288 x 512, VAEConfig() f32 -> "
+        f"{z.shape} posterior means in {secs:.2f} s ({secs / 12 * 1e3:.1f} ms a frame with "
+        f"decoding the GIFs); clip 1 frame 2 against the CPU's encode: max abs err "
+        f"{float(err.max()):.2e} (rtol 1e-3 / atol 1e-4) [{card}] {'ok' if ok else 'FAILED'}")
+    if not ok:
+        fail("generate_video_latents: wrong shape, or the card's frame differs from the CPU's")
+    return launches
+
+
+def phase_recipe(torch, build, card):
+    """The training recipe's remaining paths, each driven with the launch
+    counts set to 0 just before it; returns their launches by path."""
+    with tempfile.TemporaryDirectory(prefix="e2v_recipe_") as tmp:
+        sd, sem_launches = phase_train_semantic(torch, build, card, tmp)
+        infer_launches = phase_inference_semantic(torch, build, card, tmp, sd)
+        del sd
+        torch.cuda.empty_cache()
+        s2s_launches = phase_train_seq2seq(torch, build, card)
+        accum_launches = phase_train_8bit_accum(torch, build, card, tmp)
+        latent_launches = phase_generate_latents(torch, build, card, tmp)
+    return {"train_semantic": sem_launches, "inference_semantic": infer_launches,
+            "train_seq2seq": s2s_launches, "train_8bit_accum": accum_launches,
+            "generate_latents": latent_launches}
+
+
 # device kernels of a train step or a generation forward, grouped by what
 # launched them (substrings of the kernel names; the port's own kernels first)
 _KERNEL_GROUPS = (
@@ -2071,7 +2462,10 @@ def main():
     phase_train_parity(torch, build, heads=12, frames=10)
     phase_train_parity(torch, build, f32=True)
     train_launches, dbias_launches = phase_train(torch, build, pipe.vae, dana_latents)
+    del pipe
+    torch.cuda.empty_cache()
     f32_train_launches, f32_dbias_launches = phase_f32_train(torch, build)
+    recipe = phase_recipe(torch, build, smi_line)
     leaked = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "jaxlib", "flax", "eeg2video_tpu"))
     if leaked:
@@ -2109,8 +2503,16 @@ def main():
                 per_path["launches_dbias_masked_step"] = dbias_launches
             path = ("train" if name in TRAIN_ONLY_KERNELS else
                     "fused_op" if name in FUSED_OP_KERNELS else "serve")
+        # the recipe's paths (section 10): the 8-bit accumulated fine-tune
+        # launches the train kernels, the semantic CLI int8_dense; the
+        # semantic and Seq2Seq trainers and the latent encoder launch none
+        per_path.update({f"launches_{p}_path": counts[name] for p, counts in recipe.items()})
         if per_path[f"launches_{path}_path"] == 0:
             fail(f"launches: the {path} path did not launch {name}")
+        if name in _TRAIN_STEP and per_path["launches_train_8bit_accum_path"] == 0:
+            fail(f"launches: the 8-bit accumulated fine-tune did not launch {name}")
+        if name == "int8_dense" and per_path["launches_inference_semantic_path"] == 0:
+            fail("launches: inference_semantic --int8 did not launch int8_dense")
         kernels.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
                         "launches": per_path[f"launches_{path}_path"], "launches_path": path,
                         **per_path,

@@ -8,6 +8,9 @@ file (200, 77*768); negative = its mean (L45); latent source ablations
 (DANA latents); 100 DDIM steps, guidance 12.5, 6 frames @ 288x512 (L74-86);
 GIFs via save_videos_grid. Clips are processed in batches (default 8 per
 call) on one GPU instead of the reference's one-clip-per-call loop.
+``--legacy`` encodes the EEG in the same run instead of reading
+``--embeddings`` (reference EEG2Video/inference_eeg2video.py:38-65; see
+``legacy_embeddings``).
 """
 
 import argparse
@@ -16,6 +19,7 @@ import os
 import numpy as np
 import torch
 
+from ..data import meta
 from ..data.io import load_array
 from ..data.video import AsyncVideoWriter, dispatch_ahead
 
@@ -24,7 +28,9 @@ from ..convert.export_diffusion import (load_diffusers_unet, load_diffusers_vae,
 from ..diffusion.pipeline import EEG2VideoPipeline, latents_from_torch_layout
 from ..models.unet3d import UNet3DConfig
 from ..models.vae import VAEConfig
-from ..utils import get_logger, resolve_device
+from ..serving.runtimes import load_semantic_state
+from ..train.semantic import predict_semantic
+from ..utils import StandardScaler, get_logger, resolve_device
 
 log = get_logger(__name__)
 
@@ -73,12 +79,46 @@ def load_pipeline(unet_dir, vae_ckpt, dtype="bfloat16", device="cuda"):
                                     dtype=_DTYPES.get(dtype, dtype), device=device)
 
 
+def legacy_embeddings(features_path, semantic_ckpt=None, torch_semantic=None,
+                      hidden=10000, device="cuda"):
+    """The legacy in-run EEG encoding -> (40, 77*768) embeddings.
+
+    Reference EEG2Video/inference_eeg2video.py:38-65: every block
+    GT-reordered, each clip's DE_1per1s windows averaged (the 310-dim
+    features of ``train_semantic --legacy``), a StandardScaler fitted on the
+    train blocks 0-5 at inference time (L61) and applied to the test block
+    (L64), then the semantic MLP (the pipeline's ``_encode_eeg``, legacy
+    pipeline_tuneeeg2video.py:149-150). As in the JAX package, the 200 window
+    means of the test block are gathered with its 40 class indices, so 40
+    rows come out. ``semantic_ckpt`` is the ``.pt`` that
+    ``cli.train_semantic`` writes, ``torch_semantic`` the reference's."""
+    device = resolve_device(device)  # fail before reading anything
+    feats = load_array(features_path)  # (7, 40, 5, W, 62, 5)
+    flat = feats.reshape(feats.shape[0], 40 * 5, -1, meta.N_CHANNELS * meta.N_BANDS)
+    per_block = np.stack([meta.reorder_by_gt(flat[b].mean(axis=1), b)
+                          for b in range(meta.N_BLOCKS)])
+    scaler = StandardScaler().fit(per_block[:6].reshape(-1, per_block.shape[-1]))
+    eeg = scaler.transform(per_block[6])
+    sd = load_semantic_state(torch_semantic or semantic_ckpt, hidden)
+    return predict_semantic(sd, eeg, device=device)
+
+
 def build_parser():
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("--embeddings", default="./outputs/semantic/semantic_embeddings.npy")
     p.add_argument("--legacy", action="store_true",
-                   help="(not ported: refused) the legacy variant of the JAX script, which "
-                        "runs scaler -> CLIP MLP in-process on raw DE features")
+                   help="legacy variant: run scaler -> CLIP MLP in this run on raw "
+                        "DE features instead of loading precomputed embeddings "
+                        "(reference EEG2Video/inference_eeg2video.py:38-65)")
+    p.add_argument("--raw_features", default="./data/Preprocessing/DE_1per1s/sub1.npy",
+                   help="(--legacy) per-subject DE_1per1s features")
+    p.add_argument("--semantic_ckpt", default="./outputs/semantic/semantic.pt",
+                   help="(--legacy) the semantic predictor's .pt (the port's keys, "
+                        "as cli.train_semantic writes it)")
+    p.add_argument("--torch_semantic", default=None,
+                   help="(--legacy) the reference's eeg2text .pt instead of --semantic_ckpt")
+    p.add_argument("--hidden", type=int, default=10000,
+                   help="(--legacy) semantic MLP hidden width")
     p.add_argument("--limit", type=int, default=0,
                    help="generate only the first N clips (0 = all)")
     p.add_argument("--unet", default="./outputs/tuneavideo")
@@ -131,12 +171,14 @@ def main(argv=None):
     if args.dp or args.tp > 1 or args.sp > 1:
         p.error("--dp/--tp/--sp: multi-GPU generation is not ported; this entry "
                 "point runs on one GPU")
-    if args.legacy:
-        p.error("--legacy: the in-process legacy EEG encoding is not ported; pass "
-                "precomputed --embeddings")
     device = resolve_device(args.device)  # fail before reading anything
 
-    emb = load_array(args.embeddings).reshape(-1, 77 * 768).astype(np.float32)
+    if args.legacy:
+        emb = legacy_embeddings(args.raw_features, args.semantic_ckpt, args.torch_semantic,
+                                args.hidden, device)
+        emb = emb.reshape(-1, 77 * 768).astype(np.float32)
+    else:
+        emb = load_array(args.embeddings).reshape(-1, 77 * 768).astype(np.float32)
     if args.negative:
         negative = load_array(args.negative).reshape(-1).astype(np.float32)
     else:

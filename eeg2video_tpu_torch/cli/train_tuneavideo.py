@@ -5,14 +5,18 @@ the reference's Generation/train_finetune_videodiffusion.py:66-405 with its
 configs/all_40_video.yaml schema (same keys honoured via ``--config``):
 trainable attn1.to_q / attn2.to_q / attn_temp, AdamW 3e-5, grad clip 1.0,
 200 epochs, batch 10, bf16 compute with f32 parameters, gradient
-checkpointing, periodic validation sampling and checkpoints (the train state
-as a torch file and the diffusers directory layout the reference writes).
+checkpointing, ``--use_8bit_adam`` (int8 Adam moments) and
+``--gradient_accumulation_steps``, periodic validation sampling and
+checkpoints (the train state as a torch file, written on a background thread,
+and the diffusers directory layout the reference writes). SIGTERM or SIGINT
+ends the run after the current epoch with a resumable train state
+(``--unet_ckpt`` resumes from it); a second signal ends it at once.
 
 One GPU: the clip set is VAE-encoded once into posteriors and stays resident
 on the card; each step gathers its shuffled batch by index. ``--device``
 defaults to ``cuda`` and the run fails without a card; ``--device cpu`` is a
-dry run. The JAX trainer's ``--dp/--tp/--sp/--fsdp`` meshes, 8-bit Adam and
-gradient accumulation are not ported and are refused by name.
+dry run. The JAX trainer's ``--dp/--tp/--sp/--fsdp`` meshes are not ported
+and are refused by name.
 """
 
 import argparse
@@ -44,8 +48,6 @@ NOT_PORTED = (
     ("tp", (1,), "tensor-parallel projections"),
     ("sp", (1,), "sequence-parallel (ring) attention"),
     ("fsdp", (False,), "fully-sharded parameters"),
-    ("use_8bit_adam", (False,), "int8 Adam moments"),
-    ("gradient_accumulation_steps", (1,), "gradient accumulation"),
 )
 
 
@@ -152,12 +154,20 @@ def train(unet, vae, data, contexts, args, cfg=None, on_step=None):
     contexts: (N, 77, cross_attention_dim) caption embeddings, one per clip
     args:     a namespace from ``build_parser``
     cfg:      the ``VideoDiffusionTrainConfig``; by default the reference
-              recipe at ``args.learning_rate``
-    on_step:  ``on_step(state, loss)`` after every optimizer step
+              recipe at ``args.learning_rate``, ``args.use_8bit_adam`` and
+              ``args.gradient_accumulation_steps``
+    on_step:  ``on_step(state, loss)`` after every micro step (every
+              optimizer step without gradient accumulation)
+
+    The epochs run inside a ``CheckpointSession`` and a ``PreemptionGuard``:
+    after an epoch in which SIGTERM or SIGINT arrived, the train state is
+    saved and the run returns.
     """
     refuse_unported(args)
     device = resolve_device(args.device)
-    tcfg = cfg or VideoDiffusionTrainConfig(learning_rate=args.learning_rate)
+    tcfg = cfg or VideoDiffusionTrainConfig(
+        learning_rate=args.learning_rate, use_8bit_adam=args.use_8bit_adam,
+        gradient_accumulation_steps=args.gradient_accumulation_steps)
     resume = None
     if args.unet_ckpt:
         file = ckpt.latest_checkpoint(args.unet_ckpt)
@@ -187,24 +197,34 @@ def train(unet, vae, data, contexts, args, cfg=None, on_step=None):
     metrics = MetricsLogger(args.output_dir, "tuneavideo")
     rng = np.random.default_rng(args.seed)
     losses = []
+    ckpt_dir = os.path.join(args.output_dir, "ckpt")
     try:
-        for epoch in range(1, args.epochs + 1):
-            order = rng.permutation(n)[: steps_per_epoch * bsz]
-            perm = order.reshape(steps_per_epoch, -1)
-            ep_loss = train_epoch(state, vae, post_all, context_all, perm, args.seed, on_step)
-            losses.append(ep_loss)
-            log.info("epoch %d train_loss %.5f", epoch, ep_loss)
-            metrics.log(epoch * steps_per_epoch, train_loss=ep_loss, epoch=epoch)
-            if epoch % args.validation_epochs == 0:
-                path = os.path.join(args.output_dir, "samples", f"sample-{epoch}.gif")
-                _validate(state, vae, context_all, args, epoch, path, post_all.shape[1:4])
-                log.info("validation samples -> %s", path)
-            if epoch % args.checkpointing_epochs == 0 or epoch == args.epochs:
-                file = ckpt.save_train_state(os.path.join(args.output_dir, "ckpt"), epoch, state)
-                save_diffusers_pipeline(args.output_dir, state.params_f32(), unet.config,
-                                        vae.state_dict(), vae.config)
-                log.info("checkpoint @ epoch %d -> %s and the diffusers layout in %s",
-                         epoch, file, args.output_dir)
+        with ckpt.CheckpointSession(ckpt_dir) as session, ckpt.PreemptionGuard() as guard:
+            for epoch in range(1, args.epochs + 1):
+                order = rng.permutation(n)[: steps_per_epoch * bsz]
+                perm = order.reshape(steps_per_epoch, -1)
+                ep_loss = train_epoch(state, vae, post_all, context_all, perm, args.seed,
+                                      on_step)
+                losses.append(ep_loss)
+                log.info("epoch %d train_loss %.5f", epoch, ep_loss)
+                metrics.log(epoch * steps_per_epoch, train_loss=ep_loss, epoch=epoch)
+                if guard.preempted:
+                    file = session.save(epoch, state)
+                    log.warning("preemption signal: resumable train state %s saved after "
+                                "epoch %d (resume with --unet_ckpt %s)", file, epoch, ckpt_dir)
+                    break
+                if epoch % args.validation_epochs == 0:
+                    path = os.path.join(args.output_dir, "samples", f"sample-{epoch}.gif")
+                    _validate(state, vae, context_all, args, epoch, path, post_all.shape[1:4])
+                    log.info("validation samples -> %s", path)
+                if epoch % args.checkpointing_epochs == 0 or epoch == args.epochs:
+                    # the train state is written on the session's thread while
+                    # the next epoch trains; the diffusers layout here
+                    file = session.save(epoch, state)
+                    save_diffusers_pipeline(args.output_dir, state.params_f32(), unet.config,
+                                            vae.state_dict(), vae.config)
+                    log.info("checkpoint @ epoch %d -> %s and the diffusers layout in %s",
+                             epoch, file, args.output_dir)
     finally:
         metrics.close()
     return state, losses
@@ -261,7 +281,9 @@ def main(argv=None):
 
     pixels_all, prompt_idx = ds.load_all()
     train(unet, vae, pixels_all, text_emb[prompt_idx], args,
-          cfg=VideoDiffusionTrainConfig(learning_rate=args.learning_rate, remat=remat))
+          cfg=VideoDiffusionTrainConfig(
+              learning_rate=args.learning_rate, remat=remat, use_8bit_adam=args.use_8bit_adam,
+              gradient_accumulation_steps=args.gradient_accumulation_steps))
     return 0
 
 

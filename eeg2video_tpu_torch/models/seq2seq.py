@@ -12,8 +12,13 @@ tree) loads with ``strict=True``:
   eps 1e-5: what torch's ``nn.TransformerEncoder`` / ``nn.TransformerDecoder``
   compute at their defaults, written out here (packed ``in_proj_weight`` /
   ``in_proj_bias`` and ``out_proj`` per attention) so that the numbers do not
-  depend on which of torch's inference fast paths a build takes. Inference
-  only: the dropouts of the reference are identities and are not built.
+  depend on which of torch's inference fast paths a build takes.
+- Train mode (``model.train()``) has the dropouts of the reference at the JAX
+  package's sites and rates: EEGNet 0.5 (0.25 cross-subject) after blocks 2
+  and 3, 0.1 on the attention probabilities, after each attention and inside
+  and after each feed-forward. Their draws come from ``set_dropout_generator``'s
+  generator. The EEGNet BatchNorms normalize with the batch's biased variance
+  and update their running statistics flax's way (see ``BatchNorm2d``).
 - The reference's decode loop is autoregressive: it starts from a zero token
   and feeds its own outputs back for ``n_frames`` steps with a causal mask
   (L176-181); the rollout tokens are raw decoder outputs and never receive an
@@ -43,31 +48,65 @@ N_WINDOWS = 7
 WINDOW_LEN = 100
 
 
+class Dropout(nn.Dropout):
+    """Dropout as flax draws it: keep each element with probability 1 - p and
+    scale the kept ones by 1 / (1 - p), the draws from ``self.generator``
+    (the default generator when it is None); an identity in eval mode."""
+
+    generator = None
+
+    def forward(self, x):
+        if not self.training or self.p == 0.0:
+            return x
+        keep = torch.rand(x.shape, generator=self.generator, device=x.device) >= self.p
+        return torch.where(keep, x / (1.0 - self.p), 0.0)
+
+
+class BatchNorm2d(nn.BatchNorm2d):
+    """nn.BatchNorm2d whose train mode is flax's (momentum 0.9): normalize by
+    the batch's mean and biased variance, then ``running = 0.9 running + 0.1
+    batch`` with that biased variance (nn.BatchNorm2d's own update uses the
+    unbiased one). Eval mode uses the running statistics."""
+
+    def forward(self, x):
+        if not self.training:
+            return super().forward(x)
+        with torch.no_grad():
+            var, mean = torch.var_mean(x, dim=(0, 2, 3), unbiased=False)
+            self.running_mean.mul_(0.9).add_(0.1 * mean)
+            self.running_var.mul_(0.9).add_(0.1 * var)
+            self.num_batches_tracked += 1
+        return F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0, self.eps)
+
+
 class EEGNetEmbedding(nn.Module):
     """reference my_autoregressive_transformer.py:16-86 (MyEEGNet_embedding).
 
-    (B, 1, C, T) -> (B, d_model); BatchNorm uses its running statistics."""
+    (B, 1, C, T) -> (B, d_model)."""
 
     def __init__(self, d_model: int = 512, C: int = meta.N_CHANNELS, T: int = WINDOW_LEN,
-                 F1: int = 16, D: int = 4, F2: int = 16):
+                 F1: int = 16, D: int = 4, F2: int = 16, cross_subject: bool = False):
         super().__init__()
+        drop = 0.25 if cross_subject else 0.5
         # the indices inside each Sequential are the reference's key names
         self.block_1 = nn.Sequential(
             nn.ZeroPad2d((31, 32, 0, 0)),
             nn.Conv2d(1, F1, (1, 64), bias=False),
-            nn.BatchNorm2d(F1, eps=1e-5))
+            BatchNorm2d(F1, eps=1e-5))
         self.block_2 = nn.Sequential(
             nn.Conv2d(F1, F1 * D, (C, 1), groups=F1, bias=False),
-            nn.BatchNorm2d(F1 * D, eps=1e-5),
+            BatchNorm2d(F1 * D, eps=1e-5),
             nn.ELU(),
-            nn.AvgPool2d((1, 4)))
+            nn.AvgPool2d((1, 4)),
+            Dropout(drop))
         self.block_3 = nn.Sequential(
             nn.ZeroPad2d((7, 8, 0, 0)),
             nn.Conv2d(F1 * D, F1 * D, (1, 16), groups=F1 * D, bias=False),
             nn.Conv2d(F1 * D, F2, (1, 1), bias=False),
-            nn.BatchNorm2d(F2, eps=1e-5),
+            BatchNorm2d(F2, eps=1e-5),
             nn.ELU(),
-            nn.AvgPool2d((1, 8)))
+            nn.AvgPool2d((1, 8)),
+            Dropout(drop))
         self.embedding = nn.Linear(F2 * (T // 32), d_model)
 
     def forward(self, x):
@@ -93,11 +132,13 @@ class _PositionalEncoding(nn.Module):
 
 class _MultiheadAttention(nn.Module):
     """nn.MultiheadAttention's parameters (packed in-projection) and math:
-    per-head softmax(q k^T / sqrt(hd) + mask) v, then ``out_proj``."""
+    per-head softmax(q k^T / sqrt(hd) + mask) v, then ``out_proj``; dropout on
+    the probabilities in train mode."""
 
-    def __init__(self, d_model: int, nhead: int):
+    def __init__(self, d_model: int, nhead: int, dropout: float = 0.1):
         super().__init__()
         self.nhead = nhead
+        self.dropout = Dropout(dropout)
         self.in_proj_weight = nn.Parameter(torch.empty(3 * d_model, d_model))
         self.in_proj_bias = nn.Parameter(torch.zeros(3 * d_model))
         self.out_proj = nn.Linear(d_model, d_model)
@@ -115,43 +156,53 @@ class _MultiheadAttention(nn.Module):
         logits = heads(q, wq, bq) @ heads(kv, wk, bk).transpose(-1, -2) / math.sqrt(hd)
         if mask is not None:
             logits = logits + mask  # additive, -inf for disallowed
-        out = torch.softmax(logits, dim=-1) @ heads(kv, wv, bv)
+        out = self.dropout(torch.softmax(logits, dim=-1)) @ heads(kv, wv, bv)
         return self.out_proj(out.transpose(1, 2).reshape(b, lq, e))
 
 
 class _EncoderLayer(nn.Module):
-    """nn.TransformerEncoderLayer at its defaults: post-LN, ReLU, FFN 2048."""
+    """nn.TransformerEncoderLayer at its defaults: post-LN, ReLU, FFN 2048,
+    dropout 0.1."""
 
-    def __init__(self, d_model: int, nhead: int = 4, dim_ff: int = 2048):
+    def __init__(self, d_model: int, nhead: int = 4, dim_ff: int = 2048, dropout: float = 0.1):
         super().__init__()
-        self.self_attn = _MultiheadAttention(d_model, nhead)
+        self.self_attn = _MultiheadAttention(d_model, nhead, dropout)
         self.linear1 = nn.Linear(d_model, dim_ff)
         self.linear2 = nn.Linear(dim_ff, d_model)
         self.norm1 = nn.LayerNorm(d_model, eps=1e-5)
         self.norm2 = nn.LayerNorm(d_model, eps=1e-5)
+        self.dropout = Dropout(dropout)
+        self.dropout1 = Dropout(dropout)
+        self.dropout2 = Dropout(dropout)
 
     def forward(self, x):
-        x = self.norm1(x + self.self_attn(x, x))
-        return self.norm2(x + self.linear2(F.relu(self.linear1(x))))
+        x = self.norm1(x + self.dropout1(self.self_attn(x, x)))
+        f = self.linear2(self.dropout(F.relu(self.linear1(x))))
+        return self.norm2(x + self.dropout2(f))
 
 
 class _DecoderLayer(nn.Module):
-    """nn.TransformerDecoderLayer at its defaults (post-LN)."""
+    """nn.TransformerDecoderLayer at its defaults (post-LN, dropout 0.1)."""
 
-    def __init__(self, d_model: int, nhead: int = 4, dim_ff: int = 2048):
+    def __init__(self, d_model: int, nhead: int = 4, dim_ff: int = 2048, dropout: float = 0.1):
         super().__init__()
-        self.self_attn = _MultiheadAttention(d_model, nhead)
-        self.multihead_attn = _MultiheadAttention(d_model, nhead)
+        self.self_attn = _MultiheadAttention(d_model, nhead, dropout)
+        self.multihead_attn = _MultiheadAttention(d_model, nhead, dropout)
         self.linear1 = nn.Linear(d_model, dim_ff)
         self.linear2 = nn.Linear(dim_ff, d_model)
         self.norm1 = nn.LayerNorm(d_model, eps=1e-5)
         self.norm2 = nn.LayerNorm(d_model, eps=1e-5)
         self.norm3 = nn.LayerNorm(d_model, eps=1e-5)
+        self.dropout = Dropout(dropout)
+        self.dropout1 = Dropout(dropout)
+        self.dropout2 = Dropout(dropout)
+        self.dropout3 = Dropout(dropout)
 
     def forward(self, x, memory, tgt_mask=None):
-        x = self.norm1(x + self.self_attn(x, x, tgt_mask))
-        x = self.norm2(x + self.multihead_attn(x, memory))
-        return self.norm3(x + self.linear2(F.relu(self.linear1(x))))
+        x = self.norm1(x + self.dropout1(self.self_attn(x, x, tgt_mask)))
+        x = self.norm2(x + self.dropout2(self.multihead_attn(x, memory)))
+        f = self.linear2(self.dropout(F.relu(self.linear1(x))))
+        return self.norm3(x + self.dropout3(f))
 
 
 class _Layers(nn.Module):
@@ -187,6 +238,13 @@ class Seq2SeqTransformer(nn.Module):
             _DecoderLayer(d_model, nhead) for _ in range(n_dec_layers))
         self.txtpredictor = nn.Linear(d_model, 13)
         self.predictor = nn.Linear(d_model, self.latent_dim)
+
+    def set_dropout_generator(self, generator):
+        """Make every dropout of the model draw from ``generator`` (a
+        torch.Generator on the model's device; None: the default one)."""
+        for m in self.modules():
+            if isinstance(m, Dropout):
+                m.generator = generator
 
     def forward(self, src, tgt=None):
         b = src.shape[0]

@@ -17,17 +17,11 @@ from ..data.io import load_array
 from ..diffusion import dana as dana_mod
 from ..diffusion.pipeline import latents_from_torch_layout
 from ..dsp import de_psd
-from ..train.seq2seq import pad_rows, rollout_latents, windows_from_segments
+from ..train.semantic import PREDICT_CHUNK, predict_in_chunks, semantic_from_state_dict
+from ..train.seq2seq import rollout_latents, windows_from_segments
 from ..utils import StandardScaler, get_logger, resolve_device
 
 log = get_logger(__name__)
-
-# Rows per dispatch of the semantic predictor. Requests are zero-padded to a
-# multiple of it, so one shape serves every request size: a different batch
-# shape may be summed in another order, and that drift can cross a uint8 GIF
-# quantization boundary downstream (eeg2video_tpu/train/semantic.py:252-262).
-PREDICT_CHUNK = 100
-
 
 def make_semantic_predict(apply, device, scaler=None):
     """Wrap a warm ``(chunk, 310) tensor -> (chunk, 77*768) tensor`` model
@@ -39,13 +33,7 @@ def make_semantic_predict(apply, device, scaler=None):
         eeg = np.asarray(eeg, np.float32).reshape(-1, meta.N_CHANNELS * meta.N_BANDS)
         if scaler is not None:
             eeg = scaler.transform(eeg)
-        n = len(eeg)
-        eeg = pad_rows(eeg, PREDICT_CHUNK)
-        with torch.inference_mode():
-            out = np.concatenate([
-                apply(torch.from_numpy(eeg[s:s + PREDICT_CHUNK]).to(device)).float().cpu().numpy()
-                for s in range(0, len(eeg), PREDICT_CHUNK)])
-        return out[:n]
+        return predict_in_chunks(apply, eeg, device, PREDICT_CHUNK)
 
     return predict
 
@@ -59,25 +47,32 @@ def _load_semantic(args):
     (``mlp.0/2/4/6/8`` keys); ``--semantic_ckpt`` reads a ``.pt`` state dict
     in the port's keys (``convert.from_jax.semantic_state_dict_from_jax``
     writes one from a JAX tree)."""
-    from ..convert.export_diffusion import load_torch_state_dict
-    from ..models.semantic import (Int8SemanticPredictor, SemanticPredictor,
-                                   semantic_state_dict_from_reference)
+    from ..models.semantic import Int8SemanticPredictor
 
     device = resolve_device(args.device)
-    path = _torch_file(args.torch_semantic or args.semantic_ckpt, "semantic",
-                       "semantic_state_dict_from_jax")
-    sd = semantic_state_dict_from_reference(load_torch_state_dict(path))
+    path = args.torch_semantic or args.semantic_ckpt
     scaler = (StandardScaler.load(args.semantic_scaler)
               if args.semantic_scaler else None)
-    if args.semantic_int8:
-        apply = Int8SemanticPredictor.from_state_dict(sd, device)
+    if args.semantic_int8:  # the int8 runtime takes the widths of the weights
+        apply = Int8SemanticPredictor.from_state_dict(load_semantic_state(path), device)
     else:
-        with torch.device("meta"):
-            model = SemanticPredictor(hidden=args.hidden)
-        model = model.to_empty(device=device).eval().requires_grad_(False)
-        model.load_state_dict(sd, strict=True)
-        apply = model
+        apply = semantic_from_state_dict(load_semantic_state(path, args.hidden), device)
     return make_semantic_predict(apply, device, scaler)
+
+
+def load_semantic_state(path, hidden=None):
+    """The state dict (the port's keys) of a semantic-predictor ``.pt`` in
+    either key space (the port's, or the reference's ``mlp.0/2/4/6/8``); its
+    width must be ``hidden`` where that is given."""
+    from ..convert.export_diffusion import load_torch_state_dict
+    from ..models.semantic import semantic_state_dict_from_reference
+
+    sd = semantic_state_dict_from_reference(load_torch_state_dict(
+        _torch_file(path, "semantic", "semantic_state_dict_from_jax")))
+    if hidden is not None and sd["fc0.weight"].shape[0] != hidden:
+        raise ValueError(f"{path}: hidden width {sd['fc0.weight'].shape[0]}, "
+                         f"--hidden says {hidden}")
+    return sd
 
 
 def _torch_file(path, what, converter):

@@ -8,7 +8,13 @@ Counterpart of ``eeg2video_tpu/train/videodiffusion.py``:
   only they are handed to the optimizer, so frozen weights get no gradient
   buffer and no Adam moments;
 - AdamW lr 3e-5, betas (0.9, 0.999), wd 1e-2, eps 1e-8, global-norm clip 1.0
-  over the trainable gradients (reference L77-87, L327-328);
+  over the trainable gradients (reference L77-87, L327-328); with
+  ``use_8bit_adam`` the AdamW of ``train.optim`` with int8 moments (the
+  reference's bitsandbytes AdamW8bit, L163-173);
+- gradient accumulation (``gradient_accumulation_steps`` k, JAX
+  ``optax.MultiSteps``): every micro step adds its gradient to a running mean,
+  ``acc + (g - acc) / (n + 1)``, and every k-th one clips that mean and takes
+  the optimizer step; ``step`` counts micro steps, as JAX's does;
 - bf16 compute with f32 parameters (the reference's fp16 autocast, L99-102,
   L286): see ``TrainState``;
 - gradient checkpointing (reference L154-155): ``remat`` / ``remat_min_hw``,
@@ -31,6 +37,7 @@ from torch import nn
 from ..diffusion.schedulers import DDPMSchedule
 from ..models.vae import SD_VAE_SCALE
 from ..utils.device import resolve_device
+from .optim import Adam8bit, true_div
 
 
 def trainable(name: str) -> bool:
@@ -59,6 +66,10 @@ class VideoDiffusionTrainConfig:
     remat_min_hw: int = 256
     # False = the reference freeze rule; True = every parameter trains
     train_all: bool = False
+    # micro steps per optimizer step (the running mean of their gradients)
+    gradient_accumulation_steps: int = 1
+    # int8 Adam moments (train.optim.Adam8bit)
+    use_8bit_adam: bool = False
 
 
 class TrainState:
@@ -96,10 +107,16 @@ class TrainState:
                             for n in self.trainable_names}
             self.unet = unet.to(device=self.device, dtype=self.dtype)
         self.working = {n: p for n, p in self.unet.named_parameters() if n in chosen}
-        self.optimizer = torch.optim.AdamW(
+        adamw = Adam8bit if cfg.use_8bit_adam else torch.optim.AdamW
+        self.optimizer = adamw(
             list(self.masters.values()), lr=cfg.learning_rate,
             betas=(cfg.adam_b1, cfg.adam_b2), eps=cfg.adam_eps,
             weight_decay=cfg.weight_decay)
+        # the running mean of the micro steps' gradients and how many it holds
+        # (JAX wraps its optimizer in MultiSteps for k > 1 only)
+        self.accum = ({n: torch.zeros_like(p) for n, p in self.masters.items()}
+                      if cfg.gradient_accumulation_steps > 1 else None)
+        self.mini_step = 0
 
     def _sync_working(self):
         if self.dtype != torch.float32:
@@ -108,8 +125,10 @@ class TrainState:
                     self.working[n].copy_(master)
 
     def apply_gradients(self):
-        """Clip the trainable gradients by their global norm, take one AdamW
-        step on the f32 masters and refresh the working copy."""
+        """Take one micro step: clip the trainable gradients by their global
+        norm, take one AdamW step on the f32 masters and refresh the working
+        copy; with gradient accumulation, add the gradients to the running
+        mean instead and do that with the mean every k-th micro step."""
         for n, master in self.masters.items():
             w = self.working[n]
             if w.grad is None:
@@ -117,11 +136,26 @@ class TrainState:
             if master is not w:
                 master.grad = w.grad.float()
                 w.grad = None
+        self.step += 1
+        if self.accum is not None:
+            with torch.no_grad():
+                for n, master in self.masters.items():
+                    acc = self.accum[n]
+                    acc.add_(true_div(master.grad - acc, float(self.mini_step + 1)))
+                    master.grad = None
+            self.mini_step += 1
+            if self.mini_step < self.cfg.gradient_accumulation_steps:
+                return
+            for n, master in self.masters.items():
+                master.grad = self.accum[n]
         torch.nn.utils.clip_grad_norm_(list(self.masters.values()), self.cfg.max_grad_norm)
         self.optimizer.step()
         self.optimizer.zero_grad(set_to_none=True)
+        if self.accum is not None:
+            for acc in self.accum.values():
+                acc.zero_()
+            self.mini_step = 0
         self._sync_working()
-        self.step += 1
 
     def params_f32(self):
         """The stored truth: ``{name: f32 tensor on the host}`` in the
@@ -137,8 +171,12 @@ class TrainState:
         return out
 
     def state_dict(self):
-        return {"params": self.params_f32(), "opt_state": self.optimizer.state_dict(),
-                "step": self.step, "trainable": list(self.trainable_names)}
+        sd = {"params": self.params_f32(), "opt_state": self.optimizer.state_dict(),
+              "step": self.step, "trainable": list(self.trainable_names)}
+        if self.accum is not None:
+            sd["accum"] = {n: a.detach().cpu() for n, a in self.accum.items()}
+            sd["mini_step"] = self.mini_step
+        return sd
 
     def load_state_dict(self, sd):
         """Restore the trainable parameters, the optimizer state and the
@@ -155,6 +193,11 @@ class TrainState:
                     raise ValueError(f"{n}: frozen weight differs from the checkpoint's")
         self.optimizer.load_state_dict(sd["opt_state"])
         self.step = int(sd["step"])
+        if self.accum is not None:
+            with torch.no_grad():
+                for n, a in sd.get("accum", {}).items():
+                    self.accum[n].copy_(a)
+            self.mini_step = int(sd.get("mini_step", 0))
         self._sync_working()
 
 
@@ -226,9 +269,11 @@ def encode_posteriors(vae, pixels, batch: int = 8):
 
 def train_step(state: TrainState, vae, pixels, context, seed, *, t=None, noise=None,
                eps=None):
-    """One optimizer step on one batch; returns the loss (a 0-d tensor on the
-    device, not synchronized). The step's draws come from
-    ``step_generator(seed, state.step)``."""
+    """One micro step on one batch (an optimizer step unless gradients
+    accumulate); returns the loss (a 0-d tensor on the device, not
+    synchronized). The step's draws come from
+    ``step_generator(seed, state.step)``, and ``state.step`` counts micro
+    steps, so each micro batch draws its own."""
     gen = step_generator(seed, state.step, state.device)
     loss = video_loss(state.unet, vae, pixels.to(state.device), context.to(state.device),
                       state.cfg, generator=gen, t=t, noise=noise, eps=eps)
@@ -240,7 +285,7 @@ def train_step(state: TrainState, vae, pixels, context, seed, *, t=None, noise=N
 def train_epoch(state: TrainState, vae, pixels_all, context_all, perm, seed, on_step=None):
     """One epoch over ``perm`` (steps, B) integer indices into the resident
     clip set; returns the mean loss (one host synchronization, at the end).
-    ``on_step(state, loss)`` is called after every step."""
+    ``on_step(state, loss)`` is called after every (micro) step."""
     losses = []
     for idx in torch.as_tensor(perm, device=pixels_all.device).long():
         losses.append(train_step(state, vae, pixels_all[idx], context_all[idx], seed))

@@ -1054,3 +1054,69 @@ def test_f32_server_answers_through_f32_kernels(gen, monkeypatch, tmp_path):
     assert rc == 0 and replies[1]["ok"] and replies[1]["id"] == "e", replies
     assert list((tmp_path / "out").rglob("*.gif"))
     assert set(launched) == {"flash_attention_fwd_f32", "ff_ln_f32"}, launched
+
+
+# --- the training recipe's eager paths on the card against the CPU --------------------
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(10000, 59136), ()])
+def test_adam8bit_update_on_the_card_equals_the_cpu(gen, shape):
+    """One 8-bit step from the same state and gradient (a second step, so the
+    stored codes and scales are in play) on the card and on the CPU: codes at
+    most 1 apart, parameters within 1e-6 of the step's largest update."""
+    from eeg2video_tpu_torch.train.optim import adam8_update
+
+    p = torch.randn(shape, generator=gen, device="cuda")
+    g1 = torch.randn(shape, generator=gen, device="cuda")
+    g2 = torch.randn(shape, generator=gen, device="cuda") * 0.3
+    state = [torch.zeros(shape, dtype=torch.int8, device="cuda")] * 2
+    sshape = (1,) + tuple(shape[1:]) if shape else (1,)
+    state = [state[0], torch.zeros(sshape, device="cuda"), state[1], torch.zeros(sshape,
+                                                                                    device="cuda")]
+    _, *state = adam8_update(g1, *state, 1, 0.9, 0.999, 1e-8)
+    u, *card = adam8_update(g2, *state, 2, 0.9, 0.999, 1e-8)
+    cu, *cpu = adam8_update(g2.cpu(), *[s.cpu() for s in state], 2, 0.9, 0.999, 1e-8)
+    for a, b in ((card[0], cpu[0]), (card[2], cpu[2])):
+        assert a.dtype == torch.int8
+        assert (a.cpu().int() - b.int()).abs().max().item() <= 1
+    new, want = p - 1e-3 * u, p.cpu() - 1e-3 * cu
+    assert (new.cpu() - want).abs().max().item() <= 1e-6 * (1e-3 * cu).abs().max().item()
+    torch.testing.assert_close(card[1].cpu(), cpu[1], rtol=1e-6, atol=0)
+
+
+@pytest.mark.gpu
+def test_seq2seq_train_forward_on_the_card_equals_the_cpu(gen):
+    """The Seq2Seq transformer in train mode (batch statistics, dropout off)
+    on the card against the same weights on the CPU: outputs, gradients and
+    the updated running statistics."""
+    from eeg2video_tpu_torch.models.seq2seq import Dropout, Seq2SeqTransformer
+
+    torch.manual_seed(0)
+    cpu = Seq2SeqTransformer(n_frames=2, latent_shape=(4, 4, 4)).train()
+    for m in cpu.modules():
+        if isinstance(m, Dropout):
+            m.p = 0.0
+    card = Seq2SeqTransformer(n_frames=2, latent_shape=(4, 4, 4)).train()
+    card.load_state_dict(cpu.state_dict())
+    card = card.cuda()
+    for m in card.modules():
+        if isinstance(m, Dropout):
+            m.p = 0.0
+    src = torch.randn(3, 7, 62, 100, generator=gen, device="cuda")
+    y = torch.randn(3, 2, 4, 4, 4, generator=gen, device="cuda")
+    outs = []
+    for model, dev in ((card, "cuda"), (cpu, "cpu")):
+        _, lat = model(src.to(dev))
+        torch.mean((lat[:, :-1] - y.to(dev)) ** 2).backward()
+        outs.append(lat.detach().cpu())
+    torch.testing.assert_close(outs[0], outs[1], rtol=1e-3, atol=1e-4)
+    grads = dict(cpu.named_parameters())
+    for name, p in card.named_parameters():
+        if p.grad is None:
+            assert grads[name].grad is None, name
+            continue
+        want = grads[name].grad
+        assert (p.grad.cpu() - want).abs().max() <= 2e-3 * want.abs().max() + 1e-6, name
+    cpu_buffers = dict(cpu.named_buffers())
+    for name, b in card.named_buffers():
+        torch.testing.assert_close(b.cpu(), cpu_buffers[name], rtol=1e-3, atol=1e-4)

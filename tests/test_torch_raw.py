@@ -302,7 +302,7 @@ def test_inference_main_matches_jax_main(monkeypatch, world, tmp_path, source):
 def test_inference_main_refuses_what_is_not_ported_and_defaults_to_the_card(world, tmp_path):
     base = ["--embeddings", str(world.tmp / "emb.npy"), "--woSeq2Seq",
             "--out_dir", str(tmp_path / "never")]
-    for flags in (["--dp", "2"], ["--tp", "2"], ["--sp", "2"], ["--legacy"]):
+    for flags in (["--dp", "2"], ["--tp", "2"], ["--sp", "2"]):
         with pytest.raises(SystemExit):
             inference_eeg2video.main([*base, "--device", "cpu", *flags])
     if not torch.cuda.is_available():
