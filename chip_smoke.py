@@ -14,7 +14,7 @@ printed on its own line; any failure prints ``FAIL ...`` and exits 1:
    temporal pair's staged route at the model's D = 40, 80, 160 and F = 6,
    bf16 and f32; ``geglu_out_bwd``; every kernel of the f32 feed-forward
    and GEGLU pairs; ``int8_dense`` at both of its widths, whose SASS must
-   hold no conversion instruction);
+   hold no conversion instruction; ``sos_filtfilt`` at 4 biquads);
 3. kernels: each kernel (forward and backward) against its plain PyTorch
    version in f32 on the same inputs at the main paths' shapes (generation
    at batch 1 with guidance, the train step at batch 10), with its time, the plain version's
@@ -100,6 +100,25 @@ printed on its own line; any failure prints ``FAIL ...`` and exits 1:
    GIFs with VAEConfig() in f32, one frame against the CPU's encode (rtol
    1e-3 / atol 1e-4).
 
+11. the EEG front end at full size on seeded data, each line beside the
+   card's name and power limit, its launch counts the ``preprocess`` path:
+   (a) a (7, 62, 104000) float64 raw subject through
+   ``segment_raw_signals_200hz.main --bandpass 0.5 47 --bandpass_order 4``
+   (``sos_filtfilt`` in float32) and ``dsp.bandpass_filter`` on its float64
+   values (``sos_filtfilt_f64``); both against ``scipy.signal.sosfiltfilt`` in
+   float64 on the host (float32: 1e-3 of the output's max, since at a whole
+   subject no float32 cascade, JAX's included, keeps the JAX test's atol 5e-4 +
+   rtol 1e-3, whose outliers are counted and printed; float64: 1e-6), bit for
+   bit against the plain version on the same inputs at full size (on the
+   host's CPU), and against the plain version on the card at (434, 4000) (1e-4
+   of the max, twice bit for bit), with times, the bytes, operations and
+   recursion-latency bounds and the scipy yardstick; (b) ``segment_sliding_window.main``, then
+   ``extract_de_psd_features.main`` in modes 1per500ms and 1per1s (also
+   ``--f32``); (c) ``train_glmnet.main`` at emb_dim 256 (8400 windows, batch
+   256, 2 epochs) and ``inference_glmnet.main`` -> (7, 40, 5, 7, 512), s/epoch
+   and peak memory; (d) ``eegvp_train_test.main`` (glfnet_mlp, 5 epochs)
+   serial and ``--fold_parallel``, equal per fold.
+
 The third-to-last line is a JSON object with one entry per kernel, then the
 ``nvidia-smi`` line; the last line is ``{"ok": true, "device": {...}}``.
 """
@@ -156,7 +175,8 @@ BF16_COUNTERS = ("flash_attention_fwd", "flash_attention_bwd", "flash_attention_
                  "fused_attention_fwd", "fused_attention_bwd", "temporal_attention_fwd",
                  "temporal_attention_bwd", "ff_ln", "ff_ln_bwd", "geglu_out", "geglu_out_bwd")
 F32_COUNTERS = tuple(f"{k}_f32" for k in BF16_COUNTERS)
-COUNTERS = (*BF16_COUNTERS, "conv3x3_gn_silu", "int8_dense", *F32_COUNTERS)
+COUNTERS = (*BF16_COUNTERS, "conv3x3_gn_silu", "int8_dense", *F32_COUNTERS, "sos_filtfilt",
+            "sos_filtfilt_f64")
 # an f32 forward: the same attention and feed-forward calls on the f32
 # kernels; its convs take the library's (JAX: conv2d.py:131 sends f32 to XLA)
 EXPECTED_F32_PER_FORWARD = {"flash_attention_fwd_f32": 48, "ff_ln_f32": 10, "geglu_out_f32": 6}
@@ -363,6 +383,12 @@ def phase_build(build):
         name = f"int8_dense_kernel<{w}>"
         if name not in int8 or int8[name][1] or int8[name][2]:
             fail(f"build: {name} missing from build.log or spills")
+    # the filtfilt recursion at the main path's 4 biquads (its float32 and float64
+    # instantiations share the short name)
+    sos = build.kernel_resources(log).get("sos_filtfilt_kernel<4,2,0>")
+    say(f"build: sos_filtfilt_kernel<4,2,0> registers (spill stores, loads in bytes): {sos}")
+    if sos is None or sos[1] or sos[2]:
+        fail("build: sos_filtfilt_kernel<4,2,0> missing from build.log or spills")
     ops = build.sass_opcodes("int8_dense_kernel")
     if len(ops) != len(INT8_WIDTHS):
         fail(f"build: the SASS holds {len(ops)} int8_dense_kernel functions, "
@@ -2374,6 +2400,297 @@ def phase_recipe(torch, build, card):
             "generate_latents": latent_launches}
 
 
+# section 11: the EEG front end
+PEAK_F64_FLOPS = 33.5e12          # H100 SXM, FP64 without tensor cores (NVIDIA data sheet)
+# Dependent FP add / multiply latency in cycles, f32 / f64, as microbenchmarks
+# measured it on Volta (Jia et al. 2018, "Dissecting the NVIDIA Volta GPU
+# Architecture via Microbenchmarking", arXiv:1804.06826); NVIDIA publishes none
+# for Hopper. Taken as Hopper's, not measured: the latency bound rests on it.
+FP_LATENCY_CYCLES = {4: 4, 8: 8}
+IIR_SECTIONS, IIR_PADLEN = 4, 27  # the order-4 bandpass: 4 biquads, padlen 3 (2 * 4 + 1)
+IIR_OPS = 9                       # a biquad's step: 5 products, 4 sums (csrc/sos_filtfilt.cu)
+IIR_SWEEP = (1, 8)                # biquads also timed at full size, beside the path's 4
+SUBJECT = (7, 62, 104000)         # a raw subject: 7 blocks of 40 x (3 s + 5 x 2 s) at 200 Hz
+# float32 against scipy's float64: tests/test_bandpass.py::test_bandpass_filter_matches_scipy_f32
+# holds 400-sample rows at 1-49 Hz to atol 5e-4 + rtol 1e-3 (JAX_F32_BOUND). At a whole
+# subject, 104,000 samples a row and a 0.5 Hz edge, no float32 cascade keeps it: on this
+# subject's 434 unit-variance rows JAX's own float32 filter reaches 1.73e-3 (2.6e-4 of the
+# output's max; 66 samples beyond it), the port's plain version 2.48e-3 (3.7e-4; 86), on
+# the CPU. Held to 1e-3 of the output's max; the samples beyond the JAX test's bound are
+# printed.
+JAX_F32_BOUND = dict(atol=5e-4, rtol=1e-3)
+F32_VS_SCIPY = 1e-3
+SCIPY_F64_ABS = 1e-6              # tests/test_bandpass.py::test_filtfilt_matches_scipy_f64_subprocess
+IIR_PLAIN_T = 4000                # the plain version's length on the card (its steps are eager ops)
+GLMNET_EPOCHS, EEGVP_EPOCHS = 2, 5
+IIR_SOURCE = "eeg2video_tpu_torch/csrc/sos_filtfilt.cu"
+IIR_REPLACES = "eeg2video_tpu/dsp/bandpass.py:177 _sos_scan (lax.scan, no pallas_call)"
+
+
+def _sm_clock_during_mhz(fn, torch, seconds):
+    """The median SM clock that ``nvidia-smi`` samples while ``fn`` runs over
+    and over for ``seconds``; None where it gave no sample."""
+    smi = subprocess.Popen(["nvidia-smi", "--query-gpu=clocks.sm", "--format=csv,noheader,nounits",
+                            "-lms", "100"], stdout=subprocess.PIPE, stderr=subprocess.DEVNULL,
+                           text=True)
+    try:
+        t0 = time.perf_counter()
+        while time.perf_counter() - t0 < seconds:
+            fn()
+        torch.cuda.synchronize()
+    finally:
+        smi.terminate()
+        out, _ = smi.communicate(timeout=60)
+    samples = [float(v) for v in out.split() if v.replace(".", "", 1).isdigit()]
+    return statistics.median(samples) if samples else None
+
+
+def _plain_on_host(torch, iir, sos, zi, x, rows, t):
+    """The plain version on the host's CPU at the path's full shape; returns
+    (out, seconds). A step's ops are on (rows, sections) tensors: one thread."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        t0 = time.perf_counter()
+        xt = torch.from_numpy(x.reshape(rows, t))
+        out = iir.filtfilt_plain(xt, torch.as_tensor(sos).to(xt.dtype),
+                                 torch.as_tensor(zi).to(xt.dtype), IIR_PADLEN, tf=False)
+        return out, time.perf_counter() - t0
+    finally:
+        torch.set_num_threads(threads)
+
+
+def _iir_check(torch, build, x, x64, filt32, filt64, report, card):
+    """(a) the kernel's full-size outputs on the path against scipy's float64
+    sosfiltfilt and, bit for bit, against its plain version on the same inputs
+    (on the host's CPU); against the plain version on the card at (434,
+    IIR_PLAIN_T), twice bit for bit; its times and bounds."""
+    import numpy as np
+    from scipy import signal
+
+    from eeg2video_tpu_torch.dsp import bandpass as bp
+    from eeg2video_tpu_torch.ops import iir
+
+    sos = bp.butter_bandpass_sos(4, 0.5, 47.0, 200.0)
+    zi = bp._sos_zi(sos)
+    rows, t = x.shape[0] * x.shape[1], x.shape[2]
+    n_ext = t + 2 * IIR_PADLEN
+    t0 = time.perf_counter()
+    want64 = signal.sosfiltfilt(sos, x64.reshape(rows, t), axis=-1, padlen=IIR_PADLEN)
+    scipy_ms = (time.perf_counter() - t0) * 1e3
+    want32 = signal.sosfiltfilt(sos, x.reshape(rows, t).astype(np.float64), axis=-1,
+                                padlen=IIR_PADLEN)
+    got32 = filt32.reshape(rows, t).cpu().numpy()
+    got64 = filt64.reshape(rows, t).cpu().numpy()
+    beyond = int(np.sum(np.abs(got32 - want32) > JAX_F32_BOUND["atol"]
+                        + JAX_F32_BOUND["rtol"] * np.abs(want32)))
+    rel32 = float(np.abs(got32 - want32).max() / np.abs(want32).max())
+    ok32 = rel32 < F32_VS_SCIPY
+    err64 = float(np.abs(got64 - want64).max())
+    say(f"front end (a): scipy.signal.sosfiltfilt float64 on the host at ({rows}, {t}): "
+        f"{scipy_ms:.1f} ms; the float32 kernel's worst error against it "
+        f"{float(np.abs(got32 - want32).max()):.3e}, {rel32:.3e} of the output's max (bound "
+        f"{F32_VS_SCIPY}; {beyond} of {got32.size} samples beyond the JAX test's atol "
+        f"{JAX_F32_BOUND['atol']} + rtol {JAX_F32_BOUND['rtol']}) {'ok' if ok32 else 'FAILED'}; "
+        f"the float64 kernel's "
+        f"{err64:.3e} (bound {SCIPY_F64_ABS}) {'ok' if err64 < SCIPY_F64_ABS else 'FAILED'}")
+    if not ok32 or not err64 < SCIPY_F64_ABS:
+        fail("front end: sos_filtfilt disagrees with scipy.signal.sosfiltfilt")
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(51)
+    for name, dtype, peak, src, got in (
+            ("sos_filtfilt", torch.float32, PEAK_F32_FLOPS, x, got32),
+            ("sos_filtfilt_f64", torch.float64, PEAK_F64_FLOPS, x64, got64)):
+        item = 4 if dtype == torch.float32 else 8
+        # the path's own output at full size against the plain version on its inputs
+        plain_full, host_s = _plain_on_host(torch, iir, sos, zi, src, rows, t)
+        got = torch.from_numpy(got)
+        full_equal = bool(torch.equal(got, plain_full))
+        full_abs = float((got - plain_full).abs().max())
+        full_rel = full_abs / float(plain_full.abs().max())
+        del plain_full
+        small = torch.randn(rows, IIR_PLAIN_T, generator=g, device=dev, dtype=dtype)
+        full = torch.from_numpy(src.reshape(rows, t)).to(dev)
+        call = lambda v, s=sos, z=zi, p=IIR_PADLEN: iir.sos_filtfilt(v, s, z, p)
+        out1, out2 = call(small), call(small)
+        coef = torch.as_tensor(sos, dtype=dtype, device=dev)
+        zit = torch.as_tensor(zi, dtype=dtype, device=dev)
+        torch.cuda.synchronize()
+        p0 = time.perf_counter()
+        plain = iir.filtfilt_plain(small, coef, zit, IIR_PADLEN, tf=False)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - p0) * 1e3
+        small_abs = float((out1 - plain).abs().max())
+        err = small_abs / float(plain.abs().max())
+        same = bool(torch.equal(out1, out2))
+        bitwise = bool(torch.equal(out1, plain))
+        ms = timed_ms(lambda: call(full), torch, 5)
+        sweep = []
+        for order in IIR_SWEEP:
+            s_sos = bp.butter_bandpass_sos(order, 0.5, 47.0, 200.0)
+            s_call = lambda v, s=s_sos, z=bp._sos_zi(s_sos), p=3 * (2 * order + 1): \
+                iir.sos_filtfilt(v, s, z, p)
+            sweep.append(f"{order}: {timed_ms(lambda: s_call(full), torch, 5):.3f}")
+        mhz = _sm_clock_during_mhz(lambda: call(full), torch, 1.5)
+        del full
+        bytes_ = 2 * rows * t * item  # x read once, out written once
+        ws_bytes = 4 * rows * n_ext * item  # with the workspace written and read back
+        ops = 2 * n_ext * rows * IIR_SECTIONS * IIR_OPS
+        bytes_ms, ops_ms = bytes_ / PEAK_BYTES * 1e3, ops / peak * 1e3
+        # a section's loop-carried chain a step: y = b0 u + z0, a1 y, (b1 u - a1 y), + z1 -> z0
+        latency = ("not measured (no clock sample)" if mhz is None else
+                   f"{2 * n_ext * 4 * FP_LATENCY_CYCLES[item] / (mhz * 1e6) * 1e3:.3f} ms (2 x "
+                   f"{n_ext} steps x 4 dependent ops x {FP_LATENCY_CYCLES[item]} cycles, Volta's "
+                   f"latency, at the {mhz:.0f} MHz nvidia-smi sampled during the run)")
+        report[name] = {
+            "max_abs_err": max(full_abs, small_abs), "max_rel_err": max(full_rel, err),
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations", "library_ms": None,
+            "composed_ms": None, "shape": [rows, t],
+            "scipy_host_ms": scipy_ms,  # float64 on the host, both rows
+            "plain_shape": [rows, IIR_PLAIN_T]}
+        ok = full_equal and err < F32_KERNEL_BOUND and same
+        say(f"front end (a): {name} at ({rows}, {t}) {ms:.3f} ms (biquads {', '.join(sweep)} ms "
+            f"beside the path's {IIR_SECTIONS}); bounds: bytes {bytes_ms:.4f} ms (x and out "
+            f"once), {ws_bytes / PEAK_BYTES * 1e3:.4f} ms with the workspace, operations "
+            f"{ops_ms:.4f} ms, the recursion's latency {latency}; the path's output against the "
+            f"plain version on the same inputs (the host's CPU, {host_s:.1f} s): bit-equal "
+            f"{full_equal} (worst {full_abs:.3e}); plain version on the card at ({rows}, "
+            f"{IIR_PLAIN_T}) {plain_ms:.1f} ms, kernel vs plain {err:.3e} of the max (bound "
+            f"{F32_KERNEL_BOUND}), bit-equal {bitwise}, twice bit for bit {same} [{card}] "
+            f"{'ok' if ok else 'FAILED'}")
+        if not ok:
+            fail(f"front end: {name} disagrees with its plain version or is not deterministic")
+
+
+def phase_front_end(torch, build, card, report):
+    """Section 11, the EEG front end at full size on seeded data, driven with
+    the launch counts set to 0 just before its main path and read just after
+    it: (a) a raw subject through ``segment_raw_signals_200hz.main --bandpass``
+    and ``dsp.bandpass_filter`` on its float64 values; (b) the sliding windows
+    and DE / PSD features; (c) GLMNet training and embedding; (d) EEG-VP
+    serial and fold-parallel. Returns the path's launches."""
+    import numpy as np
+
+    from eeg2video_tpu_torch.cli import (eegvp_train_test, extract_de_psd_features,
+                                         inference_glmnet, segment_raw_signals_200hz,
+                                         segment_sliding_window, train_glmnet)
+    from eeg2video_tpu_torch.dsp import bandpass_filter
+
+    t_section = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="e2v_front_") as tmp:
+        d = lambda *p: os.path.join(tmp, *p)
+        os.makedirs(d("raw"))
+        g = torch.Generator(device="cuda").manual_seed(50)
+        # unit variance, as the JAX test that sets the float32 bound draws it
+        x64 = torch.randn(SUBJECT, generator=g, device="cuda", dtype=torch.float64).cpu().numpy()
+        np.save(d("raw", "sub1.npy"), x64)
+        # (a) the path: the CLI (float32, as the JAX CLI filters), then the
+        # library entry point on the float64 values
+        build.reset_launches()
+        t0 = _sync_clock(torch)
+        segment_raw_signals_200hz.main(["--eeg_root", d("raw"), "--output_dir", d("seg"),
+                                        "--bandpass", "0.5", "47", "--bandpass_order", "4"])
+        seg_s = _sync_clock(torch) - t0
+        filt64 = bandpass_filter(x64, 0.5, 47.0, 200.0, order=4)
+        torch.cuda.synchronize()
+        launches = dict(build.launches)
+        if not (launches["sos_filtfilt"] and launches["sos_filtfilt_f64"]):
+            fail(f"front end: the preprocess path did not launch both filtfilt kernels: "
+                 f"{launches['sos_filtfilt']}, {launches['sos_filtfilt_f64']}")
+        segs = np.load(d("seg", "sub1.npy"))
+        x = x64.astype(np.float32)
+        filt32 = bandpass_filter(x, 0.5, 47.0, 200.0, order=4)
+        from eeg2video_tpu_torch.dsp import segment_subject
+
+        seg_ok = (segs.shape == (7, 40, 5, SUBJECT[1], 400) and segs.dtype == np.float64
+                  and np.array_equal(segs, segment_subject(filt32.cpu().numpy()).astype(np.float64)))
+        say(f"front end (a): segment_raw_signals_200hz --bandpass 0.5 47 on a ({', '.join(map(str, SUBJECT))}) "
+            f"float64 subject: {seg_s:.2f} s (loading, the float32 filter, the gather, writing "
+            f"{segs.nbytes / 1e6:.0f} MB), segments {segs.shape} equal to the filtered signal's "
+            f"{seg_ok}; launches sos_filtfilt {launches['sos_filtfilt']}, sos_filtfilt_f64 "
+            f"{launches['sos_filtfilt_f64']} [{card}] {'ok' if seg_ok else 'FAILED'}")
+        if not seg_ok:
+            fail("front end: the segments are not those of the filtered subject")
+        _iir_check(torch, build, x, x64, filt32, filt64, report, card)
+        del x64, x, filt32, filt64
+
+        # (b) features
+        t0 = time.perf_counter()
+        segment_sliding_window.main(["--input_dir", d("seg"), "--output_dir", d("sw")])
+        sw_s = time.perf_counter() - t0
+        secs = {}
+        for mode, raw_dir, extra in (("1per500ms", d("sw"), []), ("1per1s", d("seg"), []),
+                                     ("1per1s", d("seg"), ["--f32"])):
+            tag = mode + ("_f32" if extra else "")
+            t0 = _sync_clock(torch)
+            extract_de_psd_features.main(["--mode", mode, "--raw_dir", raw_dir, "--de_dir",
+                                          d(f"DE_{tag}"), "--psd_dir", d(f"PSD_{tag}"), *extra])
+            secs[tag] = _sync_clock(torch) - t0
+        de500 = np.load(d("DE_1per500ms", "sub1.npy"))
+        de1, de1_32 = np.load(d("DE_1per1s", "sub1.npy")), np.load(d("DE_1per1s_f32", "sub1.npy"))
+        psd1 = np.load(d("PSD_1per1s", "sub1.npy"))
+        psd1_32 = np.load(d("PSD_1per1s_f32", "sub1.npy"))
+        rel = float(np.max(np.abs(psd1_32 - psd1) / psd1))
+        ok = (de500.shape == (7, 40, 5, 7, 62, 5) and de1.shape == (7, 40, 5, 2, 62, 5)
+              and np.isfinite(de500).all() and np.isfinite(de1_32).all() and rel < DE_BOUND)
+        say(f"front end (b): segment_sliding_window {sw_s:.2f} s -> (7, 40, 5, 7, 62, 100); "
+            f"extract_de_psd_features 1per500ms {secs['1per500ms']:.2f} s -> {de500.shape}, "
+            f"1per1s {secs['1per1s']:.2f} s -> {de1.shape}, 1per1s --f32 on the card "
+            f"{secs['1per1s_f32']:.2f} s, its psd against the float64 path worst relative "
+            f"{rel:.3e} (bound {DE_BOUND}) [{card}] {'ok' if ok else 'FAILED'}")
+        if not ok:
+            fail("front end: wrong DE / PSD features")
+
+        # (c) GLMNet at full width: 8400 training windows of blocks 0-5
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = _sync_clock(torch)
+        acc = train_glmnet.main(["--raw_dir", d("sw"), "--de_dir", d("DE_1per500ms"), "--sub", "1",
+                                 "--save_path", d("glmnet"), "--epochs", str(GLMNET_EPOCHS),
+                                 "--batch_size", "256", "--emb_dim", "256"])
+        train_s = _sync_clock(torch) - t0
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        stamps = [json.loads(s)["time"] for s in
+                  open(d("glmnet", "glmnet_metrics.jsonl")).read().splitlines()]
+        t0 = _sync_clock(torch)
+        emb = inference_glmnet.main(["--raw_dir", d("sw"), "--de_dir", d("DE_1per500ms"),
+                                     "--sub", "1", "--ckpt", d("glmnet", "ckpt"), "--norm_stats",
+                                     d("glmnet", "norm_stats.npz"), "--emb_dim", "256",
+                                     "--out", d("glmnet", "emb.npy")])
+        infer_s = _sync_clock(torch) - t0
+        ok = (emb.shape == (7, 40, 5, 7, 512) and np.isfinite(emb).all() and len(stamps) == 2
+              and 0.0 <= acc <= 1.0)
+        say(f"front end (c): train_glmnet at emb_dim 256, 8400 windows, batch 256, "
+            f"{GLMNET_EPOCHS} epochs (cut from 100): {train_s:.2f} s with loading, the second "
+            f"epoch {stamps[-1] - stamps[0]:.3f} s, peak {peak:.2f} GiB, block-6 top-1 {acc:.3f}; "
+            f"inference_glmnet {infer_s:.2f} s -> {emb.shape} [{card}] {'ok' if ok else 'FAILED'}")
+        if not ok:
+            fail("front end: GLMNet training or embedding failed")
+
+        # (d) EEG-VP on the DE_1per1s features, serial and fold-parallel
+        runs = {}
+        for tag, extra in (("serial", []), ("fold_parallel", ["--fold_parallel"])):
+            t0 = _sync_clock(torch)
+            eegvp_train_test.main(["--feature_dir", d("DE_1per1s"), "--out_dir", d(f"vp_{tag}"),
+                                   "--epochs", str(EEGVP_EPOCHS), "--encoder", "glfnet_mlp",
+                                   *extra])
+            runs[tag] = (_sync_clock(torch) - t0,
+                         np.load(d(f"vp_{tag}", "sub1_top1.npy")),
+                         np.load(d(f"vp_{tag}", "sub1_preds.npy")))
+        (s_s, s_top1, s_preds), (p_s, p_top1, p_preds) = runs["serial"], runs["fold_parallel"]
+        ok = (s_top1.shape == (7,) and float(np.abs(s_top1 - p_top1).max()) <= 1e-6
+              and np.array_equal(s_preds, p_preds))
+        say(f"front end (d): eegvp_train_test glfnet_mlp, {EEGVP_EPOCHS} epochs (cut from 100), "
+            f"one subject: serial {s_s:.2f} s, --fold_parallel {p_s:.2f} s; top-1 by fold "
+            f"{np.round(s_top1, 4).tolist()}, fold-parallel equal (within 1e-6, predictions "
+            f"identical) [{card}] {'ok' if ok else 'FAILED'}")
+        if not ok:
+            fail("front end: fold-parallel EEG-VP differs from serial")
+    say(f"front end: section {time.perf_counter() - t_section:.1f} s")
+    return launches
+
+
 # device kernels of a train step or a generation forward, grouped by what
 # launched them (substrings of the kernel names; the port's own kernels first)
 _KERNEL_GROUPS = (
@@ -2466,6 +2783,8 @@ def main():
     torch.cuda.empty_cache()
     f32_train_launches, f32_dbias_launches = phase_f32_train(torch, build)
     recipe = phase_recipe(torch, build, smi_line)
+    torch.cuda.empty_cache()
+    recipe["preprocess"] = phase_front_end(torch, build, smi_line, report)
     leaked = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "jaxlib", "flax", "eeg2video_tpu"))
     if leaked:
@@ -2521,6 +2840,20 @@ def main():
                         "bound_ms": rep["bound_ms"], "bound_by": rep["bound_by"],
                         "library_ms": rep["library_ms"], "composed_ms": rep["composed_ms"],
                         "shape": rep["shape"]})
+    # the filtfilt recursion (no Pallas counterpart): the preprocess path, section 11
+    for name in build.IIR_KERNELS:
+        per_path = {f"launches_{p}_path": counts[name] for p, counts in recipe.items()}
+        rep = report[name]
+        kernels.append({"name": name, "route": "cuda", "source": IIR_SOURCE,
+                        "replaces": IIR_REPLACES,
+                        "launches": per_path["launches_preprocess_path"],
+                        "launches_path": "preprocess", **per_path,
+                        "max_abs_err": rep["max_abs_err"], "max_rel_err": rep["max_rel_err"],
+                        "ms": rep["ms"], "plain_ms": rep["plain_ms"],
+                        "bound_ms": rep["bound_ms"], "bound_by": rep["bound_by"],
+                        "library_ms": rep["library_ms"], "composed_ms": rep["composed_ms"],
+                        "shape": rep["shape"], "scipy_host_ms": rep["scipy_host_ms"],
+                        "plain_shape": rep["plain_shape"]})
     print(json.dumps({"kernels": kernels}))
     print(smi_line)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -14,7 +14,7 @@ import numpy as np
 import torch
 
 from .export_diffusion import unet3d_to_torch, vae_to_torch
-from .export_torch import seq2seq_to_torch
+from .export_torch import encoder_to_torch, seq2seq_to_torch
 
 
 def _tensors(sd, dtype):
@@ -56,11 +56,26 @@ def semantic_state_dict_from_jax(params, dtype=torch.float32):
     return _tensors(sd, dtype)
 
 
+def _with_int_counts(sd):
+    """numpy state dict -> tensors: float32, integers (``num_batches_tracked``)
+    int64."""
+    return {k: torch.from_numpy(np.array(v, dtype=np.int64 if v.dtype.kind == "i"
+                                         else np.float32))
+            for k, v in sd.items()}
+
+
+def encoder_state_dict_from_jax(name: str, variables):
+    """Flax EEG-encoder variables (``params`` and, for the encoders with
+    BatchNorms, ``batch_stats``; numpy arrays) -> the state dict of
+    ``models.make_encoder(name, ...)`` in the reference's keys (the ones
+    ``eeg2video_tpu/convert/torch_params.py`` ``encoder_params_from_torch``
+    reads), float32, ``num_batches_tracked`` 0."""
+    return _with_int_counts(encoder_to_torch(name, variables))
+
+
 def seq2seq_state_dict_from_jax(variables):
     """Flax Seq2SeqTransformer variables (``params`` and ``batch_stats``: the
     EEGNet embedding's BatchNorm running statistics) -> ``Seq2SeqTransformer``
     state dict in the reference's keys, float32 (``num_batches_tracked`` stays
     an integer)."""
-    return {k: torch.from_numpy(np.array(v, dtype=np.int64 if v.dtype.kind == "i"
-                                         else np.float32))
-            for k, v in seq2seq_to_torch(variables).items()}
+    return _with_int_counts(seq2seq_to_torch(variables))

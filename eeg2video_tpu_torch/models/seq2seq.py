@@ -18,7 +18,7 @@ tree) loads with ``strict=True``:
   and 3, 0.1 on the attention probabilities, after each attention and inside
   and after each feed-forward. Their draws come from ``set_dropout_generator``'s
   generator. The EEGNet BatchNorms normalize with the batch's biased variance
-  and update their running statistics flax's way (see ``BatchNorm2d``).
+  and update their running statistics flax's way (see ``layers.BatchNorm2d``).
 - The reference's decode loop is autoregressive: it starts from a zero token
   and feeds its own outputs back for ``n_frames`` steps with a causal mask
   (L176-181); the rollout tokens are raw decoder outputs and never receive an
@@ -42,41 +42,11 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..data import meta
+from .layers import BatchNorm2d, Dropout, set_dropout_generator
 
 LATENT_DIM = meta.LATENT_CHANNELS * meta.LATENT_HEIGHT * meta.LATENT_WIDTH  # 9216
 N_WINDOWS = 7
 WINDOW_LEN = 100
-
-
-class Dropout(nn.Dropout):
-    """Dropout as flax draws it: keep each element with probability 1 - p and
-    scale the kept ones by 1 / (1 - p), the draws from ``self.generator``
-    (the default generator when it is None); an identity in eval mode."""
-
-    generator = None
-
-    def forward(self, x):
-        if not self.training or self.p == 0.0:
-            return x
-        keep = torch.rand(x.shape, generator=self.generator, device=x.device) >= self.p
-        return torch.where(keep, x / (1.0 - self.p), 0.0)
-
-
-class BatchNorm2d(nn.BatchNorm2d):
-    """nn.BatchNorm2d whose train mode is flax's (momentum 0.9): normalize by
-    the batch's mean and biased variance, then ``running = 0.9 running + 0.1
-    batch`` with that biased variance (nn.BatchNorm2d's own update uses the
-    unbiased one). Eval mode uses the running statistics."""
-
-    def forward(self, x):
-        if not self.training:
-            return super().forward(x)
-        with torch.no_grad():
-            var, mean = torch.var_mean(x, dim=(0, 2, 3), unbiased=False)
-            self.running_mean.mul_(0.9).add_(0.1 * mean)
-            self.running_var.mul_(0.9).add_(0.1 * var)
-            self.num_batches_tracked += 1
-        return F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0, self.eps)
 
 
 class EEGNetEmbedding(nn.Module):
@@ -242,9 +212,7 @@ class Seq2SeqTransformer(nn.Module):
     def set_dropout_generator(self, generator):
         """Make every dropout of the model draw from ``generator`` (a
         torch.Generator on the model's device; None: the default one)."""
-        for m in self.modules():
-            if isinstance(m, Dropout):
-                m.generator = generator
+        set_dropout_generator(self, generator)
 
     def forward(self, src, tgt=None):
         b = src.shape[0]

@@ -68,6 +68,8 @@ SIGNATURES = {
     "e2v_ff_f32_bwd": [P, P, P, P, P, P, P, P, P, I, I, I, F, P],
     "e2v_geglu_f32": [P, P, P, P, P, I, I, I, P],
     "e2v_geglu_f32_bwd": [P, P, P, P, I, I, I, P],
+    # the bandpass recursion (csrc/sos_filtfilt.cu; no Pallas counterpart)
+    "e2v_sos_filtfilt": [P, P, P, P, P, I, LL, I, I, I, I, I, P],
 }
 
 # "flash_attention_bwd_dbias" counts those launches of flash_attention_bwd
@@ -80,7 +82,10 @@ BF16_KERNELS = ("flash_attention_fwd", "flash_attention_bwd", "flash_attention_b
                 "temporal_attention_fwd", "temporal_attention_bwd",
                 "ff_ln", "ff_ln_bwd", "geglu_out", "geglu_out_bwd")
 F32_KERNELS = tuple(f"{k}_f32" for k in BF16_KERNELS)
-launches = dict.fromkeys((*BF16_KERNELS, "conv3x3_gn_silu", "int8_dense", *F32_KERNELS), 0)
+# the filtfilt recursion of dsp.bandpass in float32 and in float64
+IIR_KERNELS = ("sos_filtfilt", "sos_filtfilt_f64")
+launches = dict.fromkeys((*BF16_KERNELS, "conv3x3_gn_silu", "int8_dense", *F32_KERNELS,
+                          *IIR_KERNELS), 0)
 
 _lib = None
 

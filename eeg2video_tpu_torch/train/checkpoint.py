@@ -36,10 +36,12 @@ def _write(path, obj):
 
 
 def save_train_state(ckpt_dir, tag: int, state):
-    """Write ``<ckpt_dir>/train_state_<tag>.pt`` (every parameter in f32, the
-    optimizer state, the step) and return its path."""
+    """Write ``<ckpt_dir>/train_state_<tag>.pt`` and return its path:
+    ``state.state_dict()`` (the fine-tune's train state: every parameter in
+    f32, the optimizer state, the step; a model's weights), or ``state`` itself
+    when it is a state dict."""
     path = _path(ckpt_dir, tag)
-    _write(path, state.state_dict())
+    _write(path, state.state_dict() if hasattr(state, "state_dict") else state)
     return path
 
 

@@ -27,7 +27,7 @@ import numpy as np
 import pytest
 import torch
 
-from eeg2video_tpu_torch.ops import _build, attention, conv2d, geglu, int8_dense, temporal
+from eeg2video_tpu_torch.ops import _build, attention, conv2d, geglu, iir, int8_dense, temporal
 from test_torch_kernel_plans import temporal_grid
 
 BOUND = 1e-2
@@ -1120,3 +1120,77 @@ def test_seq2seq_train_forward_on_the_card_equals_the_cpu(gen):
     cpu_buffers = dict(cpu.named_buffers())
     for name, b in card.named_buffers():
         torch.testing.assert_close(b.cpu(), cpu_buffers[name], rtol=1e-3, atol=1e-4)
+
+
+# --- sos_filtfilt (csrc/sos_filtfilt.cu): the bandpass recursion ----------
+
+def _iir_case(form, dtype):
+    """(coefficient rows for the plain version, zi, padlen, the wrapper's
+    call) of an order-4 bandpass (biquads), an order-2 one in the
+    transfer-function form (stable in float32), or an order-3 lowpass in that
+    form (an odd order, which the wrapper runs as order 4)."""
+    from scipy import signal
+
+    from eeg2video_tpu_torch.dsp import bandpass as bp
+
+    if form == "sos":
+        sos = bp.butter_bandpass_sos(4, 0.5, 47.0, 200.0)
+        zi = bp._sos_zi(sos)
+        return (torch.as_tensor(sos, dtype=dtype, device="cuda"),
+                torch.as_tensor(zi, dtype=dtype, device="cuda"), 27,
+                lambda x: iir.sos_filtfilt(x, sos, zi, 27))
+    b, a = bp.butter_bandpass(2, 4.0, 31.0, 200.0) if form == "tf" else signal.butter(3, 0.3)
+    zi, padlen = bp.lfilter_zi(b, a), 3 * len(a)
+    return (torch.as_tensor(np.stack([b, a]), dtype=dtype, device="cuda"),
+            torch.as_tensor(zi, dtype=dtype, device="cuda"), padlen,
+            lambda x: iir.tf_filtfilt(x, b, a, zi, padlen))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("form", ["sos", "tf", "tf_odd"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("rows", [1, 31, 434])
+@pytest.mark.parametrize("t", ["padlen+1", 4000])
+def test_sos_filtfilt_matches_plain(gen, form, dtype, rows, t):
+    """Within F32_BOUND of the output's max of the plain version on the card
+    (both round every product and sum on its own: they agree to the bit where
+    the card's eager ops do), twice bit for bit, one launch a call."""
+    coef, zi, padlen, call = _iir_case(form, dtype)
+    t = padlen + 1 if t == "padlen+1" else t
+    x = torch.randn(rows, t, generator=gen, device="cuda", dtype=dtype)
+    kernel = "sos_filtfilt" if dtype == torch.float32 else "sos_filtfilt_f64"
+    before = dict(_build.launches)
+    out = call(x)
+    torch.cuda.synchronize()
+    assert _build.launches[kernel] == before[kernel] + 1
+    assert all(_build.launches[k] == before[k] for k in before if k != kernel)
+    want = iir.filtfilt_plain(x, coef, zi, padlen, tf=form != "sos")
+    assert out.dtype == dtype and out.shape == x.shape
+    assert _err(out, want) < F32_BOUND
+    assert torch.equal(call(x), out)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_sos_filtfilt_rows_do_not_depend_on_the_row_count(gen, dtype):
+    _, _, _, call = _iir_case("sos", dtype)
+    x = torch.randn(434, 4000, generator=gen, device="cuda", dtype=dtype)
+    full = call(x)
+    for lo, hi in ((0, 31), (31, 33), (400, 434)):
+        assert torch.equal(call(x[lo:hi].contiguous()), full[lo:hi]), (lo, hi)
+
+
+@pytest.mark.gpu
+def test_sos_filtfilt_refuses_what_it_does_not_take(gen):
+    from eeg2video_tpu_torch.dsp import bandpass as bp
+
+    x = torch.randn(2, 500, generator=gen, device="cuda")
+    sos = bp.butter_bandpass_sos(9, 1.0, 40.0, 200.0)  # 9 biquads, one more than the kernel's 8
+    before = dict(_build.launches)
+    with pytest.raises(ValueError, match="sos_filtfilt: the cascade takes 1..8 biquads"):
+        iir.sos_filtfilt(x, sos, bp._sos_zi(sos), 57)
+    with pytest.raises(ValueError, match="sos_filtfilt: x must be float32 or float64"):
+        iir.sos_filtfilt(x.half(), sos[:4], bp._sos_zi(sos[:4]), 27)
+    with pytest.raises(ValueError, match="must exceed padlen"):
+        iir.sos_filtfilt(x[:, :27].contiguous(), sos[:4], bp._sos_zi(sos[:4]), 27)
+    assert dict(_build.launches) == before

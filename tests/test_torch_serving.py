@@ -435,7 +435,15 @@ def test_no_module_of_the_port_imports_jax():
             "eeg2video_tpu_torch.train.optim", "eeg2video_tpu_torch.train.semantic",
             "eeg2video_tpu_torch.cli.train_semantic", "eeg2video_tpu_torch.cli.inference_semantic",
             "eeg2video_tpu_torch.cli.train_seq2seq_v2",
-            "eeg2video_tpu_torch.cli.generate_video_latents"} <= set(names)
+            "eeg2video_tpu_torch.cli.generate_video_latents",
+            "eeg2video_tpu_torch.ops.iir", "eeg2video_tpu_torch.dsp.bandpass",
+            "eeg2video_tpu_torch.cli.segment_raw_signals_200hz",
+            "eeg2video_tpu_torch.cli.segment_sliding_window",
+            "eeg2video_tpu_torch.cli.extract_de_psd_features",
+            "eeg2video_tpu_torch.models.layers", "eeg2video_tpu_torch.models.encoders",
+            "eeg2video_tpu_torch.train.eegvp", "eeg2video_tpu_torch.cli.eegvp_train_test",
+            "eeg2video_tpu_torch.cli.train_glmnet",
+            "eeg2video_tpu_torch.cli.inference_glmnet"} <= set(names)
     code = "\n".join([
         "import importlib, sys",
         "before = set(sys.modules)",
