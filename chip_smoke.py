@@ -118,6 +118,25 @@ printed on its own line; any failure prints ``FAIL ...`` and exits 1:
    256, 2 epochs) and ``inference_glmnet.main`` -> (7, 40, 5, 7, 512), s/epoch
    and peak memory; (d) ``eegvp_train_test.main`` (glfnet_mlp, 5 epochs)
    serial and ``--fold_parallel``, equal per fold.
+12. the trainer's saved residuals, evaluation and the native data path, each
+   line beside the card's name and power limit: (a) the train step at
+   UNet3DConfig(), batch 10, with the residuals kept (``remat_save_attn``,
+   ``remat_save_convs``: the defaults) and recomputed, each twice,
+   alternating, 4 optimizer steps a run from the same seeded weights:
+   s/step (the median of the 3 after a warm-up), peak memory, every step's
+   launches checked (kept: each forward kernel once per call site), the first
+   loss bit for bit in all four runs, and the parameters of the two settings
+   within 2x the gap between two runs of one setting; (b) ``score_clips`` on
+   one block (200 clips of 6 x 288 x 512 moving by known shifts, chunk 25):
+   seconds a block, the bytes of one level-0 Jacobi iteration and their
+   bound, 4 clips against the host's CPU (1e-5 relative); (c) SSIM, MSE,
+   PSNR and hue over 1200 frame pairs at 288 x 512, 12 against the CPU
+   (5e-5); (d) ``extract_gif.main`` on one concept's mp4 where cv2 can write
+   one, then ``compute_optical_flow.main`` and ``run_metrics.main`` on its 5
+   GIFs, the GIF decoding timed apart; (e) ``NpyBatchLoader`` gather rates on
+   a ~1 GB float32 .npy, and whether the clip decoder links
+   here (it needs opencv4 through pkg-config; where it does not, the line
+   says so and why).
 
 The third-to-last line is a JSON object with one entry per kernel, then the
 ``nvidia-smi`` line; the last line is ``{"ok": true, "device": {...}}``.
@@ -184,14 +203,19 @@ EXPECTED_CONV_STATS = 2
 # per train step: 16 transformer blocks, each attn1 = 2 attention calls
 # (frames 0-1, frames 2-5), attn2 = 1, one feed-forward, one temporal
 # attention. The 10 blocks of levels 0 and 1 (C = 320, 640: ff_ln) are
-# recomputed in the backward, so their forward kernels launch twice; the 6 of
-# level 2 and mid (C = 1280: geglu_out) once. Every block launches each
+# recomputed in the backward, but they keep their kernels' outputs
+# (remat_save_attn, JAX's flash_out / ff_out), so every forward kernel
+# launches once per call site, as in JAX's step; the 6 of level 2 and mid
+# (C = 1280: geglu_out) are not recomputed. Every block launches each
 # backward kernel once. Training takes the library convolution.
-_FWD_PASSES = 2 * 10 + 6
 _TRAIN_STEP = {
-    "flash_attention_fwd": 3 * _FWD_PASSES, "flash_attention_bwd": 3 * 16,
-    "temporal_attention_fwd": _FWD_PASSES, "temporal_attention_bwd": 16,
-    "ff_ln": 2 * 10, "ff_ln_bwd": 10, "geglu_out": 6, "geglu_out_bwd": 6}
+    "flash_attention_fwd": 3 * 16, "flash_attention_bwd": 3 * 16,
+    "temporal_attention_fwd": 16, "temporal_attention_bwd": 16,
+    "ff_ln": 10, "ff_ln_bwd": 10, "geglu_out": 6, "geglu_out_bwd": 6}
+# the same step with remat_save_attn=False, remat_save_convs=False (section
+# 12): the recomputed blocks launch their forwards a second time
+_RECOMPUTE_STEP = {**_TRAIN_STEP, "flash_attention_fwd": 3 * (2 * 10 + 6),
+                   "temporal_attention_fwd": 2 * 10 + 6, "ff_ln": 2 * 10}
 EXPECTED_PER_TRAIN_STEP = {**dict.fromkeys(COUNTERS, 0), **_TRAIN_STEP}
 # compute_dtype="float32": the same calls on the f32 kernels, 0 conv
 EXPECTED_F32_PER_TRAIN_STEP = {**dict.fromkeys(COUNTERS, 0),
@@ -2691,6 +2715,352 @@ def phase_front_end(torch, build, card, report):
     return launches
 
 
+# section 12: the trainer's saved residuals, evaluation and the native data path
+RESIDUAL_RUNS = (("saved", True), ("recompute", False), ("saved", True), ("recompute", False))
+RESIDUAL_STEPS = 4                # a warm-up step, then the 3 timed (their median)
+SPREAD_FACTOR = 2.0               # saved vs recompute within 2x the same-setting spread
+FLOW_CLIPS, FLOW_CHUNK = 200, 25  # one block of clips, JAX's default chunk
+FLOW_CPU_CLIPS = 4                # clips also scored on the host's CPU
+FLOW_RTOL = 1e-5
+METRIC_FRAMES, METRIC_CPU_FRAMES = 1200, 12  # one test block's 200 clips x 6 frames
+METRIC_BOUND = 5e-5               # SSIM absolute, the others relative
+NPY_ROWS, NPY_ROW = 40000, 62 * 100  # ~1 GB of float32 EEG windows
+NPY_BATCH, NPY_BATCHES = 256, 40
+
+
+def _masters_gap(a, b):
+    """(max, mean) |a - b| over every trainable tensor."""
+    diffs = [(a[n] - b[n]).abs() for n in a]
+    return (max(float(d.max()) for d in diffs),
+            sum(float(d.sum()) for d in diffs) / sum(d.numel() for d in diffs))
+
+
+def _residual_run(torch, build, vd, post, ctx, save):
+    """RESIDUAL_STEPS optimizer steps at batch TRAIN_BATCH from the weights of
+    seed 23, keeping the residuals (``save``) or recomputing them."""
+    import functools
+
+    unet, _ = _full_width_unet(torch, 23)
+    state = vd.init_video_train_state(unet, vd.VideoDiffusionTrainConfig(remat_save_attn=save),
+                                      "cuda")
+    del unet
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model = functools.partial(state.unet, remat_save_convs=save)
+    losses, secs, launches = [], [], []
+    for _ in range(RESIDUAL_STEPS):
+        build.reset_launches()
+        t0 = _sync_clock(torch)
+        gen = vd.step_generator(5, state.step, state.device)
+        loss = vd.video_loss(model, None, post, ctx, state.cfg, generator=gen)
+        loss.backward()
+        state.apply_gradients()
+        secs.append(_sync_clock(torch) - t0)
+        losses.append(loss.detach())
+        launches.append(dict(build.launches))
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    masters = {n: p.detach().clone() for n, p in state.masters.items()}
+    del state, model
+    torch.cuda.empty_cache()
+    return {"losses": losses, "secs": secs, "launches": launches, "peak": peak,
+            "masters": masters}
+
+
+def _phase_saved_residuals(torch, build, card):
+    """(a) the train step at batch 10 (the train cell) with the residuals kept
+    (the defaults) and recomputed, each setting twice, alternating: s/step,
+    peak memory, launches; the first loss bit for bit; the updated
+    parameters of the two settings within the spread of two runs of one."""
+    from eeg2video_tpu_torch.train import videodiffusion as vd
+
+    g = torch.Generator(device="cuda").manual_seed(21)
+    post = torch.cat([torch.randn(TRAIN_BATCH, 6, 36, 64, 4, generator=g, device="cuda"),
+                      -4.0 + 0.1 * torch.randn(TRAIN_BATCH, 6, 36, 64, 4, generator=g,
+                                               device="cuda")], dim=-1)
+    ctx = torch.randn(TRAIN_BATCH, 77, 768, generator=g, device="cuda")
+    runs = [(name, _residual_run(torch, build, vd, post, ctx, save))
+            for name, save in RESIDUAL_RUNS]
+    expected = {"saved": EXPECTED_PER_TRAIN_STEP,
+                "recompute": {**EXPECTED_PER_TRAIN_STEP, **_RECOMPUTE_STEP}}
+    for name, r in runs:
+        med = statistics.median(r["secs"][1:])
+        ok = all(launched == expected[name] for launched in r["launches"])
+        say(f"saved residuals (a): {name}, UNet3DConfig() at batch {TRAIN_BATCH}, levels 0-1 "
+            f"recomputed: s/step {med:.4f} (median of {len(r['secs']) - 1} after a warm-up, "
+            f"each {[round(s, 4) for s in r['secs']]}), peak {r['peak']:.2f} GiB (the "
+            f"recomputing step's {ADAMW_TRAIN_PEAK_GIB} GiB in PERF.md §5), losses "
+            f"{[round(float(x), 6) for x in r['losses']]}, launches a step "
+            f"{_nonzero(r['launches'][-1])} [{card}] {'ok' if ok else 'FAILED'}")
+        if not ok:
+            fail(f"saved residuals: the {name} step launched "
+                 f"{[_nonzero(x) for x in r['launches']]}, expected {_nonzero(expected[name])}")
+    (_, s1), (_, r1), (_, s2), (_, r2) = runs
+    same_loss = all(torch.equal(r["losses"][0], s1["losses"][0]) for _, r in runs)
+    spread = [_masters_gap(s1["masters"], s2["masters"]), _masters_gap(r1["masters"],
+                                                                      r2["masters"])]
+    cross = [_masters_gap(s1["masters"], r1["masters"]), _masters_gap(s2["masters"],
+                                                                     r2["masters"])]
+    spread_max, spread_mean = max(x[0] for x in spread), max(x[1] for x in spread)
+    cross_max, cross_mean = max(x[0] for x in cross), max(x[1] for x in cross)
+    ok = same_loss and (cross_max <= SPREAD_FACTOR * spread_max
+                        and cross_mean <= SPREAD_FACTOR * spread_mean)
+    saved_s = statistics.median(s1["secs"][1:] + s2["secs"][1:])
+    again_s = statistics.median(r1["secs"][1:] + r2["secs"][1:])
+    say(f"saved residuals (a): first-step loss bit for bit in all four runs: {same_loss}; "
+        f"after {RESIDUAL_STEPS} steps the trainable parameters of saved vs recompute differ by "
+        f"max {cross_max:.3e} / mean {cross_mean:.3e}, two runs of one setting by max "
+        f"{spread_max:.3e} / mean {spread_mean:.3e} (bound {SPREAD_FACTOR}x); s/step saved "
+        f"{saved_s:.4f} vs recompute {again_s:.4f} ({(again_s - saved_s) * 1e3:.1f} ms a step), "
+        f"peak {max(s1['peak'], s2['peak']):.2f} vs {max(r1['peak'], r2['peak']):.2f} GiB "
+        f"[{card}] {'ok' if ok else 'FAILED'}")
+    if not ok:
+        fail("saved residuals: the loss differs, or saving moved the parameters further than "
+             "two runs of one setting differ")
+    launches = {k: sum(x[k] for x in s1["launches"][1:]) for k in EXPECTED_PER_TRAIN_STEP}
+    recompute = {k: sum(x[k] for x in r1["launches"][1:]) for k in EXPECTED_PER_TRAIN_STEP}
+    return launches, recompute
+
+
+def _translated_clips(torch, n, frames, h, w, seed):
+    """n uint8 clips (n, frames, h, w, 3) of a smooth random field, clip i
+    moving by ((i % 5) - 2, (i // 5) % 3 - 1) pixels a frame; and the
+    moves."""
+    pad = 2 * frames + 2
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    coarse = torch.rand(n, 1, (h + 2 * pad) // 8 + 1, (w + 2 * pad) // 8 + 1, generator=g,
+                        device="cuda")
+    field = torch.nn.functional.interpolate(coarse, scale_factor=8, mode="bicubic",
+                                            align_corners=False)[:, 0].clamp(0, 1)
+    moves = [((i % 5) - 2, (i // 5) % 3 - 1) for i in range(n)]
+    out = torch.empty(n, frames, h, w, dtype=torch.uint8, device="cuda")
+    for i, (dx, dy) in enumerate(moves):
+        for k in range(frames):
+            y0, x0 = pad - k * dy, pad - k * dx
+            out[i, k] = (field[i, y0:y0 + h, x0:x0 + w] * 255).to(torch.uint8)
+    return out[..., None].expand(n, frames, h, w, 3).contiguous(), moves
+
+
+def _phase_flow_block(torch, card):
+    """(b) ``score_clips`` on one block at full size: seconds a block, the
+    level-0 Jacobi iteration's bytes bound, and 4 clips against the CPU."""
+    import numpy as np
+
+    from eeg2video_tpu_torch.data.optical_flow import score_clips
+
+    clips, moves = _translated_clips(torch, FLOW_CLIPS, 6, 288, 512, 31)
+    frames = clips.cpu().numpy()
+    del clips
+    score_clips(frames[:FLOW_CHUNK], chunk=FLOW_CHUNK)  # warm-up: the allocator's first chunk
+    t0 = _sync_clock(torch)
+    scores = score_clips(frames, chunk=FLOW_CHUNK)
+    block_s = _sync_clock(torch) - t0
+    t0 = time.perf_counter()
+    cpu = score_clips(frames[:FLOW_CPU_CLIPS], chunk=FLOW_CPU_CLIPS, device="cpu")
+    cpu_s = time.perf_counter() - t0
+    rel = float(np.max(np.abs(scores[:FLOW_CPU_CLIPS] - cpu) / np.maximum(np.abs(cpu), 1e-12)))
+    speed = np.array([np.hypot(dx, dy) for dx, dy in moves])
+    static = float(scores[speed == 0].max())
+    corr = float(np.corrcoef(speed, scores)[0, 1])
+    pairs = FLOW_CLIPS * 5
+    # one Jacobi iteration at level 0 reads du, dv, Ix, Iy, It and the
+    # denominator and writes du, dv: 8 float32 images a frame pair
+    it_bytes = 8 * 4 * 288 * 512 * pairs
+    it_bound = it_bytes / PEAK_BYTES
+    loop_bound = 100 * it_bound * (1 + 1 / 4 + 1 / 16)  # 100 iterations at 3 levels
+    ok = np.isfinite(scores).all() and rel <= FLOW_RTOL and static < 0.05 and corr > 0.9
+    say(f"flow (b): score_clips on {FLOW_CLIPS} clips of 6 x 288 x 512 (one block), chunk "
+        f"{FLOW_CHUNK}, 3 levels x 100 iterations: {block_s:.3f} s a block "
+        f"({block_s / pairs * 1e3:.3f} ms a frame pair); one level-0 Jacobi iteration moves "
+        f"{it_bytes / 1e9:.3f} GB, bound {it_bound * 1e3:.3f} ms at {PEAK_BYTES / 1e12} TB/s, "
+        f"the 300 iterations' bound {loop_bound:.3f} s a block; static clips score at most "
+        f"{static:.2e}, correlation of score and shift {corr:.3f}; {FLOW_CPU_CLIPS} clips on the "
+        f"host's CPU ({cpu_s:.1f} s) within {rel:.2e} relative (bound {FLOW_RTOL}) [{card}] "
+        f"{'ok' if ok else 'FAILED'}")
+    if not ok:
+        fail("flow: scores disagree with the CPU, or do not follow the known motion")
+    return block_s
+
+
+def _phase_pixel_metrics(torch, card):
+    """(c) SSIM, MSE, PSNR and hue over 1200 frame pairs at 288x512, the
+    first 12 against the CPU."""
+    import numpy as np
+
+    from eeg2video_tpu_torch.eval import metrics
+
+    gt, _ = _translated_clips(torch, METRIC_FRAMES // 6, 6, 288, 512, 41)
+    g = torch.Generator(device="cuda").manual_seed(42)
+    noise = torch.randn(gt.shape, generator=g, device="cuda") * 12
+    pred = (gt.float() + noise).clamp(0, 255).to(torch.uint8)
+    gt, pred = (t.reshape(METRIC_FRAMES, 288, 512, 3).cpu().numpy() for t in (gt, pred))
+    del noise
+    fns = {"ssim": metrics.ssim_frames, "mse": metrics._mse, "psnr": metrics._psnr,
+           "hue": metrics._hue}
+    line, worst, ok = [], {}, True
+    for name, fn in fns.items():
+        t0 = _sync_clock(torch)
+        vals = metrics.per_frame(fn, pred, gt)
+        secs = _sync_clock(torch) - t0
+        want = metrics.per_frame(fn, pred[:METRIC_CPU_FRAMES], gt[:METRIC_CPU_FRAMES],
+                                 device="cpu")
+        got = vals[:METRIC_CPU_FRAMES]
+        err = (np.abs(got - want).max() if name == "ssim"
+               else (np.abs(got - want) / np.abs(want)).max())
+        worst[name] = float(err)
+        ok = ok and np.isfinite(vals).all() and err <= METRIC_BOUND
+        line.append(f"{name} {secs:.3f} s (mean {vals.mean():.5f})")
+    say(f"metrics (c): {METRIC_FRAMES} frame pairs of 288 x 512 from the host, 50 a pass on the "
+        f"card: {', '.join(line)}; the first {METRIC_CPU_FRAMES} against the CPU, worst "
+        f"{worst} (bound {METRIC_BOUND}, SSIM absolute) [{card}] {'ok' if ok else 'FAILED'}")
+    if not ok:
+        fail("metrics: the card disagrees with the CPU")
+
+
+def _phase_eval_clis(torch, card, tmp):
+    """(d) the gif stage where cv2 can write the block video, then
+    compute_optical_flow and run_metrics on its GIFs; the GIF decoding timed
+    apart (``load_gif`` is Python)."""
+    import numpy as np
+
+    from eeg2video_tpu_torch.cli import compute_optical_flow, extract_gif, run_metrics
+    from eeg2video_tpu_torch.data import meta
+    from eeg2video_tpu_torch.data.native import write_gif_native
+    from eeg2video_tpu_torch.data.video import load_gif
+
+    d = lambda *p: os.path.join(tmp, *p)  # noqa: E731
+    os.makedirs(d("video"))
+    per_concept = (meta.BASELINE_SEC + meta.N_REPS * meta.CLIP_SEC) * meta.VIDEO_FPS
+    clips, _ = _translated_clips(torch, 1, per_concept, 288, 512, 51)
+    frames = clips[0].cpu().numpy()  # (312, 288, 512, 3): one concept's hint and 5 clips
+    wrote = False
+    try:
+        import cv2
+
+        vw = cv2.VideoWriter(d("video", "1.mp4"), cv2.VideoWriter_fourcc(*"mp4v"),
+                             meta.VIDEO_FPS, (512, 288))
+        wrote = vw.isOpened()
+        if wrote:
+            for f in frames:
+                vw.write(f[..., ::-1].copy())
+            vw.release()
+        why = "cv2 could not open an mp4v writer"
+    except ImportError:
+        why = "cv2 is not installed"
+    if wrote:
+        t0 = time.perf_counter()
+        written = extract_gif.main(["--video_dir", d("video"), "--out_root", d("gifs"),
+                                    "--blocks", "0"])
+        gif_s = time.perf_counter() - t0
+        ok = written == {0: [0, 1, 2, 3, 4]}
+        say(f"clis (d): the gif stage, extract_gif on one concept's 312-frame 288 x 512 mp4: "
+            f"{gif_s:.2f} s -> {written} {'ok' if ok else 'FAILED'}")
+        if not ok:
+            fail("clis: extract_gif wrote the wrong clips")
+    else:
+        say(f"clis (d): the gif stage was not run: {why}; its GIFs are written directly")
+        os.makedirs(d("gifs", "Block0"))
+        for i in range(5):
+            write_gif_native(d("gifs", "Block0", f"{i}.gif"),
+                             frames[72 + 48 * i: 72 + 48 * (i + 1): 8], 333)
+    names = [d("gifs", "Block0", f"{i}.gif") for i in range(5)]
+    t0 = time.perf_counter()
+    gifs = [load_gif(p) for p in names]
+    decode_s = time.perf_counter() - t0
+    t0 = _sync_clock(torch)
+    table = compute_optical_flow.main(["--gif_dir", d("gifs"), "--out", d("flow.npy"),
+                                       "--blocks", "1"])
+    flow_s = _sync_clock(torch) - t0
+    # run_metrics: the GIFs as ground truth (named as block 6's class order
+    # finds them), noisy copies as predictions
+    os.makedirs(d("pred"))
+    os.makedirs(d("gt"))
+    order = run_metrics.gt_order()
+    rng = np.random.default_rng(52)
+    for i, clip in enumerate(gifs):
+        write_gif_native(d("gt", f"{int(order[i])}.gif"), clip, 333)
+        noisy = np.clip(clip + rng.normal(0, 10, clip.shape), 0, 255).astype(np.uint8)
+        write_gif_native(d("pred", f"{i}.gif"), noisy, 333)
+    t0 = _sync_clock(torch)
+    res = run_metrics.main(["--pred_dir", d("pred"), "--gt_dir", d("gt"), "--n_clips", "5",
+                            "--out", d("metrics.json")])
+    metrics_s = _sync_clock(torch) - t0
+    ok = (table.shape == (1, 5) and np.isfinite(table).all()
+          and all(np.isfinite(v) for v in res.values()) and 0 < res["ssim"] < 1)
+    say(f"clis (d): 5 GIFs of 6 x 288 x 512: load_gif {decode_s:.2f} s for the 5 (Python); "
+        f"compute_optical_flow {flow_s:.2f} s with its own decoding -> {np.round(table, 3)}; "
+        f"run_metrics on 5 predicted + 5 ground-truth GIFs {metrics_s:.2f} s with its decoding "
+        f"-> ssim {res['ssim']:.4f} psnr {res['psnr']:.2f} [{card}] {'ok' if ok else 'FAILED'}")
+    if not ok:
+        fail("clis: compute_optical_flow or run_metrics gave a malformed result")
+
+
+def _phase_native_loader(torch, card, tmp):
+    """(e) ``NpyBatchLoader`` (numpy's memory map) gathers on a ~1 GB float32
+    .npy (warm in the page cache: just written), a first and a second pass,
+    raw and normalized, held to the array in memory; and whether the clip
+    decoder builds here."""
+    import numpy as np
+
+    from eeg2video_tpu_torch.data import native
+
+    path = os.path.join(tmp, "windows.npy")
+    g = torch.Generator(device="cuda").manual_seed(61)
+    arr = torch.randn(NPY_ROWS, NPY_ROW, generator=g, device="cuda").cpu().numpy()
+    np.save(path, arr)
+    loader = native.NpyBatchLoader(path)
+    rng = np.random.default_rng(62)
+    batches = [rng.integers(0, NPY_ROWS, NPY_BATCH) for _ in range(NPY_BATCHES)]
+    mean, std = np.zeros(NPY_ROW, np.float32), np.full(NPY_ROW, 2.0, np.float32)
+
+    def rate(fn):
+        t0 = time.perf_counter()
+        for idx in batches:
+            out = fn(idx)
+        return NPY_BATCH * NPY_BATCHES * NPY_ROW * 4 / (time.perf_counter() - t0) / 1e9, out
+
+    # a first pass touches each row's pages in that mapping for the first
+    # time (the page faults of a new mapping); the second finds them mapped,
+    # as an epoch after the first does
+    rates = {}
+    rates["gather first"], _ = rate(loader.gather)
+    rates["gather again"], out = rate(loader.gather)
+    rates["gather_normalized"], norm = rate(lambda i: loader.gather_normalized(i, mean, std))
+    last = arr[batches[-1]]
+    ok = np.array_equal(out, last) and np.array_equal(norm, (last - mean) / std)
+    say(f"loader (e): NpyBatchLoader on a {os.path.getsize(path) / 1e9:.2f} GB float32 .npy "
+        f"({NPY_ROWS} x {NPY_ROW}, warm in the page cache), {NPY_BATCHES} batches of "
+        f"{NPY_BATCH} random rows, GB/s: "
+        f"{', '.join(f'{k} {v:.2f}' for k, v in rates.items())} (first: the mapping's first "
+        f"touch of those rows); rows and normalized rows equal to the array's: {ok} "
+        f"({os.cpu_count()} cores) [{card}] {'ok' if ok else 'FAILED'}")
+    loader.close()
+    if not ok:
+        fail("loader: NpyBatchLoader disagrees with the array it was saved from")
+    try:
+        native.video_library()
+        say("loader (e): the clip decoder (csrc/video_decoder.cpp) built against opencv4")
+    except RuntimeError as e:
+        say(f"loader (e): the clip decoder was not built or run here: "
+            f"{str(e).splitlines()[0]}")
+
+
+def phase_section12(torch, build, card):
+    """Section 12: (a) the train step with the residuals kept and recomputed;
+    (b) optical-flow scoring of one block; (c) the pixel metrics; (d) the gif
+    stage and the evaluation CLIs; (e) the .npy loader. Returns the
+    launches of (a)'s two settings (3 timed steps of one run each)."""
+    t_section = time.perf_counter()
+    torch.cuda.empty_cache()
+    saved, recompute = _phase_saved_residuals(torch, build, card)
+    _phase_flow_block(torch, card)
+    _phase_pixel_metrics(torch, card)
+    with tempfile.TemporaryDirectory(prefix="e2v_eval_") as tmp:
+        _phase_eval_clis(torch, card, tmp)
+        _phase_native_loader(torch, card, tmp)
+    say(f"section 12: {time.perf_counter() - t_section:.1f} s")
+    return {"train_saved": saved, "train_recompute": recompute}
+
+
 # device kernels of a train step or a generation forward, grouped by what
 # launched them (substrings of the kernel names; the port's own kernels first)
 _KERNEL_GROUPS = (
@@ -2785,6 +3155,8 @@ def main():
     recipe = phase_recipe(torch, build, smi_line)
     torch.cuda.empty_cache()
     recipe["preprocess"] = phase_front_end(torch, build, smi_line, report)
+    torch.cuda.empty_cache()
+    recipe.update(phase_section12(torch, build, smi_line))
     leaked = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "jaxlib", "flax", "eeg2video_tpu"))
     if leaked:

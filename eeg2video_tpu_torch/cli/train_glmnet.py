@@ -16,8 +16,11 @@ contract (README.md:68-91):
 Writes ``<save_path>/ckpt/train_state_<epochs>.pt`` (the model's state dict,
 in the port's checkpoint format: ``train/checkpoint.py``), which
 ``cli.inference_glmnet`` reads, and ``glmnet_metrics.jsonl``. Dropout draws
-come from a generator keyed by (seed, epoch). ``--device`` defaults to
-``cuda``; the JAX CLI's ``--dp`` (multi-GPU) is refused by name.
+come from a generator keyed by (seed, epoch); the initial parameters from a
+``torch.Generator`` seeded with ``--seed`` (JAX: ``model.init``). The loop is
+``train_glmnet``, which also takes given initial parameters and permutations.
+``--device`` defaults to ``cuda``; the JAX CLI's ``--dp`` (multi-GPU) is
+refused by name.
 """
 
 import argparse
@@ -112,6 +115,73 @@ def build_parser():
     return p
 
 
+def train_glmnet(train, *, emb_dim=256, epochs=100, batch_size=256, lr=1e-3, min_lr=1e-5,
+                 scheduler="cosine", seed=0, device="cuda", init_params=None, perms=None,
+                 metrics=None):
+    """Train GLMNet on the ``train`` split of ``prepare_glmnet_data``: whole
+    shuffled epochs of AdamW (optax.adamw's defaults, weight decay 1e-4), the
+    learning rate from ``make_lr_schedule``, the plateau rule between epochs,
+    BatchNorm statistics updated in train mode. Returns the model (train
+    mode) and each epoch's summed loss.
+
+    ``init_params`` (a state dict in the port's keys) replaces the draw from
+    a ``torch.Generator`` seeded with ``seed``; ``perms`` ((epochs, n) ints)
+    replaces the epochs' permutations from ``np.random.default_rng(seed)``,
+    JAX's own."""
+    device = resolve_device(device)
+    model = make_encoder("glmnet", out_dim=40, emb_dim=emb_dim).to(device)
+    if init_params is None:
+        lecun_init_(model, torch.Generator(device=device).manual_seed(seed))
+    else:
+        model.load_state_dict({k: torch.as_tensor(v) for k, v in init_params.items()})
+    xr, xf, y = (torch.as_tensor(a, device=device) for a in train)
+    y = y.long()
+    n = len(y)
+    if n < batch_size:
+        log.info("batch_size %d > %d samples; clamping", batch_size, n)
+        batch_size = n
+    bs = batch_size
+    n_batches = max(n // bs, 1)
+    sched = make_lr_schedule(scheduler, lr, min_lr, epochs * n_batches)
+    opt = torch.optim.AdamW(model.parameters(), lr=sched(0), betas=(0.9, 0.999), eps=1e-8,
+                            weight_decay=1e-4)  # optax.adamw's defaults
+    rng = np.random.default_rng(seed)
+    plateau_best, plateau_wait, lr_scale = np.inf, 0, 1.0
+    step, losses = 0, []
+    model.train()
+    for epoch in range(epochs):
+        set_dropout_generator(model, torch.Generator(device=device).manual_seed(
+            (seed << 20) + epoch))
+        order = rng.permutation(n) if perms is None else np.asarray(perms[epoch])
+        perm = torch.as_tensor(order[: n_batches * bs], device=device)
+        ep = torch.zeros((), device=device)
+        for idx in perm.view(n_batches, bs):
+            set_lr(opt, sched(step) * lr_scale)
+            loss = F.cross_entropy(model(xr[idx], xf[idx]), y[idx])
+            opt.zero_grad(set_to_none=True)
+            loss.backward()
+            opt.step()
+            ep += loss.detach()
+            step += 1
+        ep = float(ep)  # one host synchronization an epoch
+        losses.append(ep)
+        if scheduler == "reducelronplateau":
+            if ep < plateau_best - 1e-4:
+                plateau_best, plateau_wait = ep, 0
+            else:
+                plateau_wait += 1
+                if plateau_wait >= PLATEAU_PATIENCE:
+                    # torch ReduceLROnPlateau keeps the optimizer's moments
+                    lr_scale = max(lr_scale * PLATEAU_FACTOR, min_lr / lr)
+                    plateau_wait = 0
+                    log.info("plateau: lr -> %.2e", lr * lr_scale)
+        if metrics is not None:
+            metrics.log(epoch, train_loss=ep)
+        if (epoch + 1) % 10 == 0:
+            log.info("epoch %d loss %.4f", epoch + 1, ep)
+    return model, losses
+
+
 def main(argv=None):
     p = build_parser()
     args = p.parse_args(argv)
@@ -126,52 +196,11 @@ def main(argv=None):
     os.makedirs(args.save_path, exist_ok=True)
     np.savez(os.path.join(args.save_path, "norm_stats.npz"), **stats)
 
-    model = make_encoder("glmnet", out_dim=40, emb_dim=args.emb_dim).to(device)
-    lecun_init_(model, torch.Generator(device=device).manual_seed(args.seed))
-    xr, xf, y = (torch.as_tensor(a, device=device) for a in data["train"])
-    y = y.long()
-    n = len(y)
-    if n < args.batch_size:
-        log.info("batch_size %d > %d samples; clamping", args.batch_size, n)
-        args.batch_size = n
-    bs = args.batch_size
-    n_batches = max(n // bs, 1)
-    sched = make_lr_schedule(args.scheduler, args.lr, args.min_lr, args.epochs * n_batches)
-    opt = torch.optim.AdamW(model.parameters(), lr=sched(0), betas=(0.9, 0.999), eps=1e-8,
-                            weight_decay=1e-4)  # optax.adamw's defaults
-
     metrics = MetricsLogger(args.save_path, run_name="glmnet")
-    rng = np.random.default_rng(args.seed)
-    plateau_best, plateau_wait, lr_scale = np.inf, 0, 1.0
-    step = 0
-    model.train()
-    for epoch in range(args.epochs):
-        set_dropout_generator(model, torch.Generator(device=device).manual_seed(
-            (args.seed << 20) + epoch))
-        perm = torch.as_tensor(rng.permutation(n)[: n_batches * bs], device=device)
-        ep = torch.zeros((), device=device)
-        for idx in perm.view(n_batches, bs):
-            set_lr(opt, sched(step) * lr_scale)
-            loss = F.cross_entropy(model(xr[idx], xf[idx]), y[idx])
-            opt.zero_grad(set_to_none=True)
-            loss.backward()
-            opt.step()
-            ep += loss.detach()
-            step += 1
-        ep = float(ep)  # one host synchronization an epoch
-        if args.scheduler == "reducelronplateau":
-            if ep < plateau_best - 1e-4:
-                plateau_best, plateau_wait = ep, 0
-            else:
-                plateau_wait += 1
-                if plateau_wait >= PLATEAU_PATIENCE:
-                    # torch ReduceLROnPlateau keeps the optimizer's moments
-                    lr_scale = max(lr_scale * PLATEAU_FACTOR, args.min_lr / args.lr)
-                    plateau_wait = 0
-                    log.info("plateau: lr -> %.2e", args.lr * lr_scale)
-        metrics.log(epoch, train_loss=ep)
-        if (epoch + 1) % 10 == 0:
-            log.info("epoch %d loss %.4f", epoch + 1, ep)
+    model, _ = train_glmnet(data["train"], emb_dim=args.emb_dim, epochs=args.epochs,
+                            batch_size=args.batch_size, lr=args.lr, min_lr=args.min_lr,
+                            scheduler=args.scheduler, seed=args.seed, device=device,
+                            metrics=metrics)
     metrics.close()
     save_train_state(os.path.join(args.save_path, "ckpt"), args.epochs, model)
 

@@ -103,6 +103,9 @@ def build_parser():
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("--config", default=None, help="YAML config (reference schema)")
     p.add_argument("--video_dir", default="./data/Video_mp4/Block0")
+    p.add_argument("--captions", default="./data/BLIP/1st_10min.txt",
+                   help="accepted for the JAX CLI's command lines and unused, as there: "
+                        "the captions reach training as --text_embeddings")
     p.add_argument("--text_embeddings", default="./data/Text_embeddings/block0.pt",
                    help="precomputed CLIP caption embeddings (200, 77, 768)")
     p.add_argument("--unet_torch", default=None,

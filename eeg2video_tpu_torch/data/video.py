@@ -1,14 +1,21 @@
-"""Video IO: GIF output of the serving path (grid writer, encoders,
-background writer threads, a GIF reader) and the training clip loader.
+"""Video IO: block-video -> per-clip GIF extraction (the ``gif`` stage),
+the training clip loader, GIF output of the serving path (grid writer,
+encoders, background writer threads) and a GIF reader.
 
-Counterpart of ``eeg2video_tpu/data/video.py`` (``read_video_frames``,
-``VideoClipDataset``, ``save_videos_grid``, ``_write_gif_fast``,
-``AsyncVideoWriter``, ``dispatch_ahead``, ``load_gif``; :37-59, 109-162,
-165-267). The block-video extraction there is not ported yet, and
-``VideoClipDataset.load_all`` decodes clip by clip with cv2 (the JAX
-package's C++ thread-pool decoder is not ported). Two differences: ``encoder="native"`` encodes or
-raises (it never gives way to ``fast``), and ``load_gif`` decodes GIFs itself,
-so reading a GIF back needs neither imageio nor Pillow.
+Counterpart of ``eeg2video_tpu/data/video.py`` (``clip_frame_schedule``,
+``read_video_frames``, ``extract_gifs_from_block``, ``VideoClipDataset``,
+``save_videos_grid``, ``_write_gif_fast``, ``AsyncVideoWriter``,
+``dispatch_ahead``, ``load_gif``). Differences:
+``extract_gifs_from_block`` writes its GIFs with the native encoder (JAX:
+imageio), so it needs cv2 to read the block video and nothing else;
+``VideoClipDataset.load_all`` decodes clip by clip with cv2, which needs
+only the Python package, where JAX takes the C++ decoder
+(``native.decode_clips``: ported, but it links opencv4's development files,
+which a host with only the Python package lacks); it raises on a clip
+shorter than asked for, as ``__getitem__`` does, where JAX's zero-pads it;
+``encoder="native"`` encodes or raises (it never gives way to ``fast``);
+and ``load_gif`` decodes GIFs itself, so reading a GIF back needs neither
+imageio nor Pillow.
 """
 
 from __future__ import annotations
@@ -16,6 +23,18 @@ from __future__ import annotations
 import os
 
 import numpy as np
+
+from . import meta
+
+
+def clip_frame_schedule(fps: int = meta.VIDEO_FPS, n_concepts: int = meta.N_CONCEPTS,
+                        reps: int = meta.N_REPS):
+    """Per-frame clip id of one block video: 0 for the hint before each
+    concept (discarded), 1..reps for its clips (reference extract_gif.py:42-45)."""
+    per_concept = [0] * (meta.BASELINE_SEC * fps)
+    for rep in range(1, reps + 1):
+        per_concept += [rep] * (meta.CLIP_SEC * fps)
+    return np.tile(np.asarray(per_concept, np.int32), n_concepts)
 
 
 def _cv2():
@@ -49,6 +68,46 @@ def read_video_frames(path: str, resize_hw=None):
         return np.stack(frames)
     h, w = resize_hw if resize_hw is not None else (0, 0)
     return np.zeros((0, h, w, 3), np.uint8)
+
+
+def extract_gifs_from_block(video_path: str, out_dir: str, height: int = meta.GIF_HEIGHT,
+                            width: int = meta.GIF_WIDTH, take_every: int = 8,
+                            duration: float = 0.333):
+    """One block video -> a GIF per clip (reference extract_gif.py): walk the
+    frames along ``clip_frame_schedule``, convert BGR -> RGB, resize to
+    (width, height), and of each clip's frames keep every ``take_every``-th,
+    the first ``meta.GIF_FRAMES`` of them, written as ``{clip_index}.gif``
+    in presentation order, ``duration`` seconds a frame. Returns the written
+    indices."""
+    from .native import write_gif_native
+
+    cv2 = _cv2()
+    os.makedirs(out_dir, exist_ok=True)
+    schedule = clip_frame_schedule()
+    written, clip_frames = [], []
+
+    def flush():
+        sel = np.stack(clip_frames[::take_every][:meta.GIF_FRAMES])
+        write_gif_native(os.path.join(out_dir, f"{len(written)}.gif"), sel, duration * 1000.0)
+        written.append(len(written))
+
+    cap = cv2.VideoCapture(video_path)
+    prev_id = 0
+    for cid in schedule:
+        ok, frame = cap.read()
+        if not ok:
+            break
+        if cid != prev_id and clip_frames:
+            flush()
+            clip_frames = []
+        if cid > 0:
+            rgb = cv2.cvtColor(frame, cv2.COLOR_BGR2RGB)
+            clip_frames.append(cv2.resize(rgb, (width, height)))
+        prev_id = cid
+    cap.release()
+    if clip_frames:
+        flush()
+    return written
 
 
 class VideoClipDataset:
@@ -86,8 +145,9 @@ class VideoClipDataset:
         return {"pixel_values": clip, "prompt_ids": self.prompt_ids[i]}
 
     def load_all(self):
-        """Decode every clip once: (N, F, H, W, 3) float32 in [-1, 1] and the
-        prompt ids, for the resident-dataset trainer."""
+        """Decode every clip once, clip by clip with cv2 as ``__getitem__``
+        does: (N, F, H, W, 3) float32 in [-1, 1] and the prompt ids, for the
+        resident-dataset trainer."""
         pixels = np.stack([self[i]["pixel_values"] for i in range(len(self))])
         return pixels, self.prompt_ids
 

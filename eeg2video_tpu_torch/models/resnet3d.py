@@ -18,6 +18,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops import residuals
 from ..ops.conv2d import conv3x3_gn_silu, eligible as conv_eligible
 
 
@@ -161,6 +162,9 @@ class ResnetBlock3D(nn.Module):
     conv_shortcut run as per-half convs summed, so the concat never exists
     (resnet3d.py:243-279). Where conv1 and conv2 both take the kernel, conv1
     also emits the output statistics that feed norm2 (resnet3d.py:297-321).
+    On the library path conv1 (with the time embedding added) and conv2 are
+    ``resnet_conv`` regions (``ops.residuals``): a recomputed block that keeps
+    them does not run them again (resnet3d.py:296, :336, :356).
     """
 
     def __init__(self, in_channels, out_channels, temb_channels, groups=32,
@@ -176,9 +180,8 @@ class ResnetBlock3D(nn.Module):
         self.conv_shortcut = (PseudoConv3d(in_channels, out_channels, 1)
                               if in_channels != out_channels else None)
 
-    def _gn_silu_conv(self, x, norm, conv, train):
-        h = F.silu(group_norm(x, self.groups, norm.weight, norm.bias, self.eps))
-        return conv(h, train)
+    def _gn_silu(self, x, norm):
+        return F.silu(group_norm(x, self.groups, norm.weight, norm.bias, self.eps))
 
     def forward(self, x, temb, skip=None, train=False):
         b, f, hh, ww, cx = x.shape
@@ -202,14 +205,16 @@ class ResnetBlock3D(nn.Module):
                                      _per_frame(sh1s, f))
                 h = (ha + hb).unflatten(0, (b, f))
             else:
-                def half(tens, sc, sh, w_half):
-                    a = F.silu(tens.float() * sc[:, None, None, None, :]
-                               + sh[:, None, None, None, :]).to(x.dtype)
-                    return conv2d_frames(a, w_half, None, train=train).flatten(0, 1)
+                def act(tens, sc, sh):
+                    return F.silu(tens.float() * sc[:, None, None, None, :]
+                                  + sh[:, None, None, None, :]).to(x.dtype)
 
-                h = half(x, s1x, sh1x, w1[:, :cx]) + half(skip, s1s, sh1s, w1[:, cx:])
-                h = (h.float() + b1.float()).to(x.dtype).unflatten(0, (b, f))
-                h = h + t[:, None, None, None, :].to(h.dtype)
+                ax, askip = act(x, s1x, sh1x), act(skip, s1s, sh1s)
+                with residuals.region(residuals.RESNET_CONV, "resnet_conv"):
+                    h = (conv2d_frames(ax, w1[:, :cx], None, train=train).flatten(0, 1)
+                         + conv2d_frames(askip, w1[:, cx:], None, train=train).flatten(0, 1))
+                    h = (h.float() + b1.float()).to(x.dtype).unflatten(0, (b, f))
+                    h = h + t[:, None, None, None, :].to(h.dtype)
         elif not train and conv_eligible(hh, ww, cx, cout, x.dtype):
             s1, sh1 = gn_affine(x, self.norm1.weight, self.norm1.bias, g, eps)
             res = conv3x3_gn_silu(x.flatten(0, 1), w1, b1, _per_frame(s1, f),
@@ -218,8 +223,9 @@ class ResnetBlock3D(nn.Module):
             h, conv1_stats = res if use2 else (res, None)
             h = h.unflatten(0, (b, f))
         else:
-            h = self._gn_silu_conv(x, self.norm1, self.conv1, train)
-            h = h + t[:, None, None, None, :]
+            a = self._gn_silu(x, self.norm1)
+            with residuals.region(residuals.RESNET_CONV, "resnet_conv"):
+                h = self.conv1(a, train) + t[:, None, None, None, :]
 
         if use2:
             if conv1_stats is not None:
@@ -232,7 +238,9 @@ class ResnetBlock3D(nn.Module):
                                 self.conv2.bias, _per_frame(s2, f),
                                 _per_frame(sh2, f)).unflatten(0, (b, f))
         else:
-            h = self._gn_silu_conv(h, self.norm2, self.conv2, train)
+            a = self._gn_silu(h, self.norm2)
+            with residuals.region(residuals.RESNET_CONV, "resnet_conv"):
+                h = self.conv2(a, train)
 
         if skip is not None:
             ws = self.conv_shortcut.weight.flatten(1)

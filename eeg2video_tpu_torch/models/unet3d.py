@@ -10,9 +10,15 @@ Parameter names are the diffusers / reference key space.
 H*W >= ``remat_min_hw`` tokens per frame are recomputed in the backward
 (``torch.utils.checkpoint``, non-reentrant) instead of keeping their
 activations, as ``unet3d.py:139-154`` of the JAX package wraps them in
-``nn.remat``. A recomputed block is recomputed whole; the JAX policy of
-saving ``resnet_conv``, ``flash_out`` and ``ff_out`` inside it is not
-carried over (it changes speed, not results).
+``nn.remat``. Inside a recomputed block the values of JAX's policy
+(``save_only_these_names``, unet3d.py:139-154 there) are kept and the rest is
+recomputed: with ``remat_save_attn`` the attention kernels' out and lse, the
+temporal forward's output and the feed-forward kernels' outputs
+(``flash_out``, ``ff_out``), with ``remat_save_convs`` each resnet's conv1
+(with the time embedding added) and conv2 outputs (``resnet_conv``); both
+default to True, as in JAX. ``ops.residuals`` records them in the forward
+and hands them back in the recomputation, so no saved forward runs twice.
+The results are the same with or without them.
 """
 
 from __future__ import annotations
@@ -26,6 +32,7 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from ..ops import residuals
 from .resnet3d import PseudoConv3d, group_norm
 from .unet_blocks import (CrossAttnDownBlock3D, CrossAttnUpBlock3D,
                           DownBlock3D, UNetMidBlock3DCrossAttn, UpBlock3D)
@@ -120,13 +127,16 @@ class UNet3DConditionModel(nn.Module):
         self.conv_out = PseudoConv3d(chs[0], cfg.out_channels, 3, padding=1)
 
     def forward(self, sample, timesteps, context, attention_mask=None, train=False,
-                remat=False, remat_min_hw=0):
+                remat=False, remat_min_hw=0, remat_save_convs=True, remat_save_attn=True):
         cfg = self.config
+        kept = ((residuals.RESNET_CONV,) if remat_save_convs else ()) + (
+            (residuals.FLASH_OUT, residuals.FF_OUT) if remat_save_attn else ())
 
         def run(blk, x, *args):
             if train and remat and x.shape[2] * x.shape[3] >= remat_min_hw:
+                kw = {"context_fn": lambda: residuals.checkpoint_contexts(kept)} if kept else {}
                 return checkpoint(blk, x, *args, use_reentrant=False,
-                                  preserve_rng_state=False)
+                                  preserve_rng_state=False, **kw)
             return blk(x, *args)
 
         b = sample.shape[0]

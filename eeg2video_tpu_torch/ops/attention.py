@@ -48,7 +48,7 @@ import math
 
 import torch
 
-from . import _build
+from . import _build, residuals
 
 KERNEL = "flash_attention_fwd"
 KERNEL_BWD = "flash_attention_bwd"
@@ -385,12 +385,15 @@ def flash_attention_bwd(q, k0, v0, heads, dout, out, lse, *, k1=None, v1=None,
 
 
 class _FlashAttention(torch.autograd.Function):
-    """``flash_attention_fwd`` with lse saved, ``flash_attention_bwd`` behind."""
+    """``flash_attention_fwd`` with lse saved, ``flash_attention_bwd`` behind.
+    Its out and lse are the ``flash_out`` residuals of a recomputed block."""
 
     @staticmethod
     def forward(ctx, q, k0, v0, k1, v1, bias0, heads, scale):
-        out, lse = flash_attention_fwd(q, k0, v0, heads, k1=k1, v1=v1, bias0=bias0,
-                                       scale=scale, return_lse=True)
+        out, lse = residuals.forward(
+            residuals.FLASH_OUT, KERNEL,
+            lambda: flash_attention_fwd(q, k0, v0, heads, k1=k1, v1=v1, bias0=bias0,
+                                        scale=scale, return_lse=True))
         ctx.save_for_backward(q, k0, v0, k1, v1, bias0, out, lse)
         ctx.heads, ctx.scale = heads, scale
         return out

@@ -24,7 +24,7 @@ import math
 import torch
 import torch.nn.functional as F
 
-from . import _build
+from . import _build, residuals
 from ._build import aligned16 as _aligned16
 
 FF_MAX_C = 640  # C <= 640 runs the whole block in ff_ln (geglu.py:407)
@@ -367,13 +367,15 @@ def geglu_out_bwd(h2, g, w):
 
 
 class _FFLn(torch.autograd.Function):
-    """``ff_ln`` with ``ff_ln_bwd`` behind for dx."""
+    """``ff_ln`` with ``ff_ln_bwd`` behind for dx; its output is an ``ff_out``
+    residual of a recomputed block."""
 
     @staticmethod
     def forward(ctx, x, gamma, beta, wp, bp, wo, bo, eps):
         ctx.save_for_backward(x, gamma, beta, wp, bp, wo, bo)
         ctx.eps = eps
-        return ff_ln(x, gamma, beta, wp, bp, wo, bo, eps)
+        return residuals.forward(residuals.FF_OUT, "ff_ln",
+                                 lambda: ff_ln(x, gamma, beta, wp, bp, wo, bo, eps))
 
     @staticmethod
     def backward(ctx, g):
@@ -387,12 +389,13 @@ class _FFLn(torch.autograd.Function):
 
 
 class _GegluOut(torch.autograd.Function):
-    """``geglu_out`` with ``geglu_out_bwd`` behind for dh2."""
+    """``geglu_out`` with ``geglu_out_bwd`` behind for dh2; its output is an
+    ``ff_out`` residual of a recomputed block."""
 
     @staticmethod
     def forward(ctx, h2, w, b):
         ctx.save_for_backward(h2, w, b)
-        return geglu_out(h2, w, b)
+        return residuals.forward(residuals.FF_OUT, "geglu_out", lambda: geglu_out(h2, w, b))
 
     @staticmethod
     def backward(ctx, g):

@@ -26,7 +26,7 @@ import math
 
 import torch
 
-from . import _build
+from . import _build, residuals
 
 KERNEL_FWD = "temporal_attention_fwd"
 KERNEL_BWD = "temporal_attention_bwd"
@@ -141,11 +141,16 @@ def temporal_attention_bwd(q, k, v, dout, heads, scale=None):
 
 
 class _TemporalAttention(torch.autograd.Function):
+    """The forward kernel, whose output is a ``flash_out`` residual of a
+    recomputed block (JAX names it so, ops/temporal.py:329), and the backward
+    kernel behind it."""
+
     @staticmethod
     def forward(ctx, q, k, v, heads, scale):
         ctx.save_for_backward(q, k, v)
         ctx.heads, ctx.scale = heads, scale
-        return temporal_attention_fwd(q, k, v, heads, scale)
+        return residuals.forward(residuals.FLASH_OUT, KERNEL_FWD,
+                                 lambda: temporal_attention_fwd(q, k, v, heads, scale))
 
     @staticmethod
     def backward(ctx, dout):

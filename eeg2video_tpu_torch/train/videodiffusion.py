@@ -17,8 +17,8 @@ Counterpart of ``eeg2video_tpu/train/videodiffusion.py``:
   the optimizer step; ``step`` counts micro steps, as JAX's does;
 - bf16 compute with f32 parameters (the reference's fp16 autocast, L99-102,
   L286): see ``TrainState``;
-- gradient checkpointing (reference L154-155): ``remat`` / ``remat_min_hw``,
-  see ``models.unet3d``.
+- gradient checkpointing (reference L154-155): ``remat`` / ``remat_min_hw``
+  / ``remat_save_attn``, see ``models.unet3d``.
 
 Training math (reference L288-319): VAE-encode pixels (or take precomputed
 posteriors), sample the posterior x 0.18215, draw uniform timesteps and
@@ -64,6 +64,10 @@ class VideoDiffusionTrainConfig:
     # (0 = everywhere): at 36x64 latents levels 0 and 1 are recomputed and
     # levels 2, 3 and mid keep their (small) activations
     remat_min_hw: int = 256
+    # keep the attention, temporal and feed-forward kernels' outputs inside a
+    # recomputed block instead of running those forwards again (JAX's
+    # remat_save_attn; the model's remat_save_convs stays at its default, True)
+    remat_save_attn: bool = True
     # False = the reference freeze rule; True = every parameter trains
     train_all: bool = False
     # micro steps per optimizer step (the running mean of their gradients)
@@ -239,7 +243,7 @@ def video_loss(unet, vae, pixels, context, cfg, *, generator=None, t=None, noise
         noise = torch.randn(latents.shape, generator=generator, device=dev)
     noisy = ddpm.add_noise(latents, noise, t)
     pred = unet(noisy.to(dtype), t, context.to(dtype), train=True, remat=cfg.remat,
-                remat_min_hw=cfg.remat_min_hw).float()
+                remat_min_hw=cfg.remat_min_hw, remat_save_attn=cfg.remat_save_attn).float()
     return torch.mean((pred - noise) ** 2)
 
 

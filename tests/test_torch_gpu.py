@@ -1194,3 +1194,90 @@ def test_sos_filtfilt_refuses_what_it_does_not_take(gen):
     with pytest.raises(ValueError, match="must exceed padlen"):
         iir.sos_filtfilt(x[:, :27].contiguous(), sos[:4], bp._sos_zi(sos[:4]), 27)
     assert dict(_build.launches) == before
+
+
+# --- saved residuals and evaluation on the card -------------------------------------
+
+def _narrow_step(save, dtype):
+    """One forward/backward of the fine-tune loss on a narrow UNet (64, 128,
+    128, 128), every block recomputed: the loss, the trainable gradients and
+    the kernels launched."""
+    import functools
+
+    from eeg2video_tpu_torch.models.init import random_init_
+    from eeg2video_tpu_torch.models.unet3d import UNet3DConditionModel, UNet3DConfig
+    from eeg2video_tpu_torch.train import videodiffusion as vd
+
+    g = torch.Generator(device="cuda").manual_seed(7)
+    unet = random_init_(UNet3DConditionModel(UNet3DConfig(block_out_channels=(64, 128, 128, 128)))
+                        .to("cuda"), g)
+    cfg = vd.VideoDiffusionTrainConfig(remat_min_hw=0, remat_save_attn=save,
+                                       compute_dtype="float32" if dtype == torch.float32
+                                       else "bfloat16")
+    state = vd.init_video_train_state(unet, cfg, "cuda")
+    post = torch.randn(2, 6, 16, 16, 8, generator=g, device="cuda") * 0.5
+    ctx = torch.randn(2, 77, 768, generator=g, device="cuda")
+    draws = dict(t=torch.tensor([10, 900], device="cuda"),
+                 noise=torch.randn(2, 6, 16, 16, 4, generator=g, device="cuda"),
+                 eps=torch.randn(12, 16, 16, 4, generator=g, device="cuda"))
+    before = dict(_build.launches)
+    loss = vd.video_loss(functools.partial(state.unet, remat_save_convs=save), None, post, ctx,
+                         cfg, **draws)
+    loss.backward()
+    torch.cuda.synchronize()
+    return loss.detach(), {n: p.grad for n, p in state.working.items()}, _launched(before)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_saved_residuals_launch_each_forward_once_per_call_site(gen, dtype):
+    """The narrow UNet's 16 transformer blocks, all recomputed: with the
+    residuals kept each forward kernel launches once per call site (3
+    attention calls, one feed-forward, one temporal attention a block),
+    without them twice; the loss is the same bits and the gradients agree
+    within the bound of the kernels."""
+    sfx = "_f32" if dtype == torch.float32 else ""
+    loss_s, grads_s, saved = _narrow_step(True, dtype)
+    loss_r, grads_r, again = _narrow_step(False, dtype)
+    for k, sites in (("flash_attention_fwd", 48), ("temporal_attention_fwd", 16)):
+        assert saved[k + sfx] == sites and again[k + sfx] == 2 * sites, (k, saved, again)
+    ff = saved.get("ff_ln" + sfx, 0) + saved.get("geglu_out" + sfx, 0)
+    assert ff == 16 and again.get("ff_ln" + sfx, 0) + again.get("geglu_out" + sfx, 0) == 32
+    for k in ("flash_attention_bwd", "temporal_attention_bwd"):
+        assert saved[k + sfx] == again[k + sfx] == (48 if k.startswith("flash") else 16)
+    assert torch.equal(loss_s, loss_r)
+    for n in grads_s:
+        assert _close(grads_s[n], grads_r[n], F32_BOUND if sfx else BOUND), n
+
+
+@pytest.mark.gpu
+def test_horn_schunck_on_the_card_equals_the_cpu(gen):
+    from eeg2video_tpu_torch.data import optical_flow as flow
+
+    base = torch.nn.functional.interpolate(torch.rand(1, 1, 18, 32, generator=gen, device="cuda"),
+                                           size=(72 + 8, 128 + 8), mode="bilinear")[0, 0]
+    i1 = torch.stack([base[4:76, 4:132]] * 3)
+    i2 = torch.stack([base[4 - dy:76 - dy, 4 - dx:132 - dx] for dx, dy in ((2, 1), (-3, 2), (0, 0))])
+    u, v = flow.horn_schunck(i1, i2)
+    cu, cv = flow.horn_schunck(i1.cpu(), i2.cpu())
+    assert float(u.abs().max()) > 1.0
+    assert float((u.cpu() - cu).abs().max()) < 1e-5 and float((v.cpu() - cv).abs().max()) < 1e-5
+    clips = (torch.stack([torch.stack([base[4:76, 4 + k:132 + k]] * 3, -1) for k in range(4)])
+             * 255).to(torch.uint8)[None].cpu().numpy()
+    got = flow.score_clips(clips, device="cuda")
+    want = flow.score_clips(clips, device="cpu")
+    np.testing.assert_allclose(got, want, rtol=1e-5)
+
+
+@pytest.mark.gpu
+def test_pixel_metrics_on_the_card_equal_the_cpu(gen):
+    from eeg2video_tpu_torch.eval import metrics
+
+    rng = np.random.default_rng(3)
+    gt = rng.integers(0, 255, (5, 64, 96, 3), dtype=np.uint8)
+    pred = np.clip(gt + rng.normal(0, 20, gt.shape), 0, 255).astype(np.uint8)
+    for fn, tol in ((metrics.ssim_frames, dict(atol=1e-9)), (metrics._mse, dict(rtol=1e-6)),
+                    (metrics._psnr, dict(rtol=1e-6)), (metrics._hue, dict(rtol=1e-5))):
+        got = metrics.per_frame(fn, pred, gt, device="cuda")
+        want = metrics.per_frame(fn, pred, gt, device="cpu")
+        np.testing.assert_allclose(got, want, **tol)

@@ -443,7 +443,13 @@ def test_no_module_of_the_port_imports_jax():
             "eeg2video_tpu_torch.models.layers", "eeg2video_tpu_torch.models.encoders",
             "eeg2video_tpu_torch.train.eegvp", "eeg2video_tpu_torch.cli.eegvp_train_test",
             "eeg2video_tpu_torch.cli.train_glmnet",
-            "eeg2video_tpu_torch.cli.inference_glmnet"} <= set(names)
+            "eeg2video_tpu_torch.cli.inference_glmnet",
+            "eeg2video_tpu_torch.eval", "eeg2video_tpu_torch.eval.metrics",
+            "eeg2video_tpu_torch.data.optical_flow", "eeg2video_tpu_torch.data.native",
+            "eeg2video_tpu_torch.data.video", "eeg2video_tpu_torch.ops.residuals",
+            "eeg2video_tpu_torch.cli.compute_optical_flow",
+            "eeg2video_tpu_torch.cli.run_metrics",
+            "eeg2video_tpu_torch.cli.extract_gif"} <= set(names)
     code = "\n".join([
         "import importlib, sys",
         "before = set(sys.modules)",

@@ -464,6 +464,17 @@ def test_apply_reference_config_reads_the_shipped_yaml():
         cli.apply_reference_config(args, {"trainable_modules": ["attn1"]})
 
 
+def test_a_jax_command_line_with_captions_parses():
+    """``--captions`` is defined, with its default, and never read by the JAX
+    CLI (eeg2video_tpu/cli/train_tuneavideo.py:105); the port takes it too."""
+    line = ["--captions", "./data/BLIP/other.txt", "--video_dir", "v", "--epochs", "3"]
+    args = cli.build_parser().parse_args(line)
+    assert args.captions == "./data/BLIP/other.txt" and args.epochs == 3
+    assert cli.build_parser().parse_args([]).captions == "./data/BLIP/1st_10min.txt"
+    with pytest.raises(SystemExit, match="--dp"):  # it parses: the refusal that follows runs
+        cli.main(line + ["--dp=2", "--device", "cpu"])
+
+
 @pytest.mark.parametrize("flag", ["--dp=2", "--tp=2", "--sp=2", "--fsdp"])
 def test_flags_that_wait_are_refused_by_name(flag):
     name = flag.split("=")[0]
