@@ -137,6 +137,27 @@ printed on its own line; any failure prints ``FAIL ...`` and exits 1:
    a ~1 GB float32 .npy, and whether the clip decoder links
    here (it needs opencv4 through pkg-config; where it does not, the line
    says so and why).
+13. the text path, DDIM inversion and the orchestration, each line beside
+   the card's name and power limit: (a) ``CLIPTextConfig()`` in f32 with
+   seeded weights encoding 200 prompts (one caption file's worth; a tokenizer
+   stand-in, crc32 of each word), timed, 4 rows against the host's CPU
+   (1e-4 of the max); (b) ``TextToVideoPipeline`` at UNet3DConfig() /
+   VAEConfig() bf16: one prompt, 6 frames at 288 x 512, 4 DDIM steps,
+   guidance 12.5, every UNet call launching the generation kernels; (c)
+   ``ddim_inversion`` of one clip's latents, 50 inverse steps on the empty
+   prompt's context, seconds a step, launches, the first step's eps against
+   the same UNet call with every plain version in place (conv included;
+   5e-2 of the norm), that call profiled, and ``inverse_step`` undoing
+   ``step`` on the card (the kernels phase also holds every kernel at the
+   inversion's batch-1 shapes); the MFU of (b)'s UNet call and (c)'s step at the
+   989 TFLOP/s peak (``utils/flops.py``); (d) ``generate_text_emb``'s caption
+   loop on three small caption files (shapes, float16 negative.npy), whether
+   ``transformers`` imports, then the six 200-caption blocks for (e); (e)
+   ``run_pipeline --stages segment de_psd semantic generate metrics
+   --woSeq2Seq`` in a temporary data_root (a seeded raw subject, the caption
+   embeddings, one ground-truth GIF, the seeded UNet in the fine-tune's
+   diffusers layout and the VAE as a .pt), each stage's seconds and
+   launches, then the same command again, which must skip every stage.
 
 The third-to-last line is a JSON object with one entry per kernel, then the
 ``nvidia-smi`` line; the last line is ``{"ok": true, "device": {...}}``.
@@ -158,7 +179,6 @@ import time
 REPO = os.path.dirname(os.path.abspath(__file__))
 STEPS = 4                      # DDIM steps per request of the slice phase
 SERVE_STEPS = 20               # DPM-Solver++ steps per dispatch of the serve phase
-PEAK_FLOPS = 989e12            # H100 SXM, bf16 dense (NVIDIA data sheet)
 PEAK_F32_FLOPS = 66.9e12       # H100 SXM, FP32 without tensor cores (NVIDIA data sheet)
 PEAK_TF32_FLOPS = 494.7e12     # H100 SXM, TF32 dense on the tensor cores (NVIDIA data sheet)
 # the f32 kernels on 3xTF32: three tf32 products for each f32 one, which
@@ -547,11 +567,7 @@ def kernel_cases(torch, dev, f32=False):
     # train step's (batch 10), and row counts that end inside a 64-row block,
     # also at the tiny configs' C = 32 (the bf16 kernel on operands padded to
     # 64 columns); each run twice and compared bit for bit
-    tb6 = TRAIN_BATCH * 6
-    for t, c, primary in ((27648, 320, True), (6912, 640, False), (tb6 * 2304, 320, False),
-                          (tb6 * 576, 640, False), (1, 320, False), (37, 320, False),
-                          (130, 320, False), (1, 640, False), (37, 640, False),
-                          (130, 640, False), (1, 32, False), (37, 32, False), (130, 32, False)):
+    def ff_case(t, c, primary=False):
         i = 4 * c
         args = [r(t, c), 1.0 + 0.05 * r(c).float(), 0.02 * r(c).float(),
                 r(2 * i, c, scale=c ** -0.5), 0.02 * r(2 * i).float(),
@@ -559,6 +575,13 @@ def kernel_cases(torch, dev, f32=False):
         add("ff_ln", f"T={t} C={c}", lambda a=args: geglu.ff_ln(*a),
             lambda ts: geglu.ff_ln_plain(*ts), args, flops=6 * t * c * i, primary=primary,
             composed=ff_composed(args) if f32 else None, inter_bytes=ff_inter(t, i))
+
+    tb6 = TRAIN_BATCH * 6
+    for t, c, primary in ((27648, 320, True), (6912, 640, False), (tb6 * 2304, 320, False),
+                          (tb6 * 576, 640, False), (1, 320, False), (37, 320, False),
+                          (130, 320, False), (1, 640, False), (37, 640, False),
+                          (130, 640, False), (1, 32, False), (37, 32, False), (130, 32, False)):
+        ff_case(t, c, primary)
 
     # geglu_out at the row counts of its launches, I = 5120, C = 1280: level 2
     # and the mid block of one clip's guidance pair (1728, 480) here; a
@@ -874,6 +897,27 @@ def kernel_cases(torch, dev, f32=False):
     attn_dbias("edge D=40 +dbias (1,2,1030,320)x[1030|70] bias0 (1,1,1030)",
                r(1, 2, 1030, 320), r(1, 1030, 320), r(1, 1030, 320),
                k1=r(1, 2, 70, 320), v1=r(1, 2, 70, 320))
+    # ddim_inversion's shapes: one clip at batch 1, no guidance pair, in bf16
+    # as section 13 runs it; every attention call of each level (frames 0-1,
+    # frames 2-5, cross), the feed-forward of each level, the level-0 convs
+    # (N = 6 images)
+    if not f32:
+        for l, hd in ((2304, 320), (576, 640), (144, 1280), (40, 1280)):
+            attn(f"inversion self f0-1 (1,{2 * l},{hd})x{l}", r(1, 2 * l, hd), r(1, l, hd),
+                 r(1, l, hd))
+            attn(f"inversion dual f2-5 (1,4,{l},{hd})x[{l}|{l}]", r(1, 4, l, hd), r(1, l, hd),
+                 r(1, l, hd), k1=r(1, 4, l, hd), v1=r(1, 4, l, hd))
+            attn(f"inversion cross (1,{6 * l},{hd})x77", r(1, 6 * l, hd), r(1, 77, hd),
+                 r(1, 77, hd))
+        ff_case(6 * 2304, 320)
+        ff_case(6 * 576, 640)
+        geglu_case(6 * 144)
+        geglu_case(6 * 40)
+        conv("inversion Cin=320 (6,36,64) +stats +temb", 6, 320, True, True)
+        conv("inversion Cin=320 (6,36,64)", 6, 320, False, False)
+        conv("inversion Cin=640 (6,36,64) +temb", 6, 640, False, True)
+        conv("inversion Cin=320 (6,36,64) skip half, zero bias", 6, 320, False, False,
+             zero_bias=True)
     return cases
 
 
@@ -899,6 +943,8 @@ def phase_kernels(torch, report, f32=False):
     against the same plain versions, bound F32_KERNEL_BOUND, bound_ms at the
     FP32 rate without tensor cores, for TF32X3_KERNELS three tf32
     products at the TF32 rate); the results go into ``report``."""
+    from eeg2video_tpu_torch.utils.flops import H100_BF16_PEAK
+
     dev = torch.device("cuda")
     for case in kernel_cases(torch, dev, f32):
         kernel, label, kern, plain, args = (case[k] for k in
@@ -908,7 +954,7 @@ def phase_kernels(torch, report, f32=False):
         bound = F32_KERNEL_BOUND if f32 or kernel == "int8_dense" else KERNEL_BOUND
         # operations a second at the card's peak for this kernel's products
         peak = (PEAK_TF32_FLOPS / TF32_PASSES if kernel in TF32X3_KERNELS else
-                PEAK_F32_FLOPS if f32 else PEAK_FLOPS)
+                PEAK_F32_FLOPS if f32 else H100_BF16_PEAK)
         got = [t for t in _outputs(kern()) if t is not None]
         torch.cuda.synchronize()
         if (f32 or kernel.endswith("_bwd")
@@ -1553,12 +1599,13 @@ def _rel(a, b):
 
 
 @contextlib.contextmanager
-def _plain_versions():
+def _plain_versions(conv=False):
     """The plain versions in the kernels' place in models.attention3d (f32
     inside, autograd through them): attention (``flash_attention_fwd``'s
-    ``out`` filled by a copy), temporal attention and the feed-forward."""
-    from eeg2video_tpu_torch.models import attention3d
-    from eeg2video_tpu_torch.ops import attention, geglu, temporal
+    ``out`` filled by a copy), temporal attention and the feed-forward; with
+    ``conv`` also the level-0 conv's in models.resnet3d."""
+    from eeg2video_tpu_torch.models import attention3d, resnet3d
+    from eeg2video_tpu_torch.ops import attention, conv2d, geglu, temporal
 
     def fwd_into(q, k0, v0, heads, out=None, **kw):
         res = attention.flash_attention_plain(q, k0, v0, heads, **kw)
@@ -1569,14 +1616,17 @@ def _plain_versions():
                "flash_attention_fwd": fwd_into,
                "temporal_attention": temporal.temporal_attention_plain,
                "feed_forward": geglu.ff_ln_plain}
-    real = {name: getattr(attention3d, name) for name in patched}
+    sites = [(attention3d, name, fn) for name, fn in patched.items()]
+    if conv:
+        sites.append((resnet3d, "conv3x3_gn_silu", conv2d.conv3x3_gn_silu_plain))
+    real = [(mod, name, getattr(mod, name)) for mod, name, _ in sites]
     try:
-        for name, fn in patched.items():
-            setattr(attention3d, name, fn)
+        for mod, name, fn in sites:
+            setattr(mod, name, fn)
         yield
     finally:
-        for name, fn in real.items():
-            setattr(attention3d, name, fn)
+        for mod, name, fn in real:
+            setattr(mod, name, fn)
 
 
 def _nonzero(launches):
@@ -3061,28 +3111,366 @@ def phase_section12(torch, build, card):
     return {"train_saved": saved, "train_recompute": recompute}
 
 
-# device kernels of a train step or a generation forward, grouped by what
-# launched them (substrings of the kernel names; the port's own kernels first)
-_KERNEL_GROUPS = (
-    ("flash_attention_bwd_f32", ("flash_f32_dq_", "flash_f32_dkv_", "flash_f32_dbias_")),
-    ("flash_attention_fwd_f32", ("flash_f32_fwd_",)),
-    ("ff_ln_bwd_f32", ("ff_f32_bwd_",)), ("ff_ln_f32", ("ff_f32_",)),
-    ("geglu_out_bwd_f32", ("geglu_f32_bwd_",)), ("geglu_out_f32", ("geglu_f32_",)),
-    ("flash_attention_bwd", ("flash_bwd_",)), ("flash_attention_fwd", ("flash_fwd_",)),
-    ("temporal_attention_fwd", ("temporal_fwd_",)), ("temporal_attention_bwd", ("temporal_bwd_",)),
-    ("ff_ln_bwd", ("ff_ln_bwd_",)), ("ff_ln", ("ff_ln_",)),
-    ("geglu_out_bwd", ("geglu_out_bwd_",)), ("geglu_out", ("geglu_out_",)),
-    ("conv3x3_gn_silu", ("conv3x3_",)),
-    ("library conv / GEMM", ("cudnn", "cutlass", "gemm", "nvjet", "xmma", "wgrad", "dgrad",
-                             "conv", "cublas", "gemv")),
-    ("optimizer", ("multi_tensor", "adam", "foreach")),
-)
+# section 13: the text path, DDIM inversion, generate_text_emb and run_pipeline
+TEXT_PROMPTS = 200                # one caption file's worth: a block's 200 clips
+TEXT_STEPS = 4                    # DDIM steps of the text-conditioned request
+INV_STEPS = 50                    # ddim_inversion's default
+CLIP_BOUND = 1e-4                 # CLIP f32 on the card vs the CPU: max|diff| / max|cpu|
+CLIP_CPU_ROWS = 4                 # prompts also encoded on the host's CPU
+INVERSION_TOL = 2e-5              # |inverse_step(step(x)) - x| <= tol (1 + |x|), the CPU test's
+SMALL_CAPTIONS = (3, 5, 2)        # (d): captions in each of three small files
+RUN_PIPELINE_STAGES = ("segment", "de_psd", "semantic", "generate", "metrics")
+_CAPTION_WORDS = ("a", "the", "red", "small", "old", "bird", "car", "dog", "river", "city",
+                  "flies", "runs", "over", "under", "slowly", "street", "forest", "at", "night",
+                  "sunset", "two", "people", "walk", "beach", "mountain", "snow", "boat")
+
+
+class _HashTokenizer:
+    """CLIPTokenizer stand-in (the card's machine may lack transformers and
+    has no vocabulary files): bos, one id a word (crc32 of the word), eos,
+    then eos as padding to ``max_length``."""
+
+    def __init__(self, vocab_size):
+        self.bos, self.eos = vocab_size - 2, vocab_size - 1
+
+    def __call__(self, prompts, max_length=77, padding=None, truncation=None,
+                 return_tensors=None):
+        import types
+        import zlib
+
+        import numpy as np
+
+        ids = np.full((len(prompts), max_length), self.eos, np.int64)
+        for i, p in enumerate(prompts):
+            toks = [self.bos] + [zlib.crc32(w.encode()) % self.bos for w in p.split()]
+            toks = (toks + [self.eos])[:max_length]
+            ids[i, :len(toks)] = toks
+        return types.SimpleNamespace(input_ids=ids)
+
+
+def _captions(seed, n):
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    return [" ".join(rng.choice(_CAPTION_WORDS, size=int(rng.integers(4, 13)))) for _ in range(n)]
+
+
+def _write_captions(folder, counts, seed):
+    os.makedirs(folder)
+    for i, n in enumerate(counts):
+        with open(os.path.join(folder, f"{i + 1}_10min.txt"), "w") as f:
+            f.write("\n".join(_captions(seed + i, n)) + "\n")
+
+
+def _phase_clip(torch, card):
+    """(a) CLIPTextConfig() in f32 on the card, seeded weights: 200 prompts
+    encoded, timed, a few rows against the same model on the host's CPU."""
+    from eeg2video_tpu_torch.diffusion.text_pipeline import tokenize
+    from eeg2video_tpu_torch.models.clip_text import CLIPTextModel, encode_ids
+    from eeg2video_tpu_torch.models.init import random_init_
+
+    g = torch.Generator(device="cuda").manual_seed(60)
+    with torch.device("meta"):
+        model = CLIPTextModel()
+    model = random_init_(model.to_empty(device="cuda"), g).eval().requires_grad_(False)
+    tok = _HashTokenizer(model.config.vocab_size)
+    ids = tokenize(tok, _captions(61, TEXT_PROMPTS))
+    got = encode_ids(model, ids)
+    ms = timed_ms(lambda: encode_ids(model, ids), torch, 5)
+    host = CLIPTextModel().eval()
+    host.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    want = encode_ids(host, ids[:CLIP_CPU_ROWS])
+    err = ((got[:CLIP_CPU_ROWS].cpu() - want).abs().max() / want.abs().max()).item()
+    ok = (tuple(got.shape) == (TEXT_PROMPTS, 77, 768) and got.dtype == torch.float32
+          and bool(torch.isfinite(got).all()) and err < CLIP_BOUND)
+    n_params = sum(p.numel() for p in model.parameters())
+    say(f"text (a): CLIPTextConfig() ({n_params} params, 12 layers, 768 wide) f32 on the card, "
+        f"seeded weights: {TEXT_PROMPTS} prompts (77 ids each) in {ms:.2f} ms (median of 5), "
+        f"{TEXT_PROMPTS / ms * 1e3:.0f} prompts/s; rows 0-{CLIP_CPU_ROWS - 1} against the CPU "
+        f"max|diff| / max {err:.3e} (bound {CLIP_BOUND:.0e}) [{card}] {'ok' if ok else 'FAILED'}")
+    if not ok:
+        fail("text: the CLIP text tower on the card is malformed or disagrees with the CPU")
+    return model, tok
+
+
+def _phase_text_pipeline(torch, build, card, clip, tok):
+    """(b) TextToVideoPipeline at full width: one prompt, 6 frames at 288 x
+    512, 4 DDIM steps, guidance 12.5; launches counted; then one UNet call on
+    the guidance pair timed for its MFU."""
+    from eeg2video_tpu_torch.diffusion.pipeline import EEG2VideoPipeline
+    from eeg2video_tpu_torch.diffusion.text_pipeline import TextToVideoPipeline
+    from eeg2video_tpu_torch.models.init import random_init_
+    from eeg2video_tpu_torch.models.unet3d import UNet3DConfig
+    from eeg2video_tpu_torch.models.vae import VAEConfig
+    from eeg2video_tpu_torch.utils import flops
+
+    dev = torch.device("cuda")
+    base = EEG2VideoPipeline.create(None, None, UNet3DConfig(), VAEConfig(),
+                                    dtype=torch.bfloat16, device=dev)
+    g = torch.Generator(device=dev).manual_seed(62)
+    random_init_(base.unet, g)
+    random_init_(base.vae, g)
+    pipe = TextToVideoPipeline(base, clip, tok)
+    prompt = ["a red car drives along the coast at sunset"]
+    build.reset_launches()
+    t0 = _sync_clock(torch)
+    video = pipe(prompt, generator=torch.Generator(device=dev).manual_seed(63), video_length=6,
+                 height=288, width=512, num_inference_steps=TEXT_STEPS, guidance_scale=12.5)
+    secs = _sync_clock(torch) - t0
+    launches = dict(build.launches)
+    expected = {k: n * TEXT_STEPS for k, n in EXPECTED_PER_FORWARD.items()}
+    ok = (tuple(video.shape) == (1, 6, 288, 512, 3) and bool(torch.isfinite(video).all())
+          and float(video.min()) >= 0.0 and float(video.max()) <= 1.0 and float(video.std()) > 0
+          and _nonzero(launches) == expected)
+    say(f"text (b): TextToVideoPipeline, UNet3DConfig() + VAEConfig() bf16 + the CLIP tower f32, "
+        f"seeded weights: 1 prompt, 6 frames 288x512, {TEXT_STEPS} DDIM steps, guidance 12.5: "
+        f"{secs:.3f} s (the prompt and the empty prompt encoded, {TEXT_STEPS} UNet calls on the "
+        f"guidance pair, 6 VAE decodes), launches {_nonzero(launches)} (expected {expected}: "
+        f"packed and two-segment attention, ff_ln, geglu_out, the level-0 conv) [{card}] "
+        f"{'ok' if ok else 'FAILED'}")
+    if not ok:
+        fail("text: the text pipeline's video is malformed or it did not launch the generation "
+             "kernels")
+    ctx = torch.cat([pipe.encode_prompts([""]), pipe.encode_prompts(prompt)]).bfloat16()
+    sample = torch.randn(2, 6, 36, 64, 4, generator=g, device=dev).bfloat16()
+    t = torch.full((2,), 500, device=dev)
+    with torch.inference_mode():
+        unet_ms = timed_ms(lambda: base.unet(sample, t, ctx), torch, 5)
+    return pipe, launches, (flops.unet3d_forward_flops(UNet3DConfig(), 2, 6, 36, 64)["total"],
+                            unet_ms)
+
+
+def _phase_inversion(torch, build, card, pipe):
+    """(c) ddim_inversion at full width: one clip's latents, 50 inverse steps,
+    the empty prompt's context; launches counted; the first step's eps (batch
+    1, no guidance pair) against the same UNet call with every kernel's plain
+    version in its place; the inverse step undoes the forward step on the
+    card."""
+    from eeg2video_tpu_torch.diffusion.schedulers import DDIMSchedule
+    from eeg2video_tpu_torch.diffusion.text_pipeline import ddim_inversion
+    from eeg2video_tpu_torch.models.unet3d import UNet3DConfig
+    from eeg2video_tpu_torch.utils import flops
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(64)
+    lat = torch.randn(1, 6, 36, 64, 4, generator=g, device=dev)
+    ctx = pipe.encode_prompts([""])
+    build.reset_launches()
+    t0 = _sync_clock(torch)
+    inv = ddim_inversion(pipe.base.unet, lat, ctx, num_inv_steps=INV_STEPS)
+    secs = _sync_clock(torch) - t0
+    launches = dict(build.launches)
+    expected = {k: n * INV_STEPS for k, n in EXPECTED_PER_FORWARD.items()}
+    sched = DDIMSchedule.create(INV_STEPS)
+    # the first inverse step's UNet call as ddim_inversion makes it, through
+    # the kernels and through the plain versions (which must launch nothing)
+    unet, dt = pipe.base.unet, pipe.base.unet.conv_in.weight.dtype
+    tt = torch.full((1,), int(sched.timesteps[-1]), device=dev, dtype=torch.int64)
+    with torch.inference_mode():
+        got = unet(lat.to(dt), tt, ctx.to(dt))
+        build.reset_launches()
+        with _plain_versions(conv=True):
+            want = unet(lat.to(dt), tt, ctx.to(dt))
+        plain_launches = _nonzero(build.launches)
+        # where an inverse step's time goes: the device's busy time and idle
+        # share over one such UNet call
+        _profile_step(torch, lambda: unet(lat.to(dt), tt, ctx.to(dt)),
+                      what="text (c): one inverse step's UNet call (batch 1)")
+    eps_err = _rel(got, want)
+    eps_ok = bool(torch.isfinite(got.float()).all()) and eps_err < UNET_BOUND and not plain_launches
+    del got, want
+    eps = torch.randn(1, 6, 36, 64, 4, generator=g, device=dev)
+    x = torch.randn(1, 6, 36, 64, 4, generator=g, device=dev)
+    worst = max(((sched.inverse_step(eps, t, sched.step(eps, t, x)) - x).abs()
+                 - INVERSION_TOL * (1 + x.abs())).max().item() for t in sched.timesteps)
+    ok = (tuple(inv.shape) == tuple(lat.shape) and inv.dtype == torch.float32
+          and bool(torch.isfinite(inv).all()) and _nonzero(launches) == expected and worst <= 0
+          and eps_ok)
+    say(f"text (c): ddim_inversion, UNet3DConfig() bf16, one clip (1, 6, 36, 64, 4), "
+        f"{INV_STEPS} inverse steps, the empty prompt's context: {secs:.3f} s, "
+        f"{secs / INV_STEPS * 1e3:.2f} ms per step; launches {_nonzero(launches)} (expected "
+        f"{expected}); the first step's eps (t = {int(tt[0])}) against the same call via the "
+        f"plain versions (conv included; they launched {plain_launches}): rel_err "
+        f"{eps_err:.3e} (bound {UNET_BOUND:.0e}); "
+        f"inverse_step(eps, t, step(eps, t, x)) against x at all {INV_STEPS} t: "
+        f"worst |diff| - {INVERSION_TOL:.0e} (1 + |x|) {worst:.3e} [{card}] "
+        f"{'ok' if ok else 'FAILED'}")
+    if not ok:
+        fail("text: ddim_inversion is malformed, did not launch the generation kernels, its "
+             "eps disagrees with the plain versions, or its inverse step does not undo the step")
+    return launches, (flops.unet3d_forward_flops(UNet3DConfig(), 1, 6, 36, 64)["total"],
+                      secs / INV_STEPS * 1e3)
+
+
+def _phase_text_emb(torch, card, pipe, tmp, data):
+    """(d) generate_text_emb's caption loop (``write_text_embeddings``) with
+    the tokenizer stand-in: three small caption files, then the six
+    200-caption blocks and negative.npy that (e)'s semantic stage reads."""
+    import numpy as np
+
+    from eeg2video_tpu_torch.cli.generate_text_emb import write_text_embeddings
+    from eeg2video_tpu_torch.data.io import load_array
+
+    d = lambda *p: os.path.join(tmp, *p)  # noqa: E731
+    _write_captions(d("captions"), SMALL_CAPTIONS, 65)
+    written = write_text_embeddings(pipe.text_model, pipe.tokenizer, d("captions"), d("emb"),
+                                    d("emb", "negative.npy"))
+    blocks = [load_array(p) for p in written]
+    neg = np.load(d("emb", "negative.npy"))
+    ok = ([b.shape for b in blocks] == [(n, 77, 768) for n in SMALL_CAPTIONS]
+          and all(b.dtype == np.float32 and np.isfinite(b).all() for b in blocks)
+          and neg.shape == (1, 77, 768) and neg.dtype == np.float16 and np.isfinite(neg).all())
+    try:
+        import transformers
+
+        have = f"transformers {transformers.__version__} imports here"
+    except ImportError as e:
+        have = f"transformers does not import here ({e}); generate_text_emb.main would raise"
+    say(f"text (d): write_text_embeddings on {len(SMALL_CAPTIONS)} caption files of "
+        f"{SMALL_CAPTIONS} captions: {[b.shape for b in blocks]} float32, negative.npy "
+        f"{neg.shape} {neg.dtype} {'ok' if ok else 'FAILED'}")
+    say(f"text (d): {have}")
+    if not ok:
+        fail("text: generate_text_emb's caption loop wrote malformed files")
+    _write_captions(os.path.join(data, "BLIP"), (TEXT_PROMPTS,) * 6, 66)
+    t0 = _sync_clock(torch)
+    write_text_embeddings(pipe.text_model, pipe.tokenizer, os.path.join(data, "BLIP"),
+                          os.path.join(data, "Text_embeddings"),
+                          os.path.join(data, "negative.npy"))
+    say(f"text (d): the six 200-caption blocks for (e) -> Text_embeddings/block0-5.pt and "
+        f"negative.npy in {_sync_clock(torch) - t0:.2f} s with writing [{card}]")
+
+
+def _phase_run_pipeline(torch, build, card, pipe, tmp, data):
+    """(e) run_pipeline on the card on seeded inputs in a temporary data_root:
+    segment, de_psd, semantic (train 1 epoch + infer), generate (one clip, 4
+    steps) and metrics, each stage's launches and seconds; then the same
+    command again, which must skip every stage."""
+    import numpy as np
+
+    from eeg2video_tpu_torch.cli import (extract_de_psd_features, inference_eeg2video,
+                                         inference_semantic, run_metrics, run_pipeline,
+                                         segment_raw_signals_200hz, train_semantic)
+    from eeg2video_tpu_torch.convert.export_diffusion import WEIGHTS_NAME, unet_config_dict
+    from eeg2video_tpu_torch.data.native import write_gif_native
+    from eeg2video_tpu_torch.models.unet3d import UNet3DConfig
+
+    d = lambda *p: os.path.join(tmp, *p)  # noqa: E731
+    g = torch.Generator(device="cuda").manual_seed(67)
+    os.makedirs(os.path.join(data, "EEG"))
+    np.save(os.path.join(data, "EEG", "sub1.npy"),
+            torch.randn(SUBJECT, generator=g, device="cuda").cpu().numpy())
+    gt = os.path.join(data, "Video_gifs", "Block6")
+    os.makedirs(gt)
+    clip = (torch.rand(6, 288, 512, 3, generator=g, device="cuda") * 255).to(torch.uint8)
+    write_gif_native(os.path.join(gt, f"{int(run_metrics.gt_order()[0])}.gif"),
+                     clip.cpu().numpy(), 333)
+    # the fine-tune's diffusers layout, where generate reads the UNet (bf16
+    # weights: the stage loads them into a bf16 model), and the VAE as a .pt
+    unet_dir = d("out", "tuneavideo", "unet")
+    os.makedirs(unet_dir)
+    with open(os.path.join(unet_dir, "config.json"), "w") as f:
+        json.dump(unet_config_dict(UNet3DConfig()), f)
+    t0 = time.perf_counter()
+    torch.save({k: v.cpu() for k, v in pipe.base.unet.state_dict().items()},
+               os.path.join(unet_dir, WEIGHTS_NAME))
+    torch.save({k: v.cpu() for k, v in pipe.base.vae.state_dict().items()}, d("vae.pt"))
+    write_s = time.perf_counter() - t0
+    argv = ["--data_root", data, "--out_root", d("out"), "--stages", *RUN_PIPELINE_STAGES,
+            "--woSeq2Seq", "--vae", d("vae.pt"), "--device", "cuda",
+            "--extra", "train_semantic:--epochs=1", "generate:--num_inference_steps=4",
+            "generate:--limit=1", "generate:--gif_encoder=native", "metrics:--n_clips=1"]
+
+    per_stage = []
+    mods = (segment_raw_signals_200hz, extract_de_psd_features, train_semantic,
+            inference_semantic, inference_eeg2video, run_metrics)
+    real = {m: m.main for m in mods}
+
+    def counted(mod):
+        def main(stage_argv):
+            before = dict(build.launches)
+            t0 = _sync_clock(torch)
+            out = real[mod](stage_argv)
+            per_stage.append((mod.__name__.rsplit(".", 1)[-1], _sync_clock(torch) - t0,
+                              {k: n - before[k] for k, n in build.launches.items()
+                               if n != before[k]}))
+            return out
+        return main
+
+    for m in mods:
+        m.main = counted(m)
+    try:
+        build.reset_launches()
+        t0 = _sync_clock(torch)
+        ran = run_pipeline.main(argv)
+        run_s = _sync_clock(torch) - t0
+        launches = dict(build.launches)
+        t0 = time.perf_counter()
+        again = run_pipeline.main(argv)
+        again_s = time.perf_counter() - t0
+    finally:
+        for m in mods:
+            m.main = real[m]
+    expected_ran = [("segment", "segment_raw_signals_200hz"),
+                    ("de_psd", "extract_de_psd_features"), ("semantic", "train_semantic"),
+                    ("semantic", "inference_semantic"), ("generate", "inference_eeg2video"),
+                    ("metrics", "run_metrics")]
+    gen_launches = next(n for mod, _, n in per_stage if mod == "inference_eeg2video")
+    expected_gen = {k: n * 4 for k, n in EXPECTED_PER_FORWARD.items()}
+    with open(d("out", "metrics.json")) as f:
+        res = json.load(f)
+    ok = (ran == expected_ran and again == [] and gen_launches == expected_gen
+          and os.path.exists(d("out", "generated", "0.gif"))
+          and all(np.isfinite(v) for v in res.values()))
+    say(f"text (e): run_pipeline --stages {' '.join(RUN_PIPELINE_STAGES)} --woSeq2Seq on a "
+        f"seeded (7, 62, 104000) subject, 6 x 200 caption embeddings, one ground-truth GIF, "
+        f"UNet3DConfig() / VAEConfig() seeded weights (written in {write_s:.2f} s): {run_s:.2f} s; "
+        f"by stage (s, launches): "
+        + "; ".join(f"{m} {s:.2f} {launch}" for m, s, launch in per_stage)
+        + f"; metrics ssim {res['ssim']:.4f}; the second call ran {again} in {again_s:.2f} s "
+        f"(every stage skipped) [{card}] {'ok' if ok else 'FAILED'}")
+    if not ok:
+        fail(f"text: run_pipeline ran {ran} (expected {expected_ran}), generate launched "
+             f"{gen_launches} (expected {expected_gen}), or its second call ran {again}")
+    return launches
+
+
+def phase_section13(torch, build, card):
+    """Section 13: (a) the CLIP text tower; (b) TextToVideoPipeline; (c)
+    ddim_inversion; (d) generate_text_emb's caption loop; (e) run_pipeline,
+    twice; the MFU of (b)'s UNet call and (c)'s step. Returns the launches of
+    the text, inversion and run_pipeline paths."""
+    from eeg2video_tpu_torch.utils import flops
+
+    t_section = time.perf_counter()
+    torch.cuda.empty_cache()
+    clip, tok = _phase_clip(torch, card)
+    pipe, text_launches, (unet_flops, unet_ms) = _phase_text_pipeline(torch, build, card,
+                                                                      clip, tok)
+    inv_launches, (step_flops, step_ms) = _phase_inversion(torch, build, card, pipe)
+    say(f"text: MFU at the H100's {flops.H100_BF16_PEAK / 1e12:.0f} TFLOP/s bf16 peak "
+        f"(utils/flops.py, matmul FLOPs): (b)'s UNet call on the guidance pair "
+        f"{unet_flops / 1e12:.3f} TFLOP in {unet_ms:.2f} ms (median of 5) -> "
+        f"{flops.mfu(unet_flops, unet_ms / 1e3):.3f}; (c)'s inverse step on one clip "
+        f"{step_flops / 1e12:.3f} TFLOP in {step_ms:.2f} ms (the mean of {INV_STEPS}, with the "
+        f"step's host work) -> {flops.mfu(step_flops, step_ms / 1e3):.3f} [{card}]")
+    with tempfile.TemporaryDirectory(prefix="e2v_text_") as tmp:
+        data = os.path.join(tmp, "data")
+        _phase_text_emb(torch, card, pipe, tmp, data)
+        pipeline_launches = _phase_run_pipeline(torch, build, card, pipe, tmp, data)
+    del pipe, clip
+    torch.cuda.empty_cache()
+    say(f"section 13: {time.perf_counter() - t_section:.1f} s")
+    return {"text": text_launches, "inversion": inv_launches, "run_pipeline": pipeline_launches}
 
 
 def _profile_step(torch, step, what="train: one step"):
-    """One call of ``step`` under torch.profiler: where the device time goes."""
-    from torch.autograd import DeviceType
+    """One call of ``step`` under torch.profiler: where the device time goes,
+    by the port's one grouping of its kernels (``utils.profiling``:
+    ``_KERNEL_GROUPS`` applied by ``device_time_by_group``)."""
     from torch.profiler import ProfilerActivity, profile
+
+    from eeg2video_tpu_torch.utils.profiling import device_time_by_group
 
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -3090,19 +3478,7 @@ def _profile_step(torch, step, what="train: one step"):
         step()
         torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3
-    groups, n_kernels, first, last = {}, 0, float("inf"), 0.0
-    for e in prof.events():
-        if e.device_type != DeviceType.CUDA:
-            continue
-        first, last = min(first, e.time_range.start), max(last, e.time_range.end)
-        name = e.name.lower()
-        if name.startswith("memcpy") or name.startswith("memset"):
-            group = "memcpy / memset"
-        else:
-            group = next((g for g, keys in _KERNEL_GROUPS if any(k in name for k in keys)),
-                         "PyTorch elementwise / reduce / other")
-        groups[group] = groups.get(group, 0.0) + e.time_range.elapsed_us() / 1e3
-        n_kernels += 1
+    groups, n_kernels, first, last = device_time_by_group(prof.events())
     if not groups:
         say(f"{what}: profile: the profiler recorded no device activity (not measured)")
         return
@@ -3157,6 +3533,8 @@ def main():
     recipe["preprocess"] = phase_front_end(torch, build, smi_line, report)
     torch.cuda.empty_cache()
     recipe.update(phase_section12(torch, build, smi_line))
+    torch.cuda.empty_cache()
+    recipe.update(phase_section13(torch, build, smi_line))
     leaked = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "jaxlib", "flax", "eeg2video_tpu"))
     if leaked:
@@ -3196,7 +3574,9 @@ def main():
                     "fused_op" if name in FUSED_OP_KERNELS else "serve")
         # the recipe's paths (section 10): the 8-bit accumulated fine-tune
         # launches the train kernels, the semantic CLI int8_dense; the
-        # semantic and Seq2Seq trainers and the latent encoder launch none
+        # semantic and Seq2Seq trainers and the latent encoder launch none;
+        # section 11's preprocess path, 12's train steps, 13's text, inversion
+        # and run_pipeline paths
         per_path.update({f"launches_{p}_path": counts[name] for p, counts in recipe.items()})
         if per_path[f"launches_{path}_path"] == 0:
             fail(f"launches: the {path} path did not launch {name}")
@@ -3204,6 +3584,11 @@ def main():
             fail(f"launches: the 8-bit accumulated fine-tune did not launch {name}")
         if name == "int8_dense" and per_path["launches_inference_semantic_path"] == 0:
             fail("launches: inference_semantic --int8 did not launch int8_dense")
+        # section 13: the text pipeline, the inversion and run_pipeline's
+        # generate stage run the generation kernels
+        if name in EXPECTED_PER_FORWARD and not all(
+                per_path[f"launches_{p}_path"] for p in ("text", "inversion", "run_pipeline")):
+            fail(f"launches: the text, inversion or run_pipeline path did not launch {name}")
         kernels.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
                         "launches": per_path[f"launches_{path}_path"], "launches_path": path,
                         **per_path,

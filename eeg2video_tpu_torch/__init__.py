@@ -14,22 +14,26 @@ imports torch and never jax, nor anything of the JAX package.
 
 - ``ops``        hand-written Hopper kernels (``csrc/*.cu``), their ctypes
                  wrappers and plain PyTorch versions
-- ``models``     the video UNet, the VAE, the semantic predictor and the
-                 Seq2Seq transformer as ``nn.Module``s, with diffusers /
-                 reference key names
+- ``models``     the video UNet, the VAE, the semantic predictor, the
+                 Seq2Seq transformer and the CLIP text tower as
+                 ``nn.Module``s, with diffusers / reference / transformers
+                 key names
 - ``diffusion``  the DDPM, DDIM and DPM-Solver++ schedules,
-                 ``EEG2VideoPipeline``, DANA noising
+                 ``EEG2VideoPipeline``, ``TextToVideoPipeline`` and DDIM
+                 inversion, DANA noising
 - ``dsp``        2 s segmentation and DE / PSD band features
 - ``train``      the fine-tune step, its train state and checkpoints; the
                  Seq2Seq stage's inference helpers
 - ``convert``    JAX parameter trees and diffusers directories -> the
                  port's state dicts
 - ``serving``    warm runtimes, batch dispatch, transports
-- ``cli``        ``serve``, ``train_tuneavideo``, ``inference_eeg2video``,
-                 ``inference_seq2seq_v2``, ``add_noise`` (the entry points)
+- ``cli``        the 20 stage CLIs (``python -m eeg2video_tpu_torch`` lists
+                 them; ``run_pipeline`` chains them)
+- ``config``     the configuration tree: YAML plus dotted overrides
 - ``data``       artifact IO, GIF writing and reading, the training clip
                  loader, dataset metadata
-- ``utils``      device resolution, logging, metrics, the standard scaler
+- ``utils``      device resolution, logging, metrics, the standard scaler,
+                 matmul FLOPs and MFU, profiling, timers
 
 Entry points run on the card unless the caller names the CPU.
 """

@@ -79,3 +79,36 @@ def seq2seq_state_dict_from_jax(variables):
     state dict in the reference's keys, float32 (``num_batches_tracked`` stays
     an integer)."""
     return _with_int_counts(seq2seq_to_torch(variables))
+
+
+def clip_text_state_dict_from_jax(params, layers=12, dtype=torch.float32):
+    """Flax CLIPTextModel params (numpy, with or without the ``params``
+    wrapper) -> ``models.clip_text.CLIPTextModel`` state dict, in the keys of
+    ``transformers.CLIPTextModel``: Dense kernels (I, O) transpose to
+    ``nn.Linear``'s (O, I), LayerNorm ``scale`` becomes ``weight``. The inverse
+    of the JAX package's ``clip_text_params_from_torch`` (clip_text.py:88)."""
+    if "params" in params:
+        params = params["params"]
+    sd = {}
+
+    def dense(key, leaf):
+        sd[f"{key}.weight"] = np.transpose(np.asarray(leaf["kernel"]))
+        sd[f"{key}.bias"] = np.asarray(leaf["bias"])
+
+    def ln(key, leaf):
+        sd[f"{key}.weight"] = np.asarray(leaf["scale"])
+        sd[f"{key}.bias"] = np.asarray(leaf["bias"])
+
+    emb = "text_model.embeddings"
+    sd[f"{emb}.token_embedding.weight"] = np.asarray(params["token_embedding"]["embedding"])
+    sd[f"{emb}.position_embedding.weight"] = np.asarray(params["position_embedding"]["embedding"])
+    for i in range(layers):
+        p = f"text_model.encoder.layers.{i}"
+        ln(f"{p}.layer_norm1", params[f"l{i}_ln1"])
+        ln(f"{p}.layer_norm2", params[f"l{i}_ln2"])
+        for name in ("q_proj", "k_proj", "v_proj", "out_proj"):
+            dense(f"{p}.self_attn.{name}", params[f"l{i}_attn"][name])
+        dense(f"{p}.mlp.fc1", params[f"l{i}_fc1"])
+        dense(f"{p}.mlp.fc2", params[f"l{i}_fc2"])
+    ln("text_model.final_layer_norm", params["final_ln"])
+    return _tensors(sd, dtype)

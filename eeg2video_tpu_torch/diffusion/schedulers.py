@@ -3,9 +3,9 @@ timestep spacing, and the DDPM forward process of the fine-tune, in numpy
 (tables) and torch (the steps).
 
 Counterpart of ``eeg2video_tpu/diffusion/schedulers.py`` (``DDPMSchedule``
-:66-89, ``DDIMSchedule`` :98-141, ``DPMSolverPPSchedule`` :157-234 and the
-spacing helper the samplers share, ``_ddim_spacing`` :43-62), for the Stable
-Diffusion v1-4 config: 1000 train
+:66-89, ``DDIMSchedule`` :98-153 with the inversion's ``inverse_step``,
+``DPMSolverPPSchedule`` :157-234 and the spacing helper the samplers share,
+``_ddim_spacing`` :43-62), for the Stable Diffusion v1-4 config: 1000 train
 timesteps, scaled_linear betas 0.00085 -> 0.012, steps_offset 1,
 set_alpha_to_one False, epsilon prediction. All per-step coefficients are
 computed on the host in f64 and kept as f32; the steps run in f32 on the
@@ -99,6 +99,16 @@ class DDIMSchedule:
                               else self.final_alpha_cumprod, dtype=torch.float32)
         x0 = (sample - torch.sqrt(1.0 - a_t) * model_output) / torch.sqrt(a_t)
         return torch.sqrt(a_prev) * x0 + torch.sqrt(1.0 - a_prev) * model_output
+
+    def inverse_step(self, model_output, t, sample):
+        """x_{t - step_ratio} -> x_t, the reverse of ``step`` (DDIM inversion),
+        f32; where t - step_ratio < 0 the start is ``final_alpha_cumprod``."""
+        prev_t = int(t) - self.num_train_timesteps // self.num_inference_steps
+        a_prev = torch.tensor(self.alphas_cumprod[prev_t] if prev_t >= 0
+                              else self.final_alpha_cumprod, dtype=torch.float32)
+        a_next = torch.tensor(self.alphas_cumprod[int(t)], dtype=torch.float32)
+        x0 = (sample - torch.sqrt(1.0 - a_prev) * model_output) / torch.sqrt(a_prev)
+        return torch.sqrt(a_next) * x0 + torch.sqrt(1.0 - a_next) * model_output
 
 
 @dataclasses.dataclass(frozen=True)

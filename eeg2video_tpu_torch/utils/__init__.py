@@ -1,5 +1,8 @@
+from . import profiling
 from .device import resolve_device
 from .logging import get_logger
 from .scaler import StandardScaler
+from .timing import Accumulator, Timer
 
-__all__ = ["StandardScaler", "get_logger", "resolve_device"]
+__all__ = ["Accumulator", "StandardScaler", "Timer", "get_logger", "profiling",
+           "resolve_device"]

@@ -1281,3 +1281,62 @@ def test_pixel_metrics_on_the_card_equal_the_cpu(gen):
         got = metrics.per_frame(fn, pred, gt, device="cuda")
         want = metrics.per_frame(fn, pred, gt, device="cpu")
         np.testing.assert_allclose(got, want, **tol)
+
+
+@pytest.mark.gpu
+def test_clip_text_full_width_on_the_card_equals_the_cpu(gen):
+    """CLIPTextConfig() (12 layers, 768 wide) with seeded weights, f32 on the
+    card (TF32 off) against the same model on the CPU: 8 prompts' ids, padded
+    with eos after 20; within 1e-4 of the output's max (summation order only)."""
+    from eeg2video_tpu_torch.models.clip_text import CLIPTextModel, encode_ids
+    from eeg2video_tpu_torch.models.init import random_init_
+
+    model = random_init_(CLIPTextModel(), torch.Generator().manual_seed(0)).eval()
+    ids = torch.randint(0, 49406, (8, 77), generator=torch.Generator().manual_seed(1))
+    ids[:, 20:] = 49407
+    want = encode_ids(model, ids)
+    got = encode_ids(model.to("cuda"), ids)
+    assert got.shape == (8, 77, 768) and got.device.type == "cuda"
+    assert _err(got.cpu(), want) < F32_BOUND
+
+
+@pytest.mark.gpu
+def test_one_ddim_inversion_step_launches_the_generation_kernels(gen, monkeypatch):
+    """One inverse step of UNet3DConfig() in bf16 on one clip of (1, 6, 36, 64,
+    4) latents: one UNet forward's launches (48 attention, 10 ff_ln, 6
+    geglu_out, 13 level-0 convs) and nothing else; finite f32 latents out.
+    That step's eps (batch 1, no guidance pair) against the same UNet call
+    with the plain versions in the kernels' place: ||diff|| / ||plain|| within
+    5e-2 (bf16 activations between the layers)."""
+    from eeg2video_tpu_torch.diffusion.text_pipeline import ddim_inversion
+    from eeg2video_tpu_torch.models import attention3d, resnet3d
+    from eeg2video_tpu_torch.models.init import random_init_
+    from eeg2video_tpu_torch.models.unet3d import UNet3DConditionModel, UNet3DConfig
+
+    with torch.device("meta"):
+        unet = UNet3DConditionModel(UNet3DConfig())
+    unet = random_init_(unet.to_empty(device="cuda"), gen).to(torch.bfloat16).eval()
+    lat = torch.randn(1, 6, 36, 64, 4, generator=gen, device="cuda")
+    ctx = torch.randn(1, 77, 768, generator=gen, device="cuda")
+    before = dict(_build.launches)
+    out = ddim_inversion(unet, lat, ctx, num_inv_steps=1)
+    torch.cuda.synchronize()
+    assert _launched(before) == {"flash_attention_fwd": 48, "ff_ln": 10, "geglu_out": 6,
+                                 "conv3x3_gn_silu": 13}
+    assert out.dtype == torch.float32 and out.shape == lat.shape
+    assert bool(torch.isfinite(out).all()) and not torch.equal(out, lat)
+
+    t = torch.ones(1, device="cuda", dtype=torch.int64)  # the first inverse step's t
+    with torch.inference_mode():
+        got = unet(lat.bfloat16(), t, ctx.bfloat16()).float()
+        monkeypatch.setattr(attention3d, "flash_attention", attention.flash_attention_plain)
+        monkeypatch.setattr(attention3d, "flash_attention_fwd",
+                            lambda *a, out=None, **kw: out.copy_(
+                                attention.flash_attention_plain(*a, **kw)))
+        monkeypatch.setattr(attention3d, "feed_forward", geglu.ff_ln_plain)
+        monkeypatch.setattr(resnet3d, "conv3x3_gn_silu", conv2d.conv3x3_gn_silu_plain)
+        before = dict(_build.launches)
+        want = unet(lat.bfloat16(), t, ctx.bfloat16()).float()
+    assert _launched(before) == {}
+    assert bool(torch.isfinite(got).all())
+    assert ((got - want).norm() / want.norm()).item() < 5e-2
