@@ -3464,6 +3464,294 @@ def phase_section13(torch, build, card):
     return {"text": text_launches, "inversion": inv_launches, "run_pipeline": pipeline_launches}
 
 
+# --- section 14: multi-GPU generation on one card -----------------------------
+
+RING_SPS = (2, 4)         # ring sizes (a) plays on one card
+MESH_CLIPS = 2            # clips of the --dp 1 runs of (b) and (c)
+TORCHRUN_TIMEOUT = 300    # seconds (c)'s launcher may take
+
+
+def _ring_cases(torch, dev):
+    """(label, q, k, v, bias) at the full-width level-0 shapes of one clip's
+    guidance pair (8 heads of 40): frames 0-1 as one query of 2L against K0;
+    frames 2-5 against the [K0 | K_prev] concat, with and without the
+    [bias, 0] the model builds; cross-attention against the 77 context rows."""
+    g = torch.Generator(device=dev).manual_seed(14)
+
+    def r(*shape):
+        return torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
+
+    l, c = 2304, 320
+    mask = (torch.rand((8, 1, l), generator=g, device=dev) < 0.25) * -1e4
+    bias = torch.cat([mask + torch.randn((8, 1, l), generator=g, device=dev),
+                      torch.zeros((8, 1, l), device=dev)], dim=-1)
+    k2, v2 = r(8, 2 * l, c), r(8, 2 * l, c)
+    return [("frames 0-1 (2,4608,320)x2304", r(2, 2 * l, c), r(2, l, c), r(2, l, c), None),
+            ("frames 2-5 (8,2304,320)x[K0|K_prev] 4608", r(8, l, c), k2, v2, None),
+            ("frames 2-5 (8,2304,320)x[K0|K_prev] 4608 + (8,1,4608) bias", r(8, l, c), k2, v2,
+             bias),
+            ("cross (2,13824,320)x77", r(2, 6 * l, c), r(2, 77, c), r(2, 77, c), None)]
+
+
+def _phase_ring_hops(torch, build, card):
+    """(a) ``ring.ring_step`` on one card: the exchange of sp ranks played by
+    rotating a list of the sp K/V blocks (rank i holds block (i + t) % sp at
+    hop t). The sp ranks' rows, and one ``flash_attention_fwd`` over the
+    whole KV, each against ``flash_attention_plain`` (f32, on the same
+    inputs) at KERNEL_BOUND. Returns the hops' launches."""
+    from eeg2video_tpu_torch.ops import ring
+    from eeg2video_tpu_torch.ops.attention import flash_attention_fwd, flash_attention_plain
+
+    dev, heads = torch.device("cuda"), 8
+    launches = dict.fromkeys(COUNTERS, 0)
+
+    def rel(got, want):
+        return ((got.float() - want).abs().max() / want.abs().max()).item()
+
+    for label, q, k, v, bias in _ring_cases(torch, dev):
+        plain = flash_attention_plain(q.float(), k.float(), v.float(), heads, bias0=bias)
+        torch.cuda.empty_cache()
+        whole = flash_attention_fwd(q, k, v, heads, bias0=bias)
+        whole_err = rel(whole, plain)
+        whole_ms = timed_ms(lambda: flash_attention_fwd(q, k, v, heads, bias0=bias), torch, 10)
+        ok_whole = whole_err < KERNEL_BOUND and bool(torch.isfinite(whole).all())
+        say(f"ring (a) [{label}]: one whole-KV flash_attention_fwd max_rel_err {whole_err:.3e} "
+            f"against flash_attention_plain (bound {KERNEL_BOUND:.0e}), {whole_ms:.3f} ms "
+            f"{'ok' if ok_whole else 'FAILED'} [{card}]")
+        if not ok_whole:
+            fail(f"ring (a) [{label}]: the whole-KV call disagrees with its plain version")
+        scale = (q.shape[-1] // heads) ** -0.5
+        for sp in RING_SPS:
+            ring_kv = k.shape[1] % sp == 0
+            lq, lk = q.shape[1] // sp, k.shape[1] // sp
+            blocks = [(k, v, bias)]  # replicated KV: every rank's one block
+            if ring_kv:  # block j: keys j lk .. (j + 1) lk and the bias over them
+                blocks = [(k[:, j * lk:(j + 1) * lk].contiguous(),
+                           v[:, j * lk:(j + 1) * lk].contiguous(),
+                           None if bias is None else bias[..., j * lk:(j + 1) * lk].contiguous())
+                          for j in range(sp)]
+
+            def run_rank(i):
+                qi, out, lse = q[:, i * lq:(i + 1) * lq], None, None
+                for kb, vb, bb in blocks[i:] + blocks[:i]:
+                    out, lse = ring.ring_step(out, lse, qi, kb, vb, bb, heads, scale)
+                return out.to(q.dtype)
+
+            build.reset_launches()
+            got = torch.cat([run_rank(i) for i in range(sp)], dim=1)
+            torch.cuda.synchronize()
+            n = build.launches["flash_attention_fwd"]
+            for name, count in build.launches.items():
+                launches[name] += count
+            per_rank = sp if ring_kv else 1
+            err = rel(got, plain)
+            q0 = q[:, :lq]
+            first = ring.ring_step(None, None, q0, *blocks[0], heads, scale)
+            if ring_kv:  # a later hop: the launch and the log-sum-exp combine
+                hop_ms = timed_ms(lambda: ring.ring_step(*first, q0, *blocks[1], heads, scale),
+                                  torch, 10)
+            else:
+                hop_ms = timed_ms(lambda: ring.ring_step(None, None, q0, *blocks[0], heads,
+                                                         scale), torch, 10)
+            rank_ms = timed_ms(lambda: run_rank(0), torch, 10)
+            ok = (err < KERNEL_BOUND and n == sp * per_rank and bool(torch.isfinite(got).all()))
+            say(f"ring (a) [{label}] sp={sp} ({'ring' if ring_kv else 'replicated KV'}): "
+                f"max_rel_err {err:.3e} against flash_attention_plain (bound "
+                f"{KERNEL_BOUND:.0e}), "
+                f"flash_attention_fwd launches {n} ({per_rank} a rank), whole-KV call "
+                f"{whole_ms:.3f} ms, one {'hop with its combine' if ring_kv else 'call'} "
+                f"{hop_ms:.3f} ms, one rank's {per_rank} {rank_ms:.3f} ms (whole / sp "
+                f"{whole_ms / sp:.3f}) {'ok' if ok else 'FAILED'} [{card}]")
+            if not ok:
+                fail(f"ring (a) [{label}] sp={sp}: the ring's rows disagree with the plain "
+                     "version or launched another count")
+    return launches
+
+
+def _phase_tp_feed_forward(torch, build, card):
+    """(a) the feed-forward of a tp rank without residual, through ``ff_ln``
+    and ``ff_ln_f32``, against ``ff_ln_plain(..., residual=False)``: levels 0
+    and 1 of one clip's pair at tp = 2 (I / 2 of the weights), and level 0 at
+    tp = 4 (I / 4 = 320, off JAX's 128 grid, on the kernel's 64). Each case
+    also goes through ``feed_forward(..., residual=False)``, which must route
+    the shard to the same kernel launch."""
+    from eeg2video_tpu_torch.ops import geglu
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(15)
+    for t, c, tp in ((27648, 320, 2), (6912, 640, 2), (27648, 320, 4)):
+        i = 4 * c // tp
+        for dt, bound in ((torch.bfloat16, KERNEL_BOUND), (torch.float32, F32_KERNEL_BOUND)):
+            def r(*shape, scale=1.0, dtype=dt):
+                return (torch.randn(shape, generator=g, device=dev) * scale).to(dtype)
+
+            f32 = torch.float32
+            args = [r(t, c), 1.0 + 0.05 * r(c, dtype=f32), 0.02 * r(c, dtype=f32),
+                    r(2 * i, c, scale=c ** -0.5), 0.02 * r(2 * i, dtype=f32),
+                    r(c, i, scale=i ** -0.5), 0.02 * r(c, dtype=f32)]
+            kernel = "ff_ln" if dt == torch.bfloat16 else "ff_ln_f32"
+            got = geglu.ff_ln(*args, residual=False)
+            want = geglu.ff_ln_plain(*[a.float() for a in args], residual=False)
+            full = geglu.ff_ln(*args)
+            before = build.launches[kernel]
+            routed = geglu.feed_forward(*args, residual=False)
+            via_route = build.launches[kernel] - before
+            err = ((got.float() - want).abs().max() / want.abs().max()).item()
+            # the residual-free output plus x is the full block's, to the rounding of one add
+            gap = ((got.float() + args[0].float() - full.float()).abs().max()
+                   / full.float().abs().max()).item()
+            same = torch.equal(routed, got)
+            ok = err < bound and gap < bound and via_route == 1 and same
+            say(f"tp feed-forward (a) tp={tp} T={t} C={c} I/{tp}={i} {str(dt)[6:]}: "
+                f"residual-free kernel max_rel_err {err:.3e} (bound {bound:.0e}), + x against "
+                f"the full block {gap:.3e}; feed_forward(residual=False) launched {kernel} "
+                f"{via_route} time(s), bit-equal {same} {'ok' if ok else 'FAILED'} [{card}]")
+            if not ok:
+                fail(f"tp feed-forward (a): the residual-free {kernel} at C={c} I={i} disagrees "
+                     "or the shard's route left the kernel")
+
+
+def _record_videos():
+    """save_videos_grid replaced by a recorder that also writes the GIF:
+    {gif name: the (1, F, H, W, 3) float array}."""
+    from eeg2video_tpu_torch.data import video
+
+    seen, real = {}, video.save_videos_grid
+
+    def record(videos, path, **kw):
+        seen[os.path.basename(path)] = videos.copy()
+        return real(videos, path, **kw)
+
+    video.save_videos_grid = record
+    return seen, lambda: setattr(video, "save_videos_grid", real)
+
+
+def _phase_mesh_world1(torch, build, card, tmp):
+    """(b) inference_eeg2video.main with --dp 1 (a world of one on a local
+    store, NCCL) against the same command without it: bit-equal videos.
+    Returns the --dp 1 run's launches and its GIF bytes."""
+    import numpy as np
+    import torch.distributed as dist
+
+    from eeg2video_tpu_torch.cli import inference_eeg2video
+
+    runs, launches = {}, None
+    for tag, extra in (("one_gpu", []), ("dp1", ["--dp", "1"])):
+        out_dir = os.path.join(tmp, tag)
+        seen, restore = _record_videos()
+        build.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        try:
+            inference_eeg2video.main([*_mesh_command(tmp), *extra, "--out_dir", out_dir])
+        finally:
+            restore()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        if tag == "dp1":
+            launches = dict(build.launches)
+            backend, world = dist.get_backend(), dist.get_world_size()
+            x = torch.ones(4, device="cuda")
+            dist.all_reduce(x)
+            say(f"mesh (b): the --dp 1 group: backend {backend}, world size {world}, an "
+                f"all_reduce on the card gave {x.tolist()}")
+            if backend != "nccl" or world != 1 or x.tolist() != [1.0] * 4:
+                fail("mesh (b): --dp 1 did not run on a world of one over NCCL")
+            dist.destroy_process_group()
+        names = sorted(os.listdir(out_dir))
+        runs[tag] = (names, seen)
+        forwards = launches["flash_attention_fwd"] / EXPECTED_PER_FORWARD["flash_attention_fwd"] \
+            if tag == "dp1" else None
+        say(f"mesh (b): inference_eeg2video.main {' '.join(extra) or '(no mesh)'}: {names}, "
+            f"{secs:.1f} s with loading the pipeline"
+            + (f", {forwards:g} UNet forwards, launches {_nonzero(launches)}" if forwards else "")
+            + f" [{card}]")
+    (names1, one), (names2, dp1) = runs["one_gpu"], runs["dp1"]
+    same = names1 == names2 == [f"{i}.gif" for i in range(MESH_CLIPS)] and all(
+        np.array_equal(one[n], dp1[n]) for n in names1)
+    want = {k: n * STEPS for k, n in EXPECTED_PER_FORWARD.items()}
+    ok = same and {k: launches[k] for k in want} == want
+    say(f"mesh (b): --dp 1 against no mesh: videos bit-equal {same}, launches "
+        f"{ {k: launches[k] for k in want} } (expected {want}) {'ok' if ok else 'FAILED'}")
+    if not ok:
+        fail("mesh (b): --dp 1 differs from the run without a mesh")
+    with open(os.path.join(tmp, "dp1", "0.gif"), "rb") as f:
+        return launches, f.read()
+
+
+def _mesh_command(tmp):
+    return ["--embeddings", os.path.join(tmp, "embeddings.npy"), "--woSeq2Seq",
+            "--unet", os.path.join(tmp, "unet.pt"), "--vae", os.path.join(tmp, "vae.pt"),
+            "--limit", str(MESH_CLIPS), "--batch", str(MESH_CLIPS), "--num_inference_steps",
+            str(STEPS), "--gif_encoder", "native"]
+
+
+def _phase_torchrun(torch, card, tmp, gif0):
+    """(c) the same --dp 1 command under ``torchrun --nproc_per_node 1``
+    (``python -m torch.distributed.run --standalone``), in a subprocess with a
+    timeout: init_distributed takes the launcher's environment."""
+    out_dir = os.path.join(tmp, "torchrun")
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node", "1",
+           "-m", "eeg2video_tpu_torch.cli.inference_eeg2video", *_mesh_command(tmp), "--dp", "1",
+           "--out_dir", out_dir]
+    t0 = time.perf_counter()
+    try:
+        res = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True,
+                             timeout=TORCHRUN_TIMEOUT)
+    except subprocess.TimeoutExpired:
+        fail(f"mesh (c): torchrun passed its {TORCHRUN_TIMEOUT} s timeout")
+    secs = time.perf_counter() - t0
+    log = res.stderr.strip().splitlines()
+    launcher = [ln for ln in log if "process group" in ln]
+    names = sorted(os.listdir(out_dir)) if os.path.isdir(out_dir) else []
+    same = False
+    if names:
+        with open(os.path.join(out_dir, "0.gif"), "rb") as f:
+            same = f.read() == gif0
+    ok = (res.returncode == 0 and names == [f"{i}.gif" for i in range(MESH_CLIPS)]
+          and any("from the launcher" in ln for ln in launcher))
+    say(f"mesh (c): torchrun --nproc_per_node 1 ... --dp 1: exit {res.returncode}, {names}, "
+        f"{secs:.1f} s with the launcher and loading; {launcher[-1:] or log[-3:]}; 0.gif "
+        f"byte-equal to (b)'s {same} {'ok' if ok else 'FAILED'} [{card}]")
+    if not ok:
+        fail("mesh (c): the torchrun launch failed or did not take the launcher's group")
+
+
+def phase_section14(torch, build, card):
+    """Section 14: multi-GPU generation on one card. (a) the ring's hop step
+    and a tp rank's residual-free feed-forward; (b) the mesh path at world size
+    1 over NCCL (--dp 1) against no mesh; (c) a torchrun launch of it. Returns
+    the launches of the ring hops and of the --dp 1 path."""
+    import numpy as np
+
+    from eeg2video_tpu_torch.diffusion.pipeline import EEG2VideoPipeline
+    from eeg2video_tpu_torch.models.init import random_init_
+    from eeg2video_tpu_torch.models.unet3d import UNet3DConfig
+    from eeg2video_tpu_torch.models.vae import VAEConfig
+
+    t_section = time.perf_counter()
+    ring_launches = _phase_ring_hops(torch, build, card)
+    _phase_tp_feed_forward(torch, build, card)
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="e2v_mesh_") as tmp:
+        g = torch.Generator(device="cuda").manual_seed(16)
+        pipe = EEG2VideoPipeline.create(None, None, UNet3DConfig(), VAEConfig(),
+                                        dtype=torch.bfloat16, device="cuda")
+        random_init_(pipe.unet, g)
+        random_init_(pipe.vae, g)
+        torch.save(pipe.unet.state_dict(), os.path.join(tmp, "unet.pt"))
+        torch.save(pipe.vae.state_dict(), os.path.join(tmp, "vae.pt"))
+        del pipe
+        torch.cuda.empty_cache()
+        np.save(os.path.join(tmp, "embeddings.npy"), np.random.default_rng(16).standard_normal(
+            (MESH_CLIPS, 77 * 768)).astype(np.float32))
+        mesh_launches, gif0 = _phase_mesh_world1(torch, build, card, tmp)
+        torch.cuda.empty_cache()
+        _phase_torchrun(torch, card, tmp, gif0)
+    say(f"section 14: {time.perf_counter() - t_section:.1f} s")
+    return {"ring_hops": ring_launches, "mesh": mesh_launches}
+
+
 def _profile_step(torch, step, what="train: one step"):
     """One call of ``step`` under torch.profiler: where the device time goes,
     by the port's one grouping of its kernels (``utils.profiling``:
@@ -3535,6 +3823,8 @@ def main():
     recipe.update(phase_section12(torch, build, smi_line))
     torch.cuda.empty_cache()
     recipe.update(phase_section13(torch, build, smi_line))
+    torch.cuda.empty_cache()
+    recipe.update(phase_section14(torch, build, smi_line))
     leaked = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "jaxlib", "flax", "eeg2video_tpu"))
     if leaked:
@@ -3589,6 +3879,12 @@ def main():
         if name in EXPECTED_PER_FORWARD and not all(
                 per_path[f"launches_{p}_path"] for p in ("text", "inversion", "run_pipeline")):
             fail(f"launches: the text, inversion or run_pipeline path did not launch {name}")
+        # section 14: the --dp 1 mesh path runs the generation kernels, the
+        # ring's hops the attention forward
+        if name in EXPECTED_PER_FORWARD and not per_path["launches_mesh_path"]:
+            fail(f"launches: the --dp 1 mesh path did not launch {name}")
+        if name == "flash_attention_fwd" and not per_path["launches_ring_hops_path"]:
+            fail("launches: the ring's hops did not launch flash_attention_fwd")
         kernels.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
                         "launches": per_path[f"launches_{path}_path"], "launches_path": path,
                         **per_path,

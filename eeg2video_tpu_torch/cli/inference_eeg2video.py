@@ -7,7 +7,11 @@ file (200, 77*768); negative = its mean (L45); latent source ablations
 --woSeq2Seq (fresh noise) / --woDANA (Seq2Seq latents) / default full model
 (DANA latents); 100 DDIM steps, guidance 12.5, 6 frames @ 288x512 (L74-86);
 GIFs via save_videos_grid. Clips are processed in batches (default 8 per
-call) on one GPU instead of the reference's one-clip-per-call loop.
+call) instead of the reference's one-clip-per-call loop, on one GPU or, with
+``--dp/--tp/--sp``, on a mesh of GPUs, one process each
+(``torchrun --nproc_per_node <n> -m eeg2video_tpu_torch.cli.inference_eeg2video
+--dp ... --tp ... --sp ...``; ``--dp 1`` without a launcher is a mesh of one),
+where rank 0 writes every GIF.
 ``--legacy`` encodes the EEG in the same run instead of reading
 ``--embeddings`` (reference EEG2Video/inference_eeg2video.py:38-65; see
 ``legacy_embeddings``).
@@ -28,6 +32,8 @@ from ..convert.export_diffusion import (load_diffusers_unet, load_diffusers_vae,
 from ..diffusion.pipeline import EEG2VideoPipeline, latents_from_torch_layout
 from ..models.unet3d import UNet3DConfig
 from ..models.vae import VAEConfig
+from ..parallel import init_distributed, is_host0, make_mesh
+from ..parallel.distributed import from_launcher, world_size
 from ..serving.runtimes import load_semantic_state
 from ..train.semantic import predict_semantic
 from ..utils import StandardScaler, get_logger, resolve_device
@@ -159,19 +165,34 @@ def build_parser():
                    help="imageio = reference mimsave encode (parity default); "
                         "fast = shared-palette PIL encode; native = C++ "
                         "encoder (csrc/gif_encoder.cpp)")
-    p.add_argument("--dp", type=int, default=0, help="(not ported: refused) multi-GPU")
-    p.add_argument("--tp", type=int, default=1, help="(not ported: refused) multi-GPU")
-    p.add_argument("--sp", type=int, default=1, help="(not ported: refused) multi-GPU")
+    p.add_argument("--dp", type=int, default=0,
+                   help="data-parallel generation over a mesh of GPUs, one process each "
+                        "(0 = one GPU without a mesh; with --tp/--sp, 0 = the world size "
+                        "over tp*sp); --batch must divide by dp")
+    p.add_argument("--tp", type=int, default=1,
+                   help="tensor-parallel UNet: Megatron splits of every attention and "
+                        "feed-forward projection over tp GPUs")
+    p.add_argument("--sp", type=int, default=1,
+                   help="sequence-parallel (ring attention) shards: spatial attention "
+                        "split over an sp axis of the mesh (ops.ring); composes with --tp")
     return p
 
 
 def main(argv=None):
     p = build_parser()
     args = p.parse_args(argv)
+    init_distributed(args.device)  # a launcher's group, if any, before anything else
+    mesh_dp = None
     if args.dp or args.tp > 1 or args.sp > 1:
-        p.error("--dp/--tp/--sp: multi-GPU generation is not ported; this entry "
-                "point runs on one GPU")
+        mesh_dp = args.dp or max(1, world_size() // (args.tp * args.sp))
+        if args.batch % mesh_dp:
+            p.error(f"--batch {args.batch} must be divisible by --dp {mesh_dp}")
     device = resolve_device(args.device)  # fail before reading anything
+    if mesh_dp is not None:
+        mesh = make_mesh(dp=mesh_dp, tp=args.tp, sp=args.sp, device=device)
+        log.info("%r on %s: process group %s, world size %d%s", mesh, mesh.device,
+                 torch.distributed.get_backend(), world_size(),
+                 ", from the launcher's environment" if from_launcher() else "")
 
     if args.legacy:
         emb = legacy_embeddings(args.raw_features, args.semantic_ckpt, args.torch_semantic,
@@ -202,9 +223,14 @@ def main(argv=None):
     out_dir = args.out_dir or f"./outputs/{tag}"
 
     pipe = load_pipeline(args.unet, args.vae, dtype=args.dtype, device=device)
+    if mesh_dp is not None:
+        from ..train import unet_tp_rules
+
+        pipe = pipe.shard(mesh, unet_tp_rules if args.tp > 1 else None)
     # created only after the pipeline loads: a failed load leaves no (empty)
     # out_dir for a make-style resume to mistake for a completed stage
-    os.makedirs(out_dir, exist_ok=True)
+    if is_host0():
+        os.makedirs(out_dir, exist_ok=True)
     generate(pipe, emb, negative, latents, out_dir, args)
 
 
@@ -213,21 +239,36 @@ def generate(pipe, emb, negative, latents, out_dir, args):
     ``args.batch`` and write ``out_dir/<i>.gif``. GIF encodes run on writer
     threads, and each batch's device work is issued before the previous
     batch's transfer and encode. Fresh-noise latents (``latents`` None) come
-    from a generator on the pipeline's device seeded by (seed, batch start)."""
+    from a generator on the pipeline's device seeded by (seed, batch start).
+
+    On a mesh (``pipe.shard``) a tail batch that dp does not divide is padded
+    to a dp multiple by repeating its last clip (its latents drawn for the
+    real clips first, so that they are those of the run without a mesh), and
+    the padding is dropped; every rank computes, rank 0 writes."""
     writer = AsyncVideoWriter(encoder=args.gif_encoder)
+    dp = pipe.mesh.size("dp") if pipe.mesh is not None else 1
 
     def run(s):
         e = emb[s:s + args.batch]
         lat = None if latents is None else latents[s:s + args.batch]
         gen = torch.Generator(device=pipe.device).manual_seed(args.seed * 1000003 + s)
+        m = len(e)
+        if m % dp:  # pad the tail to a dp multiple with its last clip, dropped in flush
+            if lat is None:
+                lat = torch.randn((m, args.video_length, args.height // 8, args.width // 8, 4),
+                                  generator=gen, device=pipe.device, dtype=torch.float32)
+            idx = list(range(m)) + [m - 1] * (dp - m % dp)
+            e, lat = e[idx], torch.as_tensor(lat, device=pipe.device)[idx]
         return pipe(e, negative, latents=lat, generator=gen,
                     video_length=args.video_length, height=args.height,
                     width=args.width, num_inference_steps=args.num_inference_steps,
-                    guidance_scale=args.guidance_scale, sampler=args.sampler), len(e)
+                    guidance_scale=args.guidance_scale, sampler=args.sampler), m
 
     def flush(out, s):
         videos, m = out
-        videos = videos.detach().float().cpu().numpy()
+        if not is_host0():
+            return
+        videos = videos[:m].detach().float().cpu().numpy()
         for j in range(m):
             writer.submit(videos[j:j + 1], os.path.join(out_dir, f"{s + j}.gif"))
         log.info("clips %d..%d -> %s", s, s + m - 1, out_dir)

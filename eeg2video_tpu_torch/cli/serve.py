@@ -212,7 +212,16 @@ def build_parser():
                         "(with --coalesce their clips batch into shared "
                         "dispatches), replies route per connection, port 0 "
                         "binds an ephemeral port (reported on stdout)")
+    for flag, default in (("dp", 0), ("tp", 1), ("sp", 1)):
+        p.add_argument(f"--{flag}", type=_not_ported_yet, default=default,
+                       help="(not ported yet: refused) a mesh of GPUs under the server")
     return p
+
+
+def _not_ported_yet(value):
+    raise argparse.ArgumentTypeError(
+        "multi-GPU serving is not ported yet (ROADMAP.md §1 item 7: rank 0's transport "
+        "broadcasting each dispatch to the other ranks); the server runs on one GPU")
 
 
 def warmup(pipe, args):

@@ -186,8 +186,8 @@ def main(argv=None):
     p = build_parser()
     args = p.parse_args(argv)
     if args.dp > 1:
-        p.error("--dp: the data-parallel GLMNet trainer is multi-GPU and not ported; this "
-                "entry point runs on one GPU")
+        p.error("--dp: the data-parallel GLMNet trainer is multi-GPU and not ported yet "
+                "(ROADMAP.md §1 item 7); this entry point runs on one GPU")
     device = resolve_device(args.device)
 
     raw_sw = load_array(os.path.join(args.raw_dir, f"sub{args.sub}.npy"))

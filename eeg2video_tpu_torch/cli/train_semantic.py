@@ -61,7 +61,8 @@ def main(argv=None):
     for flag in ("tp", "pp", "n_micro"):
         if getattr(args, flag) != 1:
             p.error(f"--{flag}: the tensor-parallel and pipelined semantic trainers are "
-                    "multi-GPU and not ported; this entry point runs on one GPU")
+                    "multi-GPU and not ported yet (ROADMAP.md §1 item 7); this entry point "
+                    "runs on one GPU")
     device = resolve_device(args.device)  # fail before reading anything
 
     feats = load_array(args.features)

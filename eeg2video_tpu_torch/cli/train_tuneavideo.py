@@ -144,7 +144,8 @@ def refuse_unported(args):
     port does not have yet."""
     for flag, off, what in NOT_PORTED:
         if getattr(args, flag) not in off:
-            raise SystemExit(f"--{flag} ({what}) is not ported to the PyTorch trainer yet")
+            raise SystemExit(f"--{flag} ({what}) is not ported to the PyTorch trainer yet: "
+                             "the next item of ROADMAP.md §1 item 7")
 
 
 def train(unet, vae, data, contexts, args, cfg=None, on_step=None):

@@ -1,6 +1,7 @@
 // ff_f32 / ff_f32_bwd: the f32 counterparts of ff_ln / ff_ln_bwd, the whole
 // pre-LN GEGLU feed-forward block with its residual and its input gradient,
-//   out = x + (h * gelu_erf(g)) Wo^T + bo,   [h | g] = LN(x) Wp^T + bp,
+//   out = x + (h * gelu_erf(g)) Wo^T + bo,   [h | g] = LN(x) Wp^T + bp
+//   (or, for a tensor-parallel rank's partial product, without the x),
 //   dx  = dout + rstd (dxn - mean(dxn) - xhat mean(dxn xhat)),
 //         dxn = (dh2 Wp) gamma, dh2 = [dgated gelu(g) | dgated h gelu'(g)],
 //         dgated = dout Wo.
@@ -188,7 +189,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     }
 }
 
-// out = x + gated Wo^T + bo over a 128-row x kOutN-column tile
+// out = x + gated Wo^T + bo over a 128-row x kOutN-column tile (x null: no x)
 __global__ void __launch_bounds__(kThreads, 1)
     ff_f32_out_kernel(const float* __restrict__ x, const float* __restrict__ gated,
                       const float* __restrict__ wo, const float* __restrict__ bo,
@@ -209,7 +210,7 @@ __global__ void __launch_bounds__(kThreads, 1)
         const int c = out_col(n0, j);
         if (c >= C) continue;
         const long long idx = (long long)row * C + c;
-        const float2 xv = *reinterpret_cast<const float2*>(x + idx);
+        const float2 xv = x ? *reinterpret_cast<const float2*>(x + idx) : make_float2(0.f, 0.f);
         *reinterpret_cast<float2*>(out + idx) =
             make_float2(xv.x + acc[i][j][2 * h] + bo[c], xv.y + acc[i][j][2 * h + 1] + bo[c + 1]);
       }
@@ -358,6 +359,7 @@ struct FfArgs {
   float *out, *work;
   int T, C, I;
   float eps;
+  const float* xres;  // the residual added to the forward's output, or null
 };
 
 int run(const FfArgs& a, bool backward, cudaStream_t s) {
@@ -374,7 +376,7 @@ int run(const FfArgs& a, bool backward, cudaStream_t s) {
     if ((rc = launch(ff_f32_gate_kernel, rows * chunks, kGateSmem, s, a.x, (const float*)mu,
                      (const float*)rstd, a.gamma, a.beta, a.wp, a.bp, inter, a.T, a.C, a.I)))
       return rc;
-    return launch(ff_f32_out_kernel, rows * cols, kOutSmem, s, a.x, (const float*)inter, a.wo,
+    return launch(ff_f32_out_kernel, rows * cols, kOutSmem, s, a.xres, (const float*)inter, a.wo,
                   a.bo, a.out, a.T, a.C, a.I);
   }
   if ((rc = launch(ff_f32_bwd_ln_stats_kernel, warp_rows, 0, s, a.x, mu, rstd, a.T, a.C, a.eps)))
@@ -404,16 +406,17 @@ int dispatch(const FfArgs& a, bool backward, void* stream) {
 
 // x, out (T, C); gamma, beta, bo (C); wp (2I, C) (nn.Linear layout), bp (2I);
 // wo (C, I); work, the workspace (T I + 2 T floats); all f32, contiguous,
-// 16-byte aligned. C % 8 == 0, C <= 640, I % 64 == 0. Returns the
-// CUDA launch status.
+// 16-byte aligned. C % 8 == 0, C <= 640, I % 64 == 0. residual 0 leaves x
+// out of the sum (x then feeds LayerNorm only). Returns the CUDA launch status.
 extern "C" int e2v_ff_f32(const void* x, const void* gamma, const void* beta, const void* wp,
                           const void* bp, const void* wo, const void* bo, void* out, void* work,
-                          int T, int C, int I, float eps, void* stream) {
+                          int T, int C, int I, float eps, void* stream, int residual) {
   e2v::f32k::FfArgs a = {static_cast<const float*>(x), nullptr,
                          static_cast<const float*>(gamma), static_cast<const float*>(beta),
                          static_cast<const float*>(wp), static_cast<const float*>(bp),
                          static_cast<const float*>(wo), static_cast<const float*>(bo),
-                         static_cast<float*>(out), static_cast<float*>(work), T, C, I, eps};
+                         static_cast<float*>(out), static_cast<float*>(work), T, C, I, eps,
+                         residual ? static_cast<const float*>(x) : nullptr};
   return e2v::f32k::dispatch(a, false, stream);
 }
 
@@ -427,6 +430,7 @@ extern "C" int e2v_ff_f32_bwd(const void* x, const void* g, const void* gamma, c
                          static_cast<const float*>(gamma), static_cast<const float*>(beta),
                          static_cast<const float*>(wp), static_cast<const float*>(bp),
                          static_cast<const float*>(wo), nullptr,
-                         static_cast<float*>(dx), static_cast<float*>(work), T, C, I, eps};
+                         static_cast<float*>(dx), static_cast<float*>(work), T, C, I, eps,
+                         nullptr};
   return e2v::f32k::dispatch(a, true, stream);
 }

@@ -1,5 +1,8 @@
 // ff_ln: the whole pre-LN GEGLU feed-forward block with its residual,
-//   out = x + (h * gelu_erf(g)) Wo^T + bo,   [h | g] = LN(x) Wp^T + bp.
+//   out = x + (h * gelu_erf(g)) Wo^T + bo,   [h | g] = LN(x) Wp^T + bp,
+// or without the residual (out = (h * gelu_erf(g)) Wo^T + bo): the partial
+// product of a tensor-parallel rank, whose residual is added once after the
+// sum over the ranks.
 //
 // Replaces (JAX package): eeg2video_tpu/ops/geglu.py _ff_kernel (:213), the
 // C <= 640 feed-forward of every BasicTransformerBlock at levels 0 and 1.
@@ -113,10 +116,11 @@ __device__ __forceinline__ void load_step(bf16* ring, const bf16* __restrict__ w
   });
 }
 
-// out[idx], out[idx + 1] = x + acc + bo, in f32, rounded once
+// out[idx], out[idx + 1] = x + acc + bo, in f32, rounded once; x null: acc + bo
 __device__ __forceinline__ void residual_pair(bf16* out, const bf16* x, long long idx, float a0,
                                               float a1, float2 b) {
-  const float2 xv = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(x + idx));
+  const float2 xv = x ? __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(x + idx))
+                      : make_float2(0.f, 0.f);
   *reinterpret_cast<uint32_t*>(out + idx) = pack_bf16(xv.x + a0 + b.x, xv.y + a1 + b.y);
 }
 
@@ -125,8 +129,8 @@ __global__ void __launch_bounds__(FfShape<CT>::kThreads)
     ff_ln_kernel(const bf16* __restrict__ x, const float* __restrict__ gamma,
                  const float* __restrict__ beta, const bf16* __restrict__ wp,
                  const float* __restrict__ bp, const bf16* __restrict__ wo,
-                 const float* __restrict__ bo, bf16* __restrict__ out, int T, int Cr, int I,
-                 float eps) {
+                 const float* __restrict__ bo, const bf16* __restrict__ xres,
+                 bf16* __restrict__ out, int T, int Cr, int I, float eps) {
   using S = FfShape<CT>;
   constexpr int C = S::C, LDX = S::LDX, NT1 = S::NT1, NT2 = S::NT2, MT = S::MT;
   extern __shared__ __align__(128) unsigned char smem[];
@@ -287,22 +291,22 @@ __global__ void __launch_bounds__(FfShape<CT>::kThreads)
       const float2 b = *reinterpret_cast<const float2*>(bo + col);
       if (col >= Cr) continue;  // a padded column: never stored
       if (r_lo < T)
-        residual_pair(out, x, (long long)r_lo * C + col, acc[m][n][0], acc[m][n][1], b);
+        residual_pair(out, xres, (long long)r_lo * C + col, acc[m][n][0], acc[m][n][1], b);
       if (r_hi < T)
-        residual_pair(out, x, (long long)r_hi * C + col, acc[m][n][2], acc[m][n][3], b);
+        residual_pair(out, xres, (long long)r_hi * C + col, acc[m][n][2], acc[m][n][3], b);
     }
   }
 }
 
 template <int CT>
 int launch_ff(const bf16* x, const float* gamma, const float* beta, const bf16* wp,
-              const float* bp, const bf16* wo, const float* bo, bf16* out, int T, int Cr,
-              int I, float eps, void* stream) {
+              const float* bp, const bf16* wo, const float* bo, const bf16* xres, bf16* out,
+              int T, int Cr, int I, float eps, void* stream) {
   using S = FfShape<CT>;
   if (T == 0) return 0;
   const dim3 grid((T + kBM - 1) / kBM);
   E2V_LAUNCH(ff_ln_kernel<CT>, grid, S::kThreads, S::kSmem, stream, x, gamma, beta, wp, bp, wo,
-             bo, out, T, Cr, I, eps);
+             bo, xres, out, T, Cr, I, eps);
 }
 
 }  // namespace
@@ -314,10 +318,11 @@ int launch_ff(const bf16* x, const float* gamma, const float* beta, const bf16* 
 // narrower block comes zero-padded to C columns (x, gamma, beta, the columns
 // of wp, the rows of wo, bo); LayerNorm then uses the first Cr columns only
 // and the output's columns past Cr are not stored (Cr % 2 == 0). At Cr == C
-// the arithmetic is the unpadded kernel's. Returns the CUDA launch status.
+// the arithmetic is the unpadded kernel's. residual 0 leaves x out of the sum
+// (x then feeds LayerNorm only). Returns the CUDA launch status.
 extern "C" int e2v_ff_ln(const void* x, const void* gamma, const void* beta, const void* wp,
                          const void* bp, const void* wo, const void* bo, void* out, int T,
-                         int C, int Cr, int I, float eps, void* stream) {
+                         int C, int Cr, int I, float eps, void* stream, int residual) {
   using namespace e2v;
   const bf16* xx = static_cast<const bf16*>(x);
   const float* g = static_cast<const float*>(gamma);
@@ -327,19 +332,20 @@ extern "C" int e2v_ff_ln(const void* x, const void* gamma, const void* beta, con
   const bf16* o = static_cast<const bf16*>(wo);
   const float* ob = static_cast<const float*>(bo);
   bf16* y = static_cast<bf16*>(out);
+  const bf16* xr = residual ? xx : nullptr;
   if (C % 64 != 0 || I % kIC != 0 || Cr > C || Cr <= C - 64 || Cr % 2 != 0)
     return (int)cudaErrorInvalidValue;
   switch (C / 64) {
-    case 1: return launch_ff<1>(xx, g, b, p, pb, o, ob, y, T, Cr, I, eps, stream);
-    case 2: return launch_ff<2>(xx, g, b, p, pb, o, ob, y, T, Cr, I, eps, stream);
-    case 3: return launch_ff<3>(xx, g, b, p, pb, o, ob, y, T, Cr, I, eps, stream);
-    case 4: return launch_ff<4>(xx, g, b, p, pb, o, ob, y, T, Cr, I, eps, stream);
-    case 5: return launch_ff<5>(xx, g, b, p, pb, o, ob, y, T, Cr, I, eps, stream);
-    case 6: return launch_ff<6>(xx, g, b, p, pb, o, ob, y, T, Cr, I, eps, stream);
-    case 7: return launch_ff<7>(xx, g, b, p, pb, o, ob, y, T, Cr, I, eps, stream);
-    case 8: return launch_ff<8>(xx, g, b, p, pb, o, ob, y, T, Cr, I, eps, stream);
-    case 9: return launch_ff<9>(xx, g, b, p, pb, o, ob, y, T, Cr, I, eps, stream);
-    case 10: return launch_ff<10>(xx, g, b, p, pb, o, ob, y, T, Cr, I, eps, stream);
+    case 1: return launch_ff<1>(xx, g, b, p, pb, o, ob, xr, y, T, Cr, I, eps, stream);
+    case 2: return launch_ff<2>(xx, g, b, p, pb, o, ob, xr, y, T, Cr, I, eps, stream);
+    case 3: return launch_ff<3>(xx, g, b, p, pb, o, ob, xr, y, T, Cr, I, eps, stream);
+    case 4: return launch_ff<4>(xx, g, b, p, pb, o, ob, xr, y, T, Cr, I, eps, stream);
+    case 5: return launch_ff<5>(xx, g, b, p, pb, o, ob, xr, y, T, Cr, I, eps, stream);
+    case 6: return launch_ff<6>(xx, g, b, p, pb, o, ob, xr, y, T, Cr, I, eps, stream);
+    case 7: return launch_ff<7>(xx, g, b, p, pb, o, ob, xr, y, T, Cr, I, eps, stream);
+    case 8: return launch_ff<8>(xx, g, b, p, pb, o, ob, xr, y, T, Cr, I, eps, stream);
+    case 9: return launch_ff<9>(xx, g, b, p, pb, o, ob, xr, y, T, Cr, I, eps, stream);
+    case 10: return launch_ff<10>(xx, g, b, p, pb, o, ob, xr, y, T, Cr, I, eps, stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -1,11 +1,16 @@
 """EEG-conditioned video generation: ``EEG2VideoPipeline``.
 
 Counterpart of ``eeg2video_tpu/diffusion/pipeline.py`` (``_sample`` and
-``EEG2VideoPipeline``, :39-137, 165-213; the layout helpers :216-259),
-single device. A (B, 77*768) semantic embedding and optional initial latents
-go in; DDIM or DPM-Solver++(2M) runs one UNet call per step on the
-classifier-free-guidance pair; each frame is decoded by the VAE on its own.
-The models run in bf16, the scheduler math in f32.
+``EEG2VideoPipeline``, :39-213; the layout helpers :216-259). A (B, 77*768)
+semantic embedding and optional initial latents go in; DDIM or
+DPM-Solver++(2M) runs one UNet call per step on the classifier-free-guidance
+pair; each frame is decoded by the VAE on its own. The models run in bf16,
+the scheduler math in f32.
+
+Across GPUs (``shard``, forward only): each dp rank runs the guidance pair of
+its slice of the batch, the UNet under ``sp_scope`` (ring attention) and with
+its tp shards; the VAE stays whole and decodes the rank's slice; the result
+is gathered over dp and returned whole on every rank.
 """
 
 from __future__ import annotations
@@ -15,6 +20,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from ..models import attention3d
 from ..models.unet3d import UNet3DConditionModel, UNet3DConfig
 from ..models.vae import SD_VAE_SCALE, AutoencoderKL, VAEConfig
 from ..utils.device import resolve_device
@@ -26,6 +32,7 @@ class EEG2VideoPipeline:
     unet: UNet3DConditionModel
     vae: AutoencoderKL
     dtype: torch.dtype = torch.bfloat16
+    mesh: object = None  # a parallel.Mesh, set by shard()
 
     @property
     def device(self):
@@ -51,6 +58,28 @@ class EEG2VideoPipeline:
             models.append(model.requires_grad_(False))
         return cls(unet=models[0], vae=models[1], dtype=dtype)
 
+    def shard(self, mesh, tp_rules=None):
+        """Multi-GPU generation on ``mesh`` (``parallel.make_mesh``; every rank
+        calls it): the UNet's parameters are sliced in place by ``tp_rules``
+        (``train.unet_tp_rules`` for Megatron tp; None keeps them whole), the
+        VAE stays whole, and every later call splits its batch over dp and
+        routes spatial attention through ring attention where the mesh has an
+        sp axis of size > 1. Returns self. Raises, before slicing anything,
+        where tp would cut an attention's heads (a rank's shard of to_q/k/v
+        must hold whole heads)."""
+        from ..parallel import shard_params
+
+        tp = mesh.size("tp")
+        if tp_rules is not None and tp > 1:
+            for name, m in self.unet.named_modules():
+                if (isinstance(m, attention3d.Attention) and m.heads % tp
+                        and tp_rules(f"{name}.to_q.weight") is not None):
+                    raise ValueError(f"{name}: heads={m.heads} not divisible by tp={tp}")
+        shard_params(self.unet, mesh, tp_rules)
+        shard_params(self.vae, mesh, None)
+        self.mesh = mesh
+        return self
+
     @torch.inference_mode()
     def __call__(self, embeddings, negative, *, latents=None, generator=None,
                  video_length=6, height=288, width=512, num_inference_steps=50,
@@ -74,19 +103,45 @@ class EEG2VideoPipeline:
         dev, dt = self.device, self.dtype
         embeddings = torch.as_tensor(embeddings, device=dev)
         b = embeddings.shape[0]
-        emb = embeddings.reshape(b, 77, 768).to(dt)
+        h8, w8 = height // 8, width // 8
+        if latents is None:  # drawn for the whole batch, so clips do not depend on dp
+            latents = torch.randn((b, video_length, h8, w8, 4), generator=generator,
+                                  device=dev, dtype=torch.float32)
+        latents = torch.as_tensor(latents, device=dev)
         negative = torch.as_tensor(negative, device=dev)
+        sp_mesh = None
+        if self.mesh is not None:
+            from ..parallel import shard_batch
+
+            dp = self.mesh.size("dp")
+            if b % dp:
+                raise ValueError(f"batch {b} not divisible by dp={dp}")
+            embeddings = shard_batch(embeddings, self.mesh)
+            latents = shard_batch(latents, self.mesh)
+            if negative.dim() > 1:
+                negative = shard_batch(negative, self.mesh)
+            b //= dp
+            sp_mesh = self.mesh if self.mesh.size("sp") > 1 else None
+        emb = embeddings.reshape(b, 77, 768).to(dt)
         if negative.dim() == 1:
             neg = negative.reshape(1, 77, 768).expand(b, 77, 768)
         else:
             neg = negative.reshape(b, 77, 768)
         context = torch.cat([neg.to(dt), emb], dim=0)  # CFG pair [neg, cond]
+        with attention3d.sp_scope(sp_mesh):
+            out = self._sample(context, latents, sched, guidance_scale, sampler, decode,
+                               video_length, height, width)
+        if self.mesh is not None:
+            from ..parallel import gather_batch
 
-        h8, w8 = height // 8, width // 8
-        if latents is None:
-            latents = torch.randn((b, video_length, h8, w8, 4), generator=generator,
-                                  device=dev, dtype=torch.float32)
-        lat = torch.as_tensor(latents, device=dev).float() * sched.init_noise_sigma
+            out = gather_batch(out, self.mesh)
+        return out
+
+    def _sample(self, context, latents, sched, guidance_scale, sampler, decode, video_length,
+                height, width):
+        dev, dt = self.device, self.dtype
+        b = latents.shape[0]
+        lat = latents.float() * sched.init_noise_sigma
 
         x0 = torch.zeros_like(lat)  # DPM++'s history; not read at the first step
         for i, t in enumerate(sched.timesteps):

@@ -51,7 +51,7 @@ SIGNATURES = {
                                 ctypes.POINTER(I), F, P],
     "e2v_temporal_attention_fwd": [P, P, P, P, LL, LL, I, I, I, I, I, F, P],
     "e2v_temporal_attention_bwd": [P, P, P, P, P, P, P, LL, LL, I, I, I, I, I, F, P],
-    "e2v_ff_ln": [P, P, P, P, P, P, P, P, I, I, I, I, F, P],
+    "e2v_ff_ln": [P, P, P, P, P, P, P, P, I, I, I, I, F, P, I],
     "e2v_ff_ln_bwd": [P, P, P, P, P, P, P, P, I, I, I, I, F, P],
     "e2v_ff_ln_bwd_block_rows": [I],
     "e2v_geglu_out": [P, P, P, P, I, I, I, P],
@@ -64,7 +64,7 @@ SIGNATURES = {
     "e2v_flash_f32_bwd": [ctypes.POINTER(P), ctypes.POINTER(LL), ctypes.POINTER(I), F, P],
     "e2v_temporal_attention_fwd_f32": [P, P, P, P, LL, LL, I, I, I, I, I, F, P],
     "e2v_temporal_attention_bwd_f32": [P, P, P, P, P, P, P, LL, LL, I, I, I, I, I, F, P],
-    "e2v_ff_f32": [P, P, P, P, P, P, P, P, P, I, I, I, F, P],
+    "e2v_ff_f32": [P, P, P, P, P, P, P, P, P, I, I, I, F, P, I],
     "e2v_ff_f32_bwd": [P, P, P, P, P, P, P, P, P, I, I, I, F, P],
     "e2v_geglu_f32": [P, P, P, P, P, I, I, I, P],
     "e2v_geglu_f32_bwd": [P, P, P, P, I, I, I, P],

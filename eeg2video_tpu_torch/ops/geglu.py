@@ -29,6 +29,7 @@ from ._build import aligned16 as _aligned16
 
 FF_MAX_C = 640  # C <= 640 runs the whole block in ff_ln (geglu.py:407)
 FF_GRID = 64    # csrc/ff_ln.cu: C is a multiple of 64; narrower blocks come zero-padded
+FF_CHUNK = 64   # csrc/ff_tiles.cuh kIC: ff_ln walks I in 64-wide chunks
 # csrc/geglu_out.cu: a row block of GEGLU_ROWS rows is a cluster of blocks
 # along C that share its gate and h2; I is walked in GEGLU_CHUNK-column chunks
 GEGLU_ROWS, GEGLU_CHUNK = 64, 64
@@ -53,14 +54,15 @@ def _layer_norm_f32(x, eps):
     return xc * torch.rsqrt(var + eps)
 
 
-def ff_ln_plain(x, gamma, beta, wp, bp, wo, bo, eps=1e-5):
-    """x + (h * gelu(g)) wo^T + bo, [h | g] = LN(x) wp^T + bp."""
+def ff_ln_plain(x, gamma, beta, wp, bp, wo, bo, eps=1e-5, residual=True):
+    """x + (h * gelu(g)) wo^T + bo, [h | g] = LN(x) wp^T + bp; without the
+    leading x when ``residual`` is False."""
     inner = wo.shape[1]
     xn = (_layer_norm_f32(x, eps) * gamma.float() + beta.float()).to(wp.dtype)
     h2 = xn.float() @ wp.float().t() + bp.float()
     gated = _gelu_gate(h2, inner).to(wo.dtype)
-    out = x.float() + gated.float() @ wo.float().t() + bo.float()
-    return out.to(x.dtype)
+    out = gated.float() @ wo.float().t() + bo.float()
+    return (x.float() + out if residual else out).to(x.dtype)
 
 
 def geglu_out_plain(h2, w, b):
@@ -149,7 +151,7 @@ def _ff_operands(kernel, x, gamma, beta, wp, bp, wo, extra=()):
     return c, inner, [t.reshape(-1, c).contiguous() for t in (x, *extra)]
 
 
-def _ff_bf16(kernel, x, gamma, beta, wp, bp, wo, bo, extra, eps):
+def _ff_bf16(kernel, x, gamma, beta, wp, bp, wo, bo, extra, eps, residual=True):
     """Launch ``e2v_ff_ln`` / ``e2v_ff_ln_bwd``: C is padded with zeros to
     the kernel's 64-column grid (x, g, gamma, beta, bo, the columns of wp and
     the rows of wo) and the true C passed, so that LayerNorm uses the real
@@ -166,7 +168,7 @@ def _ff_bf16(kernel, x, gamma, beta, wp, bp, wo, bo, extra, eps):
         rc = lib.e2v_ff_ln(rows[0].data_ptr(), ptr(vecs[0]), ptr(vecs[1]), wp.data_ptr(),
                            ptr(_aligned16(_f32(bp))), wo.data_ptr(), ptr(vecs[2]),
                            out.data_ptr(), rows[0].shape[0], cp, c, inner, float(eps),
-                           _build.stream_of(x))
+                           _build.stream_of(x), int(residual))
     else:
         rc = lib.e2v_ff_ln_bwd(rows[0].data_ptr(), rows[1].data_ptr(), ptr(vecs[0]),
                                ptr(vecs[1]), wp.data_ptr(), ptr(_aligned16(_f32(bp))),
@@ -185,7 +187,7 @@ def ff_f32_workspace_bytes(t, inner, backward=False):
     return 4 * t * ((2 if backward else 1) * inner + 2)
 
 
-def _ff_f32(kernel, x, gamma, beta, wp, bp, wo, bo, extra, eps):
+def _ff_f32(kernel, x, gamma, beta, wp, bp, wo, bo, extra, eps, residual=True):
     """Launch ``e2v_ff_f32`` / ``e2v_ff_f32_bwd`` (any C % 8 == 0 <= 640) with
     a workspace from the caching allocator."""
     c, inner, rows = _ff_operands(kernel, x, gamma, beta, wp, bp, wo, extra)
@@ -201,7 +203,7 @@ def _ff_f32(kernel, x, gamma, beta, wp, bp, wo, bo, extra, eps):
     if not backward:
         rc = lib.e2v_ff_f32(ptr(rows[0]), ptr(gamma), ptr(beta), ptr(wp), ptr(bp), ptr(wo),
                             ptr(bo), ptr(out), ptr(work), t, c, inner, float(eps),
-                            _build.stream_of(x))
+                            _build.stream_of(x), int(residual))
     else:
         rc = lib.e2v_ff_f32_bwd(ptr(rows[0]), ptr(rows[1]), ptr(gamma), ptr(beta), ptr(wp),
                                 ptr(bp), ptr(wo), ptr(out), ptr(work), t, c, inner, float(eps),
@@ -211,16 +213,17 @@ def _ff_f32(kernel, x, gamma, beta, wp, bp, wo, bo, extra, eps):
     return out.reshape(x.shape)
 
 
-def ff_ln(x, gamma, beta, wp, bp, wo, bo, eps=1e-5):
-    """Whole pre-LN GEGLU FF block with residual. x (..., C). A CUDA tensor
-    launches the kernel (C % 8 == 0, C <= 640, I % 64 == 0): bf16 x/wp/wo
-    ``ff_ln`` (C padded to its 64-column grid), f32 ones ``ff_ln_f32``; a CPU
-    tensor takes ``ff_ln_plain``."""
+def ff_ln(x, gamma, beta, wp, bp, wo, bo, eps=1e-5, residual=True):
+    """Whole pre-LN GEGLU FF block with residual (without it when
+    ``residual`` is False: a tensor-parallel rank's partial product). x
+    (..., C). A CUDA tensor launches the kernel (C % 8 == 0, C <= 640, I % 64
+    == 0): bf16 x/wp/wo ``ff_ln`` (C padded to its 64-column grid), f32 ones
+    ``ff_ln_f32``; a CPU tensor takes ``ff_ln_plain``."""
     if not x.is_cuda:
-        return ff_ln_plain(x, gamma, beta, wp, bp, wo, bo, eps)
+        return ff_ln_plain(x, gamma, beta, wp, bp, wo, bo, eps, residual)
     if _kernel_dtype("ff_ln", x, wp, wo) == torch.float32:
-        return _ff_f32("ff_ln_f32", x, gamma, beta, wp, bp, wo, bo, (), eps)
-    return _ff_bf16("ff_ln", x, gamma, beta, wp, bp, wo, bo, (), eps)
+        return _ff_f32("ff_ln_f32", x, gamma, beta, wp, bp, wo, bo, (), eps, residual)
+    return _ff_bf16("ff_ln", x, gamma, beta, wp, bp, wo, bo, (), eps, residual)
 
 
 def ff_ln_bwd(x, g, gamma, beta, wp, bp, wo, eps=1e-5):
@@ -421,33 +424,42 @@ def geglu_out_function(h2, w, b):
 
 # --- routing: the JAX package's dispatch predicates, one function each ---------
 # Its T < 256 tests (geglu.py:407, :434) are TPU speed rules, like
-# _FLASH_MIN_LQ: here short row counts take the kernels too.
+# _FLASH_MIN_LQ: here short row counts take the kernels too. A tensor-parallel
+# rank's shard (``shard``) routes on the CUDA kernels' own limits instead: JAX
+# never routes on a shard's width (GSPMD partitions the call it routed on the
+# global width), so its Pallas grid says nothing of a rank's I / tp.
 
-def ff_route(c, inner):
+def ff_route(c, inner, shard=False):
     """The branch JAX's ``fused_ff_ln`` takes (geglu.py:407-419) for width C
     and inner width I: "ff_ln" (the whole block in one kernel), "ln_geglu"
     (C > 640: LayerNorm and the projection as torch ops, then ``geglu``) or
-    "ref" (off the grid: ``ff_ref``)."""
-    if c % 8 or inner % 128:
+    "ref" (off the grid: ``ff_ref``). With ``shard`` the grid of I is
+    ``ff_ln``'s own (FF_CHUNK), not JAX's 128."""
+    if c % 8 or inner % (FF_CHUNK if shard else 128):
         return "ref"
     return "ln_geglu" if c > FF_MAX_C else "ff_ln"
 
 
-def geglu_route(inner, c):
+def geglu_route(inner, c, shard=False):
     """The branch JAX's ``fused_geglu_out`` takes (geglu.py:434): "geglu_out"
-    or "ref" (``geglu_ref``)."""
+    or "ref" (``geglu_ref``). With ``shard`` the limits are ``geglu_out``'s
+    own (I % GEGLU_CHUNK, C % 8)."""
+    if shard:
+        return "ref" if inner % GEGLU_CHUNK or c % 8 else "geglu_out"
     return "ref" if inner % 128 or c % 128 else "geglu_out"
 
 
-def ff_ref(x, gamma, beta, wp, bp, wo, bo, eps=1e-5):
+def ff_ref(x, gamma, beta, wp, bp, wo, bo, eps=1e-5, residual=True):
     """Counterpart of JAX ``_ff_ref`` (geglu.py:197-210) in torch ops, with its
     rounding: the normalised x, the projection and the FF output rounded to
-    x.dtype, the gated product to wo.dtype."""
+    x.dtype, the gated product to wo.dtype. Without the leading x when
+    ``residual`` is False."""
     xn = _layer_norm_f32(x, eps).to(x.dtype) * gamma + beta
     h2 = F.linear(xn, wp) + bp
     inner = wo.shape[1]
     gated = (h2[..., :inner] * F.gelu(h2[..., inner:])).to(wo.dtype)
-    return x + (F.linear(gated, wo) + bo)
+    out = F.linear(gated, wo) + bo
+    return x + out if residual else out
 
 
 def geglu_ref(h2, w, b):
@@ -458,27 +470,39 @@ def geglu_ref(h2, w, b):
     return F.linear(gated, w).to(h2.dtype) + b.to(h2.dtype)
 
 
-def geglu(h2, w, b):
-    """(h * gelu(g)) w^T + b, routed as ``fused_geglu_out``: the kernel
-    (behind its ``autograd.Function`` where an operand asks for a gradient)
-    or ``geglu_ref``."""
-    if geglu_route(w.shape[1], w.shape[0]) == "ref":
+def geglu(h2, w, b, shard=False):
+    """(h * gelu(g)) w^T + b, routed as ``fused_geglu_out`` (``geglu_route``,
+    ``shard`` for a tensor-parallel rank's slice): the kernel (behind its
+    ``autograd.Function`` where an operand asks for a gradient) or
+    ``geglu_ref``."""
+    if geglu_route(w.shape[1], w.shape[0], shard) == "ref":
         return geglu_ref(h2, w, b)
     return (geglu_out_function if _wants_grad(h2, w, b) else geglu_out)(h2, w, b)
 
 
-def feed_forward(x, gamma, beta, wp, bp, wo, bo, eps=1e-5):
+def feed_forward(x, gamma, beta, wp, bp, wo, bo, eps=1e-5, residual=True):
     """x + FF(LN(x)), routed by ``ff_route`` as the JAX package routes it:
     ``ff_ln``; LayerNorm and the projection as torch ops (rounded as at
     geglu.py:411-417) and the gate + out GEMM through ``geglu``; or
     ``ff_ref``. Where an operand asks for a gradient the kernels run behind
-    their ``autograd.Function``s, with the backward kernels."""
-    route = ff_route(x.shape[-1], wo.shape[1])
+    their ``autograd.Function``s, with the backward kernels.
+
+    ``residual`` False gives FF(LN(x)) alone on each route (the kernels
+    without their residual): the partial product of a tensor-parallel rank,
+    whose widths (I / tp) pick the route on the kernels' own limits
+    (``ff_route(..., shard=True)``). It is forward only."""
+    route = ff_route(x.shape[-1], wo.shape[1], shard=not residual)
+    grad = _wants_grad(x, gamma, beta, wp, bp, wo, bo)
+    if not residual and grad:
+        raise RuntimeError("feed_forward(residual=False): the tensor-parallel feed-forward "
+                           "is forward only; its backward is not ported yet")
     if route == "ref":
-        return ff_ref(x, gamma, beta, wp, bp, wo, bo, eps)
+        return ff_ref(x, gamma, beta, wp, bp, wo, bo, eps, residual)
     if route == "ff_ln":
-        grad = _wants_grad(x, gamma, beta, wp, bp, wo, bo)
-        return (ff_ln_function if grad else ff_ln)(x, gamma, beta, wp, bp, wo, bo, eps)
+        if grad:
+            return ff_ln_function(x, gamma, beta, wp, bp, wo, bo, eps)
+        return ff_ln(x, gamma, beta, wp, bp, wo, bo, eps, residual)
     xn = _layer_norm_f32(x, eps).to(x.dtype) * gamma + beta
     h2 = F.linear(xn, wp) + bp  # f32-accumulated GEMM, rounded to x.dtype
-    return x + geglu(h2, wo, bo)
+    out = geglu(h2, wo, bo, shard=not residual)
+    return x + out if residual else out

@@ -92,7 +92,8 @@ def _fold_arrays(features, labels, test_block):
 def _refuse(cfg: EEGVPConfig, mesh=None):
     if mesh is not None:
         raise ValueError("mesh: the fold-parallel benchmark across devices is multi-GPU and "
-                         "not ported; fold_parallel=True batches the folds on one GPU")
+                         "not ported yet (ROADMAP.md §1 item 7); fold_parallel=True batches "
+                         "the folds on one GPU")
     if cfg.encoder not in RUNNABLE_ENCODERS:
         raise ValueError(
             f"encoder '{cfg.encoder}': the EEG-VP trainer runs {list(RUNNABLE_ENCODERS)}, the "

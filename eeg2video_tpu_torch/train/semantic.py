@@ -86,7 +86,8 @@ def _refuse_multi_gpu(tp, pp, n_micro):
     for name, value in (("tp", tp), ("pp", pp), ("n_micro", n_micro)):
         if value != 1:
             raise ValueError(f"{name}={value}: the semantic trainer's tensor-parallel and "
-                             "pipelined forms are multi-GPU and not ported; this trainer "
+                             "pipelined forms are multi-GPU and not ported yet "
+                             "(ROADMAP.md §1 item 7); this trainer "
                              "runs on one GPU")
 
 

@@ -50,6 +50,26 @@ def trainable(name: str) -> bool:
     return ("attn1" in parts or "attn2" in parts) and "to_q" in parts
 
 
+def unet_tp_rules(name: str):
+    """Megatron tensor parallelism of every attention and feed-forward
+    projection (JAX's rules, train/videodiffusion.py:75-86, over the port's
+    names, for ``parallel.shard_params``): to_q/k/v and the GEGLU projection
+    split by output features (dim 0 of the torch weight; the projection's
+    weight and bias by halves, so that each rank keeps the same rows of the
+    hidden and the gate half), to_out and the feed-forward's out by input
+    features (dim 1); every other parameter, biases of the row splits
+    included, whole."""
+    parts = name.split(".")
+    if parts[-1] == "weight" and parts[-2] in ("to_q", "to_k", "to_v"):
+        return (0, "tp")
+    if parts[-3:-1] == ["0", "proj"] and "ff" in parts:
+        return (0, "tp", 2)
+    if parts[-1] == "weight" and (parts[-3:-1] == ["to_out", "0"]
+                                  or (parts[-3:-1] == ["net", "2"] and "ff" in parts)):
+        return (1, "tp")
+    return None
+
+
 @dataclasses.dataclass(frozen=True)
 class VideoDiffusionTrainConfig:
     learning_rate: float = 3e-5

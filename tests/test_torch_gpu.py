@@ -569,6 +569,54 @@ def test_ff_ln_matches_plain(gen, t, c):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("dtype,bound", [(torch.bfloat16, BOUND), (torch.float32, F32_BOUND)])
+@pytest.mark.parametrize("t,c", [(130, 64), (37, 320), (130, 640)])
+def test_ff_ln_without_residual_matches_plain(gen, t, c, dtype, bound):
+    """A tensor-parallel rank's partial product (I / 2 of the weights): the
+    kernel's epilogue leaves x out, bf16 ``ff_ln`` and ``ff_ln_f32`` alike."""
+    i = 4 * c // 2
+    args = [_rand(gen, t, c, dtype=dtype), 1.0 + 0.05 * _rand(gen, c, dtype=torch.float32),
+            0.02 * _rand(gen, c, dtype=torch.float32),
+            _rand(gen, 2 * i, c, scale=c ** -0.5, dtype=dtype),
+            0.02 * _rand(gen, 2 * i, dtype=torch.float32),
+            _rand(gen, c, i, scale=i ** -0.5, dtype=dtype),
+            0.02 * _rand(gen, c, dtype=torch.float32)]
+    got = geglu.ff_ln(*args, residual=False)
+    assert _err(got, geglu.ff_ln_plain(*_f32(args), residual=False)) < bound
+    assert torch.equal(got, geglu.ff_ln(*args, residual=False))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("sp", [2, 4])
+@pytest.mark.parametrize("lkv", [256, 77])
+def test_ring_hops_match_one_whole_kv_call(gen, sp, lkv):
+    """``ring.ring_step`` over sp K/V blocks, the exchange played by the
+    order of the blocks (replicated KV where Lkv does not divide), against
+    one ``flash_attention_fwd`` over the whole KV, with a bias; the ring's
+    rows and the whole-KV call each against ``flash_attention_plain``."""
+    from eeg2video_tpu_torch.ops import ring
+
+    heads, lq = 2, 128
+    q, k, v = _rand(gen, 2, lq, 80), _rand(gen, 2, lkv, 80), _rand(gen, 2, lkv, 80)
+    bias = _rand(gen, 2, 1, lkv, dtype=torch.float32)
+    want = attention.flash_attention_plain(*_f32([q, k, v]), heads, bias0=bias)
+    assert _err(attention.flash_attention_fwd(q, k, v, heads, bias0=bias), want) < BOUND
+    blocks = [(k, v, bias)]  # replicated KV: one block, one launch a rank
+    if lkv % sp == 0:
+        w = lkv // sp
+        blocks = [(k[:, j * w:(j + 1) * w].contiguous(), v[:, j * w:(j + 1) * w].contiguous(),
+                   bias[..., j * w:(j + 1) * w].contiguous()) for j in range(sp)]
+    outs = []
+    for r in range(sp):  # rank r holds block (r + t) % sp at hop t
+        out = lse = None
+        for kb, vb, bb in blocks[r:] + blocks[:r]:
+            out, lse = ring.ring_step(out, lse, q[:, r * lq // sp:(r + 1) * lq // sp], kb, vb,
+                                      bb, heads, 40 ** -0.5)
+        outs.append(out.to(q.dtype))
+    assert _err(torch.cat(outs, dim=1), want) < BOUND
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("t,i,c", [(50, 64, 40), (130, 256, 200)])
 def test_geglu_out_matches_plain(gen, t, i, c):
     args = [_rand(gen, t, 2 * i), _rand(gen, c, i, scale=i ** -0.5),

@@ -86,6 +86,27 @@ def random_params(module, seed, *args, **kwargs):
     return jax.tree_util.tree_map_with_path(fill, shapes)
 
 
+def random_state(module, seed):
+    """Random float32 values for a torch module's state dict (the module may
+    live on the meta device), by random_params's rule in torch's layout:
+    weights of two or more dims N(0, 1/fan_in), fan_in every dim but the
+    first; one-dim weights (norm scales) 1 + N(0, 0.1^2); biases N(0, 0.1^2).
+    Nothing is traced, so a caller can start work on them before JAX's side
+    (which takes them through ``eeg2video_tpu.convert``)."""
+    rng = np.random.default_rng(seed)
+    out = {}
+    for name, p in module.state_dict().items():
+        shape = tuple(p.shape)
+        if len(shape) >= 2:
+            r = rng.standard_normal(shape) / np.sqrt(np.prod(shape[1:]))
+        elif name.endswith("weight"):
+            r = 1.0 + 0.1 * rng.standard_normal(shape)
+        else:
+            r = 0.1 * rng.standard_normal(shape)
+        out[name] = r.astype(np.float32)
+    return out
+
+
 def japply(module, params, *args, method=None, **kwargs):
     """Jitted flax apply (one compile beats op-by-op dispatch here)."""
     fn = jax.jit(lambda p, a, k: module.apply({"params": p}, *a, method=method, **k))

@@ -21,6 +21,7 @@ from types import SimpleNamespace
 import numpy as np
 import pytest
 import torch
+import torch.distributed as dist
 
 import jax.numpy as jnp
 
@@ -45,6 +46,7 @@ from eeg2video_tpu_torch.data import meta, video
 from eeg2video_tpu_torch.diffusion.pipeline import EEG2VideoPipeline
 from eeg2video_tpu_torch.models.unet3d import UNet3DConfig
 from eeg2video_tpu_torch.models.vae import VAEConfig
+from eeg2video_tpu_torch.parallel import mesh as pmesh
 from eeg2video_tpu_torch.serving import runtimes
 
 from test_torch_models import capped_threads, rand, random_params
@@ -299,12 +301,25 @@ def test_inference_main_matches_jax_main(monkeypatch, world, tmp_path, source):
         np.testing.assert_allclose(got, want, err_msg=str(i), **ARRAY_TOL)
 
 
-def test_inference_main_refuses_what_is_not_ported_and_defaults_to_the_card(world, tmp_path):
+def test_inference_main_refuses_what_is_not_ported_and_defaults_to_the_card(
+        world, tmp_path, monkeypatch, capsys):
     base = ["--embeddings", str(world.tmp / "emb.npy"), "--woSeq2Seq",
             "--out_dir", str(tmp_path / "never")]
-    for flags in (["--dp", "2"], ["--tp", "2"], ["--sp", "2"]):
-        with pytest.raises(SystemExit):
-            inference_eeg2video.main([*base, "--device", "cpu", *flags])
+    # the mesh flags raise JAX's errors (cli/inference_eeg2video.py:217-222 there):
+    # the batch that dp does not divide, and a mesh that is not the world
+    with pytest.raises(SystemExit):
+        inference_eeg2video.main([*base, "--device", "cpu", "--batch", "3", "--dp", "2"])
+    assert "--batch 3 must be divisible by --dp 2" in capsys.readouterr().err
+    with pytest.raises(ValueError, match=r"dp\*sp\*tp = 8 != 1 devices"):
+        inference_eeg2video.main([*base, "--device", "cpu", "--sp", "2", "--tp", "2",
+                                  "--dp", "2"])
+    # a world of 2 (what a launcher of two processes gives): dp = 2 // 3 -> 1, 3 != 2
+    monkeypatch.setattr(inference_eeg2video, "world_size", lambda: 2)
+    monkeypatch.setattr(pmesh, "world_size", lambda: 2)
+    with pytest.raises(ValueError, match=r"dp\*sp\*tp = 3 != 2 devices"):
+        inference_eeg2video.main([*base, "--device", "cpu", "--tp", "3"])
+    monkeypatch.undo()
+    assert not dist.is_initialized()  # no refused line started a process group
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="torch.cuda.is_available"):
             inference_eeg2video.main(base)

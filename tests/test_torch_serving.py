@@ -449,7 +449,9 @@ def test_no_module_of_the_port_imports_jax():
             "eeg2video_tpu_torch.data.video", "eeg2video_tpu_torch.ops.residuals",
             "eeg2video_tpu_torch.cli.compute_optical_flow",
             "eeg2video_tpu_torch.cli.run_metrics",
-            "eeg2video_tpu_torch.cli.extract_gif"} <= set(names)
+            "eeg2video_tpu_torch.cli.extract_gif",
+            "eeg2video_tpu_torch.parallel", "eeg2video_tpu_torch.parallel.distributed",
+            "eeg2video_tpu_torch.parallel.mesh", "eeg2video_tpu_torch.ops.ring"} <= set(names)
     code = "\n".join([
         "import importlib, sys",
         "before = set(sys.modules)",
