@@ -157,7 +157,23 @@ printed on its own line; any failure prints ``FAIL ...`` and exits 1:
    --woSeq2Seq`` in a temporary data_root (a seeded raw subject, the caption
    embeddings, one ground-truth GIF, the seeded UNet in the fine-tune's
    diffusers layout and the VAE as a .pt), each stage's seconds and
-   launches, then the same command again, which must skip every stage.
+   launches, then the same command again, which must skip every stage;
+14. multi-GPU generation on one card (NCCL refuses two ranks on one
+   device): (a) the ring's forward hops (sp = 2 and 4 played by rotating a
+   list of K/V blocks) and a tp rank's residual-free ``ff_ln``; (b)
+   ``inference_eeg2video --dp 1`` (a world of one over NCCL) bit-equal to no
+   mesh; (c) a torchrun launch of it;
+15. multi-GPU training on one card: (a) the ring's backward hops
+   (``ring_bwd_step``) at the fine-tune's level-0 shapes, sp = 2 and 4 played
+   by rotating the K/V blocks with their dk / dv / dbias accumulators, each
+   rank's dq rows and each home block against the plain backward (f32,
+   chunked over the batch), and one whole-KV ``flash_attention_bwd``; (b)
+   ``ff_ln_bwd`` / ``ff_ln_bwd_f32`` with ``residual=False`` at the tp = 2 and
+   4 shard widths of levels 0-1, beside the composed cuBLAS form and the
+   bound, launched once by the residual-free ``feed_forward``'s backward; (c)
+   ``train_tuneavideo.train`` on a ``--dp 1 --fsdp`` mesh at UNet3DConfig(),
+   batch 10, three steps, its losses and masters bit-equal to the same call
+   without a mesh.
 
 The third-to-last line is a JSON object with one entry per kernel, then the
 ``nvidia-smi`` line; the last line is ``{"ok": true, "device": {...}}``.
@@ -3752,6 +3768,352 @@ def phase_section14(torch, build, card):
     return {"ring_hops": ring_launches, "mesh": mesh_launches}
 
 
+# --- section 15: multi-GPU training on one card -------------------------------
+
+RING_BWD_CHUNK_BYTES = 2 << 30  # per f32 logits-sized tensor of the chunked plain backward
+MESH_TRAIN_CLIPS = TRAIN_BATCH * TRAIN_STEPS  # (c): one epoch of three optimizer steps
+
+
+def _ring_bwd_cases(torch, dev):
+    """(label, q, k, v, bias) at the fine-tune's level-0 shapes in its sp
+    route (batch 10, 8 heads of 40), bf16: frames 0-1 as one (10, 4608) query
+    against K0; frames 2-5 against the [K0 | K_prev] concat of 4608 keys,
+    with and without the [bias, 0] the model builds; cross-attention per
+    frame against the 77 context rows."""
+    g = torch.Generator(device=dev).manual_seed(25)
+
+    def r(*shape):
+        return torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
+
+    l, c, b = 2304, 320, TRAIN_BATCH
+    mask = (torch.rand((4 * b, 1, l), generator=g, device=dev) < 0.25) * -1e4
+    bias = torch.cat([mask + torch.randn((4 * b, 1, l), generator=g, device=dev),
+                      torch.zeros((4 * b, 1, l), device=dev)], dim=-1)
+    k2, v2 = r(4 * b, 2 * l, c), r(4 * b, 2 * l, c)
+    return [(f"frames 0-1 ({b},4608,320)x2304", r(b, 2 * l, c), r(b, l, c), r(b, l, c), None),
+            (f"frames 2-5 ({4 * b},2304,320)x[K0|K_prev] 4608", r(4 * b, l, c), k2, v2, None),
+            (f"frames 2-5 ({4 * b},2304,320)x[K0|K_prev] 4608 + ({4 * b},1,4608) bias",
+             r(4 * b, l, c), k2, v2, bias),
+            (f"cross ({6 * b},2304,320)x77", r(6 * b, l, c), r(6 * b, 77, c), r(6 * b, 77, c),
+             None)]
+
+
+def _plain_bwd_chunked(torch, q, k, v, bias, dout, heads):
+    """flash_attention_plain's forward and flash_attention_bwd_plain (f32)
+    over chunks of the batch (every batch row is independent): (dq, dk, dv,
+    dbias or None)."""
+    from eeg2video_tpu_torch.ops.attention import (flash_attention_bwd_plain,
+                                                   flash_attention_plain)
+
+    n, lq, lk = q.shape[0], q.shape[1], k.shape[1]
+    step = max(1, RING_BWD_CHUNK_BYTES // (heads * lq * lk * 4))
+    parts = []
+    for s in range(0, n, step):
+        sl = slice(s, s + step)
+        qs, ks, vs, ds = (t[sl].float() for t in (q, k, v, dout))
+        bs = None if bias is None else bias[sl]
+        out, lse = flash_attention_plain(qs, ks, vs, heads, bias0=bs, return_lse=True)
+        dq, dk, dv, _, _, db = flash_attention_bwd_plain(qs, ks, vs, heads, ds, out, lse,
+                                                         bias0=bs, need_dbias=bs is not None)
+        parts.append((dq, dk, dv, db))
+        del out, lse
+        torch.cuda.empty_cache()
+    return [None if parts[0][i] is None else torch.cat([p[i] for p in parts])
+            for i in range(4)]
+
+
+def _phase_ring_bwd_hops(torch, build, card):
+    """(a) ``ring.ring_bwd_step`` on one card: sp ranks played by rotating a
+    list of the sp K/V blocks and their f32 dk / dv / dbias accumulators, as
+    ``ops.ring`` does across processes; each rank's forward hops first
+    (``ring_step``) for the global (out, lse). Each rank's dq rows and each
+    home block's dk / dv / dbias (replicated-KV mode: summed over the ranks),
+    and one whole-KV ``flash_attention_bwd``, against the plain backward (f32,
+    chunked over the batch) at KERNEL_BOUND. Returns the ring runs' launches."""
+    from eeg2video_tpu_torch.ops import ring
+    from eeg2video_tpu_torch.ops.attention import flash_attention_bwd, flash_attention_fwd
+
+    dev, heads = torch.device("cuda"), 8
+    launches = dict.fromkeys(COUNTERS, 0)
+    g = torch.Generator(device=dev).manual_seed(26)
+
+    def rel(got, want):
+        return ((got.float() - want).abs().max() / want.abs().max()).item()
+
+    for label, q, k, v, bias in _ring_bwd_cases(torch, dev):
+        dout = torch.randn(q.shape, generator=g, device=dev).to(torch.bfloat16)
+        want = _plain_bwd_chunked(torch, q, k, v, bias, dout, heads)
+        scale = (q.shape[-1] // heads) ** -0.5
+        out, lse = flash_attention_fwd(q, k, v, heads, bias0=bias, return_lse=True)
+
+        def whole():
+            return flash_attention_bwd(q, k, v, heads, dout, out, lse, bias0=bias,
+                                       need_dbias=bias is not None)
+
+        got = whole()
+        errs = [rel(a, b) for a, b in zip((got[0], got[1], got[2], got[5]), want)
+                if b is not None]
+        whole_ms = timed_ms(whole, torch, 5)
+        ok = max(errs) < KERNEL_BOUND and all(bool(torch.isfinite(t).all()) for t in
+                                              (got[0], got[1], got[2]))
+        say(f"ring bwd (a) [{label}]: one whole-KV flash_attention_bwd max_rel_err "
+            f"{max(errs):.3e} (dq, dk, dv{', dbias' if bias is not None else ''}) against the "
+            f"plain backward (bound {KERNEL_BOUND:.0e}), {whole_ms:.3f} ms "
+            f"{'ok' if ok else 'FAILED'} [{card}]")
+        if not ok:
+            fail(f"ring bwd (a) [{label}]: the whole-KV backward disagrees with its plain version")
+        del got, out, lse
+        for sp in RING_SPS:
+            ring_kv = k.shape[1] % sp == 0
+            lq, lk = q.shape[1] // sp, k.shape[1] // sp
+            blocks = [(k, v, bias)]  # replicated KV: every rank's one block
+            if ring_kv:  # block j: keys j lk .. (j + 1) lk and the bias over them
+                blocks = [(k[:, j * lk:(j + 1) * lk].contiguous(),
+                           v[:, j * lk:(j + 1) * lk].contiguous(),
+                           None if bias is None else bias[..., j * lk:(j + 1) * lk].contiguous())
+                          for j in range(sp)]
+            rows = [q[:, i * lq:(i + 1) * lq].contiguous() for i in range(sp)]
+            drows = [dout[:, i * lq:(i + 1) * lq].contiguous() for i in range(sp)]
+
+            def forward(i):  # rank i's forward hops: its rows' global (out, lse)
+                o = l_ = None
+                for kb, vb, bb in blocks[i:] + blocks[:i]:
+                    o, l_ = ring.ring_step(o, l_, rows[i], kb, vb, bb, heads, scale)
+                return o.to(q.dtype), l_
+
+            fwd = [forward(i) for i in range(sp)]
+
+            def backward(i, acc):
+                """Rank i's backward hops; the block's accumulators in ``acc``
+                (indexed by block) stand for the ones that travel with it."""
+                dq = torch.zeros(rows[i].shape, dtype=torch.float32, device=dev)
+                for t in range(len(blocks)):
+                    j = (i + t) % len(blocks)
+                    kb, vb, bb = blocks[j]
+                    dq_p, *parts = ring.ring_bwd_step(rows[i], kb, vb, bb, drows[i], *fwd[i],
+                                                      heads, scale)
+                    dq += dq_p.float()
+                    for a, p in zip(acc[j], parts):
+                        a += p.float()
+                return dq
+
+            def fresh():
+                return [[torch.zeros(t.shape, dtype=torch.float32, device=dev)
+                         for t in blk if t is not None] for blk in blocks]
+
+            build.reset_launches()
+            acc = fresh()
+            dq = torch.cat([backward(i, acc) for i in range(sp)], dim=1)
+            torch.cuda.synchronize()
+            n = build.launches["flash_attention_bwd"]
+            for name, count in build.launches.items():
+                launches[name] += count
+            dk = torch.cat([a[0] for a in acc], dim=1)
+            dv = torch.cat([a[1] for a in acc], dim=1)
+            db = None if bias is None else torch.cat([a[2] for a in acc], dim=-1)
+            errs = [rel(a.to(q.dtype), b) for a, b in zip((dq, dk, dv, db), want)
+                    if b is not None]
+            per_rank = sp if ring_kv else 1
+            hop_ms = timed_ms(lambda: ring.ring_bwd_step(rows[0], *blocks[0], drows[0], *fwd[0],
+                                                         heads, scale), torch, 5)
+            rank_ms = timed_ms(lambda: backward(0, fresh()), torch, 5)
+            ok = (max(errs) < KERNEL_BOUND and n == sp * per_rank
+                  and bool(torch.isfinite(dq).all()))
+            say(f"ring bwd (a) [{label}] sp={sp} ({'ring' if ring_kv else 'replicated KV'}): "
+                f"max_rel_err {max(errs):.3e} (dq rows, home blocks' dk, dv"
+                f"{', dbias' if bias is not None else ''}) against the plain backward (bound "
+                f"{KERNEL_BOUND:.0e}), flash_attention_bwd launches {n} ({per_rank} a rank), "
+                f"whole-KV backward {whole_ms:.3f} ms, one hop {hop_ms:.3f} ms, one rank's "
+                f"{per_rank} with the f32 accumulation {rank_ms:.3f} ms (whole / sp "
+                f"{whole_ms / sp:.3f}) {'ok' if ok else 'FAILED'} [{card}]")
+            if not ok:
+                fail(f"ring bwd (a) [{label}] sp={sp}: the ring's gradients disagree with the "
+                     "plain backward or launched another count")
+            del acc, dq, dk, dv, db, fwd
+        del want
+        torch.cuda.empty_cache()
+    return launches
+
+
+def _ff_bwd_free_composed(torch, args):
+    """The gradient in x of layer_norm -> F.linear -> h gelu(g) -> F.linear
+    without the residual, in the operands' dtype (autograd, its forward
+    included): a yardstick the port never calls."""
+    import torch.nn.functional as F
+
+    x, dout, gamma, beta, wp, bp, wo = args
+    c = x.shape[-1]
+    vb = [t.to(x.dtype) for t in (gamma, beta, bp)]
+
+    def run():
+        xl = x.detach().requires_grad_()
+        h, gate = F.linear(F.layer_norm(xl, (c,), vb[0], vb[1]), wp, vb[2]).chunk(2, dim=-1)
+        return torch.autograd.grad(F.linear(h * F.gelu(gate), wo), xl, dout)
+    return run
+
+
+def _phase_tp_ff_bwd(torch, build, card):
+    """(b) ``ff_ln_bwd`` / ``ff_ln_bwd_f32`` with ``residual=False`` (a tp
+    rank's feed-forward, without the residual's gradient) at the tp = 2 and
+    tp = 4 shard widths of the train levels 0 and 1 (I / tp of the weights),
+    against ``ff_ln_bwd_plain(..., residual=False)`` (f32); each beside the
+    composed cuBLAS form and its bound; the differentiable
+    ``feed_forward(..., residual=False)`` must launch it once in its backward.
+    Returns {(T, C, I, dtype): ms}."""
+    from eeg2video_tpu_torch.ops import geglu
+    from eeg2video_tpu_torch.utils.flops import H100_BF16_PEAK
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(27)
+    times = {}
+    tb = TRAIN_BATCH * 6
+    for t, c, tp in ((tb * 2304, 320, 2), (tb * 2304, 320, 4), (tb * 576, 640, 2),
+                     (tb * 576, 640, 4)):
+        i = 4 * c // tp
+        for dt, bound in ((torch.bfloat16, KERNEL_BOUND), (torch.float32, F32_KERNEL_BOUND)):
+            def r(*shape, scale=1.0, dtype=dt):
+                return (torch.randn(shape, generator=g, device=dev) * scale).to(dtype)
+
+            f32 = torch.float32
+            args = [r(t, c), r(t, c), 1.0 + 0.05 * r(c, dtype=f32), 0.02 * r(c, dtype=f32),
+                    r(2 * i, c, scale=c ** -0.5), 0.02 * r(2 * i, dtype=f32),
+                    r(c, i, scale=i ** -0.5)]
+            kernel = "ff_ln_bwd" if dt == torch.bfloat16 else "ff_ln_bwd_f32"
+            got = geglu.ff_ln_bwd(*args, residual=False)
+            again = geglu.ff_ln_bwd(*args, residual=False)
+            want = geglu.ff_ln_bwd_plain(*[a.float() for a in args], residual=False)
+            err = ((got.float() - want).abs().max() / want.abs().max()).item()
+            full = geglu.ff_ln_bwd(*args)
+            # with the residual: the same LayerNorm path plus g, to the rounding
+            # of that sum
+            gap = ((full.float() - args[1].float() - got.float()).abs().max()
+                   / full.float().abs().max()).item()
+            del want, full
+            x = args[0].detach().requires_grad_()
+            before = build.launches[kernel]
+            out = geglu.feed_forward(x, *args[2:7], torch.zeros_like(args[2]), residual=False)
+            out.backward(args[1])
+            via_route = build.launches[kernel] - before
+            same = torch.equal(x.grad, got)
+            ms = timed_ms(lambda: geglu.ff_ln_bwd(*args, residual=False), torch, 10)
+            composed_ms = timed_ms(_ff_bwd_free_composed(torch, args), torch, 10)
+            plain_ms = timed_ms(lambda: geglu.ff_ln_bwd_plain(*args, residual=False), torch, 3)
+            nbytes = _nbytes(args) + got.numel() * got.element_size() + (
+                2 * geglu.ff_f32_workspace_bytes(t, i, backward=True) if dt == f32 else 0)
+            peak = PEAK_TF32_FLOPS / TF32_PASSES if dt == f32 else H100_BF16_PEAK
+            t_bytes, t_flops = nbytes / PEAK_BYTES * 1e3, 10 * t * c * i / peak * 1e3
+            bound_ms = max(t_bytes, t_flops)
+            times[(t, c, i, str(dt)[6:])] = ms
+            ok = (err < bound and gap < bound and via_route == 1 and same
+                  and torch.equal(got, again))
+            say(f"tp ff_ln_bwd (b) tp={tp} T={t} C={c} I/{tp}={i} {str(dt)[6:]}: residual-free "
+                f"{kernel} max_rel_err {err:.3e} (bound {bound:.0e}), + g against the call with "
+                f"its residual {gap:.3e}, twice bit for bit; {ms:.3f} ms, bound {bound_ms:.4f} ms "
+                f"by {'bytes' if t_bytes >= t_flops else 'operations'} ({bound_ms / ms:.3f} of "
+                f"it), composed {composed_ms:.3f} ms, plain {plain_ms:.3f} ms; "
+                f"feed_forward(residual=False)'s backward "
+                f"launched {kernel} {via_route} time(s), dx bit-equal {same} "
+                f"{'ok' if ok else 'FAILED'} [{card}]")
+            if not ok:
+                fail(f"tp ff_ln_bwd (b): the residual-free {kernel} at C={c} I={i} disagrees, "
+                     "is not deterministic or the shard's route left the kernel")
+            del args, got, again, x, out
+        torch.cuda.empty_cache()
+    return times
+
+
+def _mesh_train_run(torch, build, tmp, post, contexts, flags):
+    """``train_tuneavideo.train`` at UNet3DConfig() from the seeded weights,
+    one epoch of TRAIN_STEPS steps at batch TRAIN_BATCH, a tiny VAE (the
+    posteriors are given; it is only written beside the checkpoint): per
+    step (seconds, loss, launches), the masters after it, and the launches."""
+    from eeg2video_tpu_torch.cli import train_tuneavideo
+    from eeg2video_tpu_torch.models.vae import AutoencoderKL, VAEConfig
+
+    unet, _ = _full_width_unet(torch, 28)
+    vae = AutoencoderKL(VAEConfig.tiny())
+    steps, clock = [], [0.0]
+
+    def on_step(state, loss):
+        torch.cuda.synchronize()
+        steps.append((time.perf_counter() - clock[0], float(loss), dict(build.launches)))
+        build.reset_launches()
+        clock[0] = time.perf_counter()
+
+    args = train_tuneavideo.build_parser().parse_args([
+        "--device", "cuda", "--epochs", "1", "--train_batch_size", str(TRAIN_BATCH),
+        "--validation_epochs", "100", "--output_dir", tmp, *flags])
+    build.reset_launches()
+    torch.cuda.synchronize()
+    clock[0] = time.perf_counter()
+    state, losses = train_tuneavideo.train(unet, vae, post, contexts, args, on_step=on_step)
+    masters = {n: p.detach().clone() for n, p in state.masters.items()}
+    mesh = state.mesh
+    del state, unet
+    torch.cuda.empty_cache()
+    return steps, masters, mesh
+
+
+def _phase_mesh_train(torch, build, card):
+    """(c) ``train_tuneavideo.train`` on a ``--dp 1 --fsdp`` mesh (a world of
+    one on a local store, NCCL) at UNet3DConfig(), batch 10, three optimizer
+    steps, against the same call without a mesh: every loss and master bit
+    for bit (every collective is over one rank), the train kernels launched
+    as the mesh-less step launches them. Returns the mesh run's launches."""
+    import torch.distributed as dist
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(29)
+    n = MESH_TRAIN_CLIPS
+    post = torch.cat([torch.randn((n, 6, 36, 64, 4), generator=g, device=dev),
+                      -4.0 + 0.1 * torch.randn((n, 6, 36, 64, 4), generator=g, device=dev)],
+                     dim=-1)
+    contexts = torch.randn((n, 77, 768), generator=g, device=dev)
+    runs = {}
+    for tag, flags in (("no mesh", []), ("--dp 1 --fsdp", ["--dp", "1", "--fsdp"])):
+        with tempfile.TemporaryDirectory(prefix="e2v_mesh_train_") as tmp:
+            runs[tag] = _mesh_train_run(torch, build, tmp, post, contexts, flags)
+        steps, _, mesh = runs[tag]
+        say(f"mesh train (c) {tag} ({mesh}): {len(steps)} steps, loss per step "
+            f"{[s[1] for s in steps]}, seconds per step {[round(s[0], 3) for s in steps]} "
+            f"(the first includes building the train state) [{card}]")
+    (base, base_m, _), (mesh_steps, mesh_m, mesh) = runs["no mesh"], runs["--dp 1 --fsdp"]
+    backend, world = dist.get_backend(), dist.get_world_size()
+    same_loss = [a[1] == b[1] for a, b in zip(base, mesh_steps)]
+    same_m = [torch.equal(base_m[k], mesh_m[k]) for k in base_m]
+    launched = [s[2] for s in mesh_steps]
+    ok = (len(mesh_steps) == len(base) == TRAIN_STEPS and all(same_loss) and all(same_m)
+          and list(base_m) == list(mesh_m) and mesh is not None and backend == "nccl"
+          and world == 1 and all(l == EXPECTED_PER_TRAIN_STEP for l in launched)
+          and launched == [s[2] for s in base])
+    say(f"mesh train (c): --dp 1 --fsdp over {backend} (world {world}) against no mesh: losses "
+        f"bit-equal {sum(same_loss)} of {len(same_loss)}, masters bit-equal {sum(same_m)} of "
+        f"{len(same_m)}, per-step launches {_nonzero(launched[0])} in each of "
+        f"{len(launched)} steps (the mesh-less run's: {launched == [s[2] for s in base]}) "
+        f"{'ok' if ok else 'FAILED'}")
+    if not ok:
+        fail("mesh train (c): the --dp 1 --fsdp step differs from the step without a mesh")
+    dist.destroy_process_group()
+    return {k: sum(l[k] for l in launched) for k in COUNTERS}
+
+
+def phase_section15(torch, build, card):
+    """Section 15: multi-GPU training on one card. (a) the ring's backward
+    hops; (b) a tp rank's residual-free feed-forward backward; (c) the
+    fine-tune on a --dp 1 --fsdp mesh over NCCL against no mesh. Returns the
+    launches of the ring's backward runs and of the mesh's steps."""
+    t_section = time.perf_counter()
+    ring_launches = _phase_ring_bwd_hops(torch, build, card)
+    if not ring_launches["flash_attention_bwd"]:
+        fail("ring bwd (a): no flash_attention_bwd launched")
+    torch.cuda.empty_cache()
+    _phase_tp_ff_bwd(torch, build, card)
+    torch.cuda.empty_cache()
+    mesh_launches = _phase_mesh_train(torch, build, card)
+    say(f"section 15: {time.perf_counter() - t_section:.1f} s")
+    return {"ring_bwd": ring_launches, "mesh_train": mesh_launches}
+
+
 def _profile_step(torch, step, what="train: one step"):
     """One call of ``step`` under torch.profiler: where the device time goes,
     by the port's one grouping of its kernels (``utils.profiling``:
@@ -3825,6 +4187,8 @@ def main():
     recipe.update(phase_section13(torch, build, smi_line))
     torch.cuda.empty_cache()
     recipe.update(phase_section14(torch, build, smi_line))
+    torch.cuda.empty_cache()
+    recipe.update(phase_section15(torch, build, smi_line))
     leaked = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "jaxlib", "flax", "eeg2video_tpu"))
     if leaked:
@@ -3885,6 +4249,12 @@ def main():
             fail(f"launches: the --dp 1 mesh path did not launch {name}")
         if name == "flash_attention_fwd" and not per_path["launches_ring_hops_path"]:
             fail("launches: the ring's hops did not launch flash_attention_fwd")
+        # section 15: the ring's backward hops run the attention backward; the
+        # --dp 1 --fsdp mesh's steps every kernel of the step without a mesh
+        if name == "flash_attention_bwd" and not per_path["launches_ring_bwd_path"]:
+            fail("launches: the ring's backward hops did not launch flash_attention_bwd")
+        if name in _TRAIN_STEP and not per_path["launches_mesh_train_path"]:
+            fail(f"launches: the --dp 1 --fsdp mesh's steps did not launch {name}")
         kernels.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
                         "launches": per_path[f"launches_{path}_path"], "launches_path": path,
                         **per_path,

@@ -12,11 +12,22 @@ and the diffusers directory layout the reference writes). SIGTERM or SIGINT
 ends the run after the current epoch with a resumable train state
 (``--unet_ckpt`` resumes from it); a second signal ends it at once.
 
-One GPU: the clip set is VAE-encoded once into posteriors and stays resident
-on the card; each step gathers its shuffled batch by index. ``--device``
-defaults to ``cuda`` and the run fails without a card; ``--device cpu`` is a
-dry run. The JAX trainer's ``--dp/--tp/--sp/--fsdp`` meshes are not ported
-and are refused by name.
+The clip set is VAE-encoded once into posteriors and stays resident on the
+card; each step gathers its shuffled batch by index. ``--device`` defaults to
+``cuda`` and the run fails without a card; ``--device cpu`` is a dry run.
+
+Several GPUs, one process each (``torchrun --nproc_per_node N``; on the CPU,
+gloo): ``--dp/--tp/--sp/--fsdp`` make the JAX trainer's (dp, sp, tp) mesh
+(``parallel.make_mesh``; JAX :189-221): the batch split over dp, ring
+attention over sp, Megatron tp of the attention and feed-forward projections,
+and with ``--fsdp`` the f32 masters and the optimizer's moments split over
+dp (``train.videodiffusion.TrainState``). ``--dp`` defaults to the world size
+over tp * sp, clamped to a divisor of ``--train_batch_size``; the mesh is the
+world's first dp*sp*tp ranks and the rest idle, as in JAX; ``--dp 1``
+without a launcher is a mesh of one. Rank 0 writes the metrics, checkpoints
+and validation GIFs; every rank joins the collectives of each step, of each
+checkpoint's gathers and of the validation sample. A checkpoint holds whole
+tensors, so it resumes on any mesh or on none.
 """
 
 import argparse
@@ -31,24 +42,18 @@ from ..data.io import load_array
 from ..data.video import VideoClipDataset, save_videos_grid
 from ..diffusion.pipeline import EEG2VideoPipeline
 from ..models.unet3d import UNet3DConditionModel, UNet3DConfig
+from ..models.attention3d import check_tp_heads, sp_scope
 from ..models.vae import AutoencoderKL
+from ..parallel import init_distributed, is_host0, make_mesh, shard_params
+from ..parallel.distributed import rank, world_size
 from ..train import checkpoint as ckpt
 from ..train.videodiffusion import (VideoDiffusionTrainConfig, encode_posteriors,
-                                    init_video_train_state, train_epoch)
+                                    init_video_train_state, train_epoch, unet_tp_rules)
 from ..utils import get_logger, resolve_device
 from ..utils.metrics_logger import MetricsLogger
 from .inference_eeg2video import load_vae_state
 
 log = get_logger(__name__)
-
-# flags of the JAX trainer that wait for a later slice: (flag, the value that
-# means "off", what it would need)
-NOT_PORTED = (
-    ("dp", (0, 1), "data-parallel training over several GPUs"),
-    ("tp", (1,), "tensor-parallel projections"),
-    ("sp", (1,), "sequence-parallel (ring) attention"),
-    ("fsdp", (False,), "fully-sharded parameters"),
-)
 
 
 def apply_reference_config(args, cfg_yaml):
@@ -132,23 +137,58 @@ def build_parser():
                    help="encoder of the validation GIFs, as in cli.serve: native = "
                         "csrc/gif_encoder.cpp (built with g++ at first use)")
     p.add_argument("--seed", type=int, default=33)
-    p.add_argument("--dp", type=int, default=0)
-    p.add_argument("--tp", type=int, default=1)
-    p.add_argument("--fsdp", action="store_true")
-    p.add_argument("--sp", type=int, default=1)
+    p.add_argument("--dp", type=int, default=0,
+                   help="data-parallel mesh size, one GPU a rank (0 = the world size over "
+                        "tp * sp)")
+    p.add_argument("--tp", type=int, default=1,
+                   help="tensor-parallel mesh size (Megatron-split attention and "
+                        "feed-forward projections)")
+    p.add_argument("--fsdp", action="store_true",
+                   help="split the f32 masters and the optimizer's moments over the dp "
+                        "axis (parallel.fsdp_spec); the working copy stays whole")
+    p.add_argument("--sp", type=int, default=1,
+                   help="sequence-parallel mesh size: spatial attention, forward and "
+                        "backward, through ring attention over an sp axis (ops.ring); "
+                        "composes with --tp")
     return p
 
 
-def refuse_unported(args):
-    """Fail, naming the flag, on any option of the JAX trainer that this
-    port does not have yet."""
-    for flag, off, what in NOT_PORTED:
-        if getattr(args, flag) not in off:
-            raise SystemExit(f"--{flag} ({what}) is not ported to the PyTorch trainer yet: "
-                             "the next item of ROADMAP.md §1 item 7")
+def mesh_from_args(args, device):
+    """The (dp, sp, tp) mesh the flags ask for, or None for one GPU without
+    a mesh (no mesh flag and a world of one). ``--dp`` 0 is the world size
+    over tp * sp; a dp that does not divide the batch is clamped to its
+    largest divisor that does, as JAX clamps it (:196-205). As there, the
+    mesh is the world's first dp*sp*tp ranks, and a rank past them gets a
+    mesh that is not ``active`` and does no work. Every rank calls it, after
+    ``init_distributed``."""
+    tp, sp = max(args.tp, 1), max(args.sp, 1)
+    if not (args.dp or tp > 1 or sp > 1 or args.fsdp or world_size() > 1):
+        return None
+    dp = args.dp if args.dp > 0 else max(world_size() // (tp * sp), 1)
+    if args.train_batch_size % dp:
+        dp = max(d for d in range(1, dp + 1) if args.train_batch_size % d == 0)
+        log.warning("train_batch_size %d not divisible by dp: clamped dp to %d",
+                    args.train_batch_size, dp)
+    mesh = make_mesh(dp=dp, tp=tp, sp=sp, device=device, leave_idle=True)
+    if mesh.active:
+        log.info("mesh: dp=%d tp=%d sp=%d fsdp=%s on %s", dp, tp, sp, args.fsdp, mesh.device)
+    else:
+        log.warning("rank %d idle: the mesh holds the first %d of %d ranks", rank(),
+                    dp * tp * sp, world_size())
+    return mesh
 
 
-def train(unet, vae, data, contexts, args, cfg=None, on_step=None):
+def _agree(flag, mesh):
+    """Whether any rank of the world has ``flag`` set (a signal may reach some
+    ranks only; they all stop after the same epoch)."""
+    if mesh is None or world_size() == 1:
+        return flag
+    t = torch.tensor([float(flag)], device=mesh.device)
+    torch.distributed.all_reduce(t, op=torch.distributed.ReduceOp.MAX, group=mesh.members)
+    return bool(t.item())
+
+
+def train(unet, vae, data, contexts, args, cfg=None, on_step=None, mesh=None):
     """Fine-tune ``unet`` and return ``(state, epoch_losses)``.
 
     unet:     ``UNet3DConditionModel`` with f32 parameters (the stored truth)
@@ -162,13 +202,20 @@ def train(unet, vae, data, contexts, args, cfg=None, on_step=None):
               ``args.gradient_accumulation_steps``
     on_step:  ``on_step(state, loss)`` after every micro step (every
               optimizer step without gradient accumulation)
+    mesh:     the mesh ``main`` made already; None makes the one the flags
+              ask for (``mesh_from_args``). A rank the mesh leaves idle
+              returns ``(None, [])`` at once.
 
     The epochs run inside a ``CheckpointSession`` and a ``PreemptionGuard``:
     after an epoch in which SIGTERM or SIGINT arrived, the train state is
     saved and the run returns.
     """
-    refuse_unported(args)
+    init_distributed(args.device)  # a launcher's group, if any, before anything else
     device = resolve_device(args.device)
+    if mesh is None:
+        mesh = mesh_from_args(args, device)
+    if mesh is not None and not mesh.active:
+        return None, []
     tcfg = cfg or VideoDiffusionTrainConfig(
         learning_rate=args.learning_rate, use_8bit_adam=args.use_8bit_adam,
         gradient_accumulation_steps=args.gradient_accumulation_steps)
@@ -180,7 +227,10 @@ def train(unet, vae, data, contexts, args, cfg=None, on_step=None):
         resume = torch.load(file, map_location="cpu", weights_only=False)
         if set(resume["params"]) == set(unet.state_dict()):
             unet.load_state_dict(resume["params"], strict=True)  # a full checkpoint
-    state = init_video_train_state(unet, tcfg, device)
+    if mesh is not None and mesh.size("tp") > 1:
+        check_tp_heads(unet, mesh.size("tp"), unet_tp_rules)
+        shard_params(unet, mesh, unet_tp_rules)
+    state = init_video_train_state(unet, tcfg, device, mesh=mesh, fsdp=args.fsdp)
     if resume is not None:
         state.load_state_dict(resume)
         log.info("resumed from %s (step %d)", args.unet_ckpt, state.step)
@@ -198,7 +248,8 @@ def train(unet, vae, data, contexts, args, cfg=None, on_step=None):
     n = post_all.shape[0]
     bsz = args.train_batch_size
     steps_per_epoch = max(n // bsz, 1)
-    metrics = MetricsLogger(args.output_dir, "tuneavideo")
+    host0 = is_host0()
+    metrics = MetricsLogger(args.output_dir, "tuneavideo") if host0 else None
     rng = np.random.default_rng(args.seed)
     losses = []
     ckpt_dir = os.path.join(args.output_dir, "ckpt")
@@ -211,11 +262,15 @@ def train(unet, vae, data, contexts, args, cfg=None, on_step=None):
                                       on_step)
                 losses.append(ep_loss)
                 log.info("epoch %d train_loss %.5f", epoch, ep_loss)
-                metrics.log(epoch * steps_per_epoch, train_loss=ep_loss, epoch=epoch)
-                if guard.preempted:
-                    file = session.save(epoch, state)
-                    log.warning("preemption signal: resumable train state %s saved after "
-                                "epoch %d (resume with --unet_ckpt %s)", file, epoch, ckpt_dir)
+                if host0:
+                    metrics.log(epoch * steps_per_epoch, train_loss=ep_loss, epoch=epoch)
+                if _agree(guard.preempted, mesh):
+                    sd = state.state_dict()  # every rank gathers; rank 0 writes
+                    if host0:
+                        file = session.save(epoch, sd)
+                        log.warning("preemption signal: resumable train state %s saved "
+                                    "after epoch %d (resume with --unet_ckpt %s)", file, epoch,
+                                    ckpt_dir)
                     break
                 if epoch % args.validation_epochs == 0:
                     path = os.path.join(args.output_dir, "samples", f"sample-{epoch}.gif")
@@ -224,27 +279,34 @@ def train(unet, vae, data, contexts, args, cfg=None, on_step=None):
                 if epoch % args.checkpointing_epochs == 0 or epoch == args.epochs:
                     # the train state is written on the session's thread while
                     # the next epoch trains; the diffusers layout here
-                    file = session.save(epoch, state)
-                    save_diffusers_pipeline(args.output_dir, state.params_f32(), unet.config,
-                                            vae.state_dict(), vae.config)
-                    log.info("checkpoint @ epoch %d -> %s and the diffusers layout in %s",
-                             epoch, file, args.output_dir)
+                    sd = state.state_dict()
+                    if host0:
+                        file = session.save(epoch, sd)
+                        save_diffusers_pipeline(args.output_dir, sd["params"], unet.config,
+                                                vae.state_dict(), vae.config)
+                        log.info("checkpoint @ epoch %d -> %s and the diffusers layout in %s",
+                                 epoch, file, args.output_dir)
     finally:
-        metrics.close()
+        if metrics is not None:
+            metrics.close()
     return state, losses
 
 
 def _validate(state, vae, context_all, args, epoch, path, latent_fhw):
     """Sample the first two clips' captions with the current weights
     (reference L343-369), at the training clips' length and size, and write
-    them as one grid GIF."""
+    them as one grid GIF. On a mesh every rank samples the same two clips
+    (the tp and sp collectives of the UNet need every rank), rank 0 writes."""
     pipe = EEG2VideoPipeline(unet=state.unet, vae=vae, dtype=state.dtype)
     emb = context_all[:2].reshape(min(2, context_all.shape[0]), -1)
     gen = torch.Generator(device=state.device).manual_seed(args.seed + 10_000 + epoch)
     frames, h8, w8 = latent_fhw
-    vids = pipe(emb, emb.mean(dim=0), generator=gen, video_length=frames, height=8 * h8,
-                width=8 * w8, num_inference_steps=args.validation_steps, guidance_scale=12.5)
-    save_videos_grid(vids.cpu().numpy(), path, encoder=args.gif_encoder)
+    with sp_scope(state.mesh):
+        vids = pipe(emb, emb.mean(dim=0), generator=gen, video_length=frames, height=8 * h8,
+                    width=8 * w8, num_inference_steps=args.validation_steps,
+                    guidance_scale=12.5)
+    if is_host0():
+        save_videos_grid(vids.cpu().numpy(), path, encoder=args.gif_encoder)
 
 
 def main(argv=None):
@@ -256,8 +318,11 @@ def main(argv=None):
 
         with open(args.config) as f:
             remat = apply_reference_config(args, yaml.safe_load(f))
-    refuse_unported(args)
-    resolve_device(args.device)  # fail before loading anything
+    init_distributed(args.device)  # a launcher's group, if any, before anything else
+    device = resolve_device(args.device)  # fail before loading anything
+    mesh = mesh_from_args(args, device)
+    if mesh is not None and not mesh.active:
+        return 0
 
     ucfg = UNet3DConfig()
     # dataset: block-0 clips in presentation order + caption embeddings
@@ -271,7 +336,11 @@ def main(argv=None):
     if len(ds) == 0:
         raise SystemExit(f"no clips ({{1..}}.mp4) under {args.video_dir}")
 
-    unet = UNet3DConditionModel(ucfg)
+    # the initial weights are a function of --seed, as JAX's init key makes
+    # them: every rank of a mesh starts from the same ones
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(args.seed)
+        unet = UNet3DConditionModel(ucfg)
     gen = torch.Generator().manual_seed(args.seed)
     if args.unet_torch:
         unet.load_state_dict(unet3d_from_torch_2d(
@@ -287,7 +356,7 @@ def main(argv=None):
     train(unet, vae, pixels_all, text_emb[prompt_idx], args,
           cfg=VideoDiffusionTrainConfig(
               learning_rate=args.learning_rate, remat=remat, use_8bit_adam=args.use_8bit_adam,
-              gradient_accumulation_steps=args.gradient_accumulation_steps))
+              gradient_accumulation_steps=args.gradient_accumulation_steps), mesh=mesh)
     return 0
 
 

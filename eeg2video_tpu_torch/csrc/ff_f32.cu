@@ -4,7 +4,8 @@
 //   (or, for a tensor-parallel rank's partial product, without the x),
 //   dx  = dout + rstd (dxn - mean(dxn) - xhat mean(dxn xhat)),
 //         dxn = (dh2 Wp) gamma, dh2 = [dgated gelu(g) | dgated h gelu'(g)],
-//         dgated = dout Wo.
+//         dgated = dout Wo (and without the leading dout for the partial
+//         product's gradient).
 //
 // Replaces (JAX package, eeg2video_tpu/ops/geglu.py), where it runs on f32
 // operands (fused_ff_ln tests no dtype, :407): _ff_pallas :242 (_ff_kernel
@@ -326,10 +327,11 @@ __global__ void __launch_bounds__(kThreads, 1)
     }
 }
 
-// dx = dout + rstd (dxn - m1 - xhat m2), dxn = dxa gamma, m1 = mean(dxn),
-// m2 = mean(dxn xhat): one warp a row, dxa read from dx and overwritten
+// dx = dres + rstd (dxn - m1 - xhat m2), dxn = dxa gamma, m1 = mean(dxn),
+// m2 = mean(dxn xhat), dres the residual's gradient (dout) or null for the
+// block without its residual: one warp a row, dxa read from dx and overwritten
 __global__ void __launch_bounds__(kThreads)
-    ff_f32_bwd_ln_kernel(const float* __restrict__ x, const float* __restrict__ dout,
+    ff_f32_bwd_ln_kernel(const float* __restrict__ x, const float* __restrict__ dres,
                          const float* __restrict__ mu, const float* __restrict__ rstd,
                          const float* __restrict__ gamma, float* dx, int T, int C) {
   const int row = blockIdx.x * (kThreads / 32) + (threadIdx.x >> 5), lane = threadIdx.x & 31;
@@ -345,7 +347,8 @@ __global__ void __launch_bounds__(kThreads)
   const float m1 = warp_sum(s1) / C, m2 = warp_sum(s2) / C;
   for (int c = lane; c < C; c += 32) {
     const float dxn = dx[base + c] * gamma[c], xh = (x[base + c] - m) * rs;
-    dx[base + c] = dout[base + c] + rs * (dxn - m1 - xh * m2);
+    const float d = rs * (dxn - m1 - xh * m2);
+    dx[base + c] = dres ? dres[base + c] + d : d;
   }
 }
 
@@ -359,7 +362,9 @@ struct FfArgs {
   float *out, *work;
   int T, C, I;
   float eps;
-  const float* xres;  // the residual added to the forward's output, or null
+  // the residual added to the forward's output (x), or its gradient added to
+  // the backward's (dout); null for the block without its residual
+  const float* xres;
 };
 
 int run(const FfArgs& a, bool backward, cudaStream_t s) {
@@ -388,7 +393,7 @@ int run(const FfArgs& a, bool backward, cudaStream_t s) {
   if ((rc = launch(ff_f32_bwd_dxa_kernel, rows * cols, kOutKSmem, s, (const float*)inter, a.wp,
                    a.out, a.T, a.C, a.I)))
     return rc;
-  return launch(ff_f32_bwd_ln_kernel, warp_rows, 0, s, a.x, a.g, (const float*)mu,
+  return launch(ff_f32_bwd_ln_kernel, warp_rows, 0, s, a.x, a.xres, (const float*)mu,
                 (const float*)rstd, a.gamma, a.out, a.T, a.C);
 }
 
@@ -421,16 +426,18 @@ extern "C" int e2v_ff_f32(const void* x, const void* gamma, const void* beta, co
 }
 
 // dx of e2v_ff_f32 from x and the output's gradient g (T, C), f32; the same
-// shapes and rules (bo is not needed; work holds T 2I + 2 T floats). Returns
-// the CUDA launch status.
+// shapes and rules (bo is not needed; work holds T 2I + 2 T floats).
+// residual 0: the gradient of the block without its residual (no g in dx).
+// Returns the CUDA launch status.
 extern "C" int e2v_ff_f32_bwd(const void* x, const void* g, const void* gamma, const void* beta,
                               const void* wp, const void* bp, const void* wo, void* dx,
-                              void* work, int T, int C, int I, float eps, void* stream) {
+                              void* work, int T, int C, int I, float eps, void* stream,
+                              int residual) {
   e2v::f32k::FfArgs a = {static_cast<const float*>(x), static_cast<const float*>(g),
                          static_cast<const float*>(gamma), static_cast<const float*>(beta),
                          static_cast<const float*>(wp), static_cast<const float*>(bp),
                          static_cast<const float*>(wo), nullptr,
                          static_cast<float*>(dx), static_cast<float*>(work), T, C, I, eps,
-                         nullptr};
+                         residual ? static_cast<const float*>(g) : nullptr};
   return e2v::f32k::dispatch(a, true, stream);
 }

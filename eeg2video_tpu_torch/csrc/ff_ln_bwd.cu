@@ -2,6 +2,9 @@
 // with its residual (ff_ln.cu), everything recomputed from (x, g):
 //   out = x + (h * gelu(gate)) Wo^T + bo,  [h | gate] = LN(x) Wp^T + bp
 //   dx  = g + LN'(((g Wo) .* [gelu(gate) | h gelu'(gate)]) Wp .* gamma)
+// or, for the block without its residual (a tensor-parallel rank's partial
+// product, ff_ln's residual 0), dx without the leading g: the LayerNorm
+// path's alone.
 //
 // Replaces (JAX package): eeg2video_tpu/ops/geglu.py _ff_bwd_kernel (:280).
 // Parameter gradients are not computed here: the caller forms them with
@@ -134,7 +137,7 @@ __global__ void __launch_bounds__(FfBwdShape<CT>::kThreads)
                      const float* __restrict__ gamma, const float* __restrict__ beta,
                      const bf16* __restrict__ wp, const float* __restrict__ bp,
                      const bf16* __restrict__ wo, bf16* __restrict__ dx, int T, int Cr, int I,
-                     float eps) {
+                     float eps, bool residual) {
   using S = FfBwdShape<CT>;
   constexpr int C = S::C, BM = S::BM, LDX = S::LDX, LDD = S::LDD, MT = S::MT;
   constexpr int NT1 = S::NT1, NT2 = S::NT2, NG = S::NG;
@@ -377,7 +380,8 @@ __global__ void __launch_bounds__(FfBwdShape<CT>::kThreads)
     }
   }
   __syncthreads();
-  // dx = g + rstd (dxn - m1 - xhat m2), bf16 pairs, rows past T masked
+  // dx = g + rstd (dxn - m1 - xhat m2) (without g when the block has no
+  // residual), bf16 pairs, rows past T masked
 #pragma unroll
   for (int m = 0; m < MT; ++m) {
 #pragma unroll
@@ -400,12 +404,16 @@ __global__ void __launch_bounds__(FfBwdShape<CT>::kThreads)
         const long long idx = (long long)row * C + col;
         const float2 xv =
             __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(x + idx));
-        const float2 gv = __bfloat1622float2(
-            *reinterpret_cast<const __nv_bfloat162*>(Gs + r * LDX + col));
         const float xh0 = (xv.x - mu) * rstd, xh1 = (xv.y - mu) * rstd;
-        *reinterpret_cast<uint32_t*>(dx + idx) =
-            pack_bf16(gv.x + rstd * (acc[m][n][2 * hf] - m1 - xh0 * m2),
-                      gv.y + rstd * (acc[m][n][2 * hf + 1] - m1 - xh1 * m2));
+        float d0 = rstd * (acc[m][n][2 * hf] - m1 - xh0 * m2);
+        float d1 = rstd * (acc[m][n][2 * hf + 1] - m1 - xh1 * m2);
+        if (residual) {
+          const float2 gv = __bfloat1622float2(
+              *reinterpret_cast<const __nv_bfloat162*>(Gs + r * LDX + col));
+          d0 = gv.x + d0;
+          d1 = gv.y + d1;
+        }
+        *reinterpret_cast<uint32_t*>(dx + idx) = pack_bf16(d0, d1);
       }
     }
   }
@@ -414,12 +422,12 @@ __global__ void __launch_bounds__(FfBwdShape<CT>::kThreads)
 template <int CT>
 int launch_ff_bwd(const bf16* x, const bf16* g, const float* gamma, const float* beta,
                   const bf16* wp, const float* bp, const bf16* wo, bf16* dx, int T, int Cr,
-                  int I, float eps, void* stream) {
+                  int I, float eps, void* stream, bool residual) {
   using S = FfBwdShape<CT>;
   if (T == 0) return 0;
   const dim3 grid((T + S::BM - 1) / S::BM);
   E2V_LAUNCH(ff_ln_bwd_kernel<CT>, grid, S::kThreads, S::kSmem, stream, x, g, gamma, beta, wp,
-             bp, wo, dx, T, Cr, I, eps);
+             bp, wo, dx, T, Cr, I, eps, residual);
 }
 
 }  // namespace
@@ -428,10 +436,11 @@ int launch_ff_bwd(const bf16* x, const bf16* g, const float* gamma, const float*
 // x, g, dx (T, C) bf16; gamma, beta (C) f32; wp (2I, C) bf16 (nn.Linear
 // layout), bp (2I) f32; wo (C, I) bf16; x, g, wp and wo 16-byte aligned.
 // C % 64 == 0, C <= 640, I % 64 == 0; Cr the true width of a zero-padded
-// block, as for e2v_ff_ln. Returns the CUDA launch status.
+// block, as for e2v_ff_ln. residual 0: the gradient of the block without
+// its residual (dx lacks the leading g). Returns the CUDA launch status.
 extern "C" int e2v_ff_ln_bwd(const void* x, const void* g, const void* gamma, const void* beta,
                              const void* wp, const void* bp, const void* wo, void* dx, int T,
-                             int C, int Cr, int I, float eps, void* stream) {
+                             int C, int Cr, int I, float eps, void* stream, int residual) {
   using namespace e2v;
   const bf16* xx = static_cast<const bf16*>(x);
   const bf16* gg = static_cast<const bf16*>(g);
@@ -444,16 +453,16 @@ extern "C" int e2v_ff_ln_bwd(const void* x, const void* g, const void* gamma, co
   if (C % 64 != 0 || I % kIC != 0 || Cr > C || Cr <= C - 64 || Cr % 2 != 0)
     return (int)cudaErrorInvalidValue;
   switch (C / 64) {
-    case 1: return launch_ff_bwd<1>(xx, gg, ga, be, p, pb, o, y, T, Cr, I, eps, stream);
-    case 2: return launch_ff_bwd<2>(xx, gg, ga, be, p, pb, o, y, T, Cr, I, eps, stream);
-    case 3: return launch_ff_bwd<3>(xx, gg, ga, be, p, pb, o, y, T, Cr, I, eps, stream);
-    case 4: return launch_ff_bwd<4>(xx, gg, ga, be, p, pb, o, y, T, Cr, I, eps, stream);
-    case 5: return launch_ff_bwd<5>(xx, gg, ga, be, p, pb, o, y, T, Cr, I, eps, stream);
-    case 6: return launch_ff_bwd<6>(xx, gg, ga, be, p, pb, o, y, T, Cr, I, eps, stream);
-    case 7: return launch_ff_bwd<7>(xx, gg, ga, be, p, pb, o, y, T, Cr, I, eps, stream);
-    case 8: return launch_ff_bwd<8>(xx, gg, ga, be, p, pb, o, y, T, Cr, I, eps, stream);
-    case 9: return launch_ff_bwd<9>(xx, gg, ga, be, p, pb, o, y, T, Cr, I, eps, stream);
-    case 10: return launch_ff_bwd<10>(xx, gg, ga, be, p, pb, o, y, T, Cr, I, eps, stream);
+    case 1: return launch_ff_bwd<1>(xx, gg, ga, be, p, pb, o, y, T, Cr, I, eps, stream, residual != 0);
+    case 2: return launch_ff_bwd<2>(xx, gg, ga, be, p, pb, o, y, T, Cr, I, eps, stream, residual != 0);
+    case 3: return launch_ff_bwd<3>(xx, gg, ga, be, p, pb, o, y, T, Cr, I, eps, stream, residual != 0);
+    case 4: return launch_ff_bwd<4>(xx, gg, ga, be, p, pb, o, y, T, Cr, I, eps, stream, residual != 0);
+    case 5: return launch_ff_bwd<5>(xx, gg, ga, be, p, pb, o, y, T, Cr, I, eps, stream, residual != 0);
+    case 6: return launch_ff_bwd<6>(xx, gg, ga, be, p, pb, o, y, T, Cr, I, eps, stream, residual != 0);
+    case 7: return launch_ff_bwd<7>(xx, gg, ga, be, p, pb, o, y, T, Cr, I, eps, stream, residual != 0);
+    case 8: return launch_ff_bwd<8>(xx, gg, ga, be, p, pb, o, y, T, Cr, I, eps, stream, residual != 0);
+    case 9: return launch_ff_bwd<9>(xx, gg, ga, be, p, pb, o, y, T, Cr, I, eps, stream, residual != 0);
+    case 10: return launch_ff_bwd<10>(xx, gg, ga, be, p, pb, o, y, T, Cr, I, eps, stream, residual != 0);
     default: return (int)cudaErrorInvalidValue;
   }
 }

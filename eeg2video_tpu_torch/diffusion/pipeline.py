@@ -69,12 +69,7 @@ class EEG2VideoPipeline:
         must hold whole heads)."""
         from ..parallel import shard_params
 
-        tp = mesh.size("tp")
-        if tp_rules is not None and tp > 1:
-            for name, m in self.unet.named_modules():
-                if (isinstance(m, attention3d.Attention) and m.heads % tp
-                        and tp_rules(f"{name}.to_q.weight") is not None):
-                    raise ValueError(f"{name}: heads={m.heads} not divisible by tp={tp}")
+        attention3d.check_tp_heads(self.unet, mesh.size("tp"), tp_rules)
         shard_params(self.unet, mesh, tp_rules)
         shard_params(self.vae, mesh, None)
         self.mesh = mesh

@@ -24,18 +24,26 @@ the backward kernels behind it):
   repeated per frame (:504-511);
 - temporal attention takes ``ops.temporal.temporal_attention`` (:375-385).
 
-Across GPUs (forward only; a call that asks for a gradient is refused):
+Across GPUs, forward and backward:
 
 - sp: under ``sp_scope(mesh)`` spatial and cross attention go through ring
-  attention (``ops.ring``, attention3d.py:60-119); only the attention
-  internals split over sp, the activations around them stay whole on every
-  sp rank. Temporal attention never splits over sp;
+  attention (``ops.ring``, attention3d.py:60-119), in ``train=True`` as at
+  inference (JAX's train route, :186-219); only the attention internals
+  split over sp, the activations around them stay whole on every sp rank,
+  and so do their gradients (the ring's backward gathers them). Temporal
+  attention never splits over sp. The ring's output is no ``flash_out``
+  residual (JAX's ring names none), so a recomputed block runs its hops
+  again in the backward, every rank the same blocks in the same order;
 - tp: after ``parallel.shard_params`` with ``train.unet_tp_rules`` every
   attention (attn1, attn2, attn_temp) runs this rank's ``heads // tp`` heads
   of the column-split to_q/k/v, and to_out's partial products are summed
-  over the tp group before its bias is added once; the feed-forward runs its
-  GEGLU halves' shards without residual or bias, and x + bias is added once
-  after the sum (``BasicTransformerBlock``).
+  over the tp group (``reduce_from``) before its bias is added once; the
+  feed-forward runs its GEGLU halves' shards without residual or bias, and x
+  + bias is added once after the sum (``BasicTransformerBlock``). Each input
+  of a column-split projection (x, the context, the feed-forward's
+  LayerNorm input and weights, the attention bias) enters through ``copy_to``, whose
+  backward sums the ranks' partial gradients of it over tp (Megatron's f and
+  g, which GSPMD inserts in JAX).
 
 Module and parameter names follow the diffusers key space that
 ``eeg2video_tpu.convert.export_diffusion.unet3d_to_torch`` emits.
@@ -47,13 +55,13 @@ import contextlib
 import math
 
 import torch
-import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
 from ..ops.attention import flash_attention, flash_attention_fwd
 from ..ops.geglu import feed_forward
 from ..ops.temporal import temporal_attention
+from ..parallel.mesh import copy_to, reduce_from
 from .resnet3d import group_norm
 
 
@@ -98,6 +106,17 @@ def _sp_attention(q, k, v, heads, bias=None):
 
 # --- tp: row-split output projections ------------------------------------------
 
+def check_tp_heads(model, tp: int, tp_rules):
+    """Raise, naming the module, where tp would cut an attention's heads (a
+    rank's shard of to_q/k/v must hold whole heads); call it before slicing."""
+    if tp_rules is None or tp <= 1:
+        return
+    for name, m in model.named_modules():
+        if (isinstance(m, Attention) and m.heads % tp
+                and tp_rules(f"{name}.to_q.weight") is not None):
+            raise ValueError(f"{name}: heads={m.heads} not divisible by tp={tp}")
+
+
 def _tp_group(linear):
     """The group over which ``linear``'s input features are split
     (``parallel.shard_params``' split of dim 1 of its weight), or None."""
@@ -105,10 +124,11 @@ def _tp_group(linear):
     return None if spec is None or spec[0] != 1 else linear.mesh.group(spec[1])
 
 
-def _refuse_tp_grad(*tensors):
-    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
-        raise RuntimeError("tensor-parallel UNet: an operand asks for a gradient, and tp "
-                           "training is not ported yet (ROADMAP.md §1 item 7)")
+def _col_group(linear):
+    """The group over which ``linear``'s output features are split (dim 0 of
+    its weight), or None: its input's gradient is partial on each rank."""
+    spec = getattr(linear, "shard_specs", {}).get("weight")
+    return None if spec is None or spec[0] != 0 else linear.mesh.group(spec[1])
 
 
 def _row_parallel(linear, x):
@@ -117,10 +137,7 @@ def _row_parallel(linear, x):
     group = _tp_group(linear)
     if group is None:
         return linear(x)
-    _refuse_tp_grad(x, linear.weight, linear.bias)
-    y = F.linear(x, linear.weight)
-    dist.all_reduce(y, group=group)
-    return y + linear.bias
+    return reduce_from(F.linear(x, linear.weight), group) + linear.bias
 
 
 class Attention(nn.Module):
@@ -142,7 +159,9 @@ class Attention(nn.Module):
         return self.to_q.weight.shape[0] // self.head_dim
 
     def forward(self, x, context=None):
-        src = x if context is None else context
+        group = _col_group(self.to_q)
+        x = copy_to(x, group)
+        src = x if context is None else copy_to(context, group)
         heads = self.local_heads()
         out = _sp_attention(self.to_q(x), self.to_k(src), self.to_v(src), heads)
         return _row_parallel(self.to_out[0], out)
@@ -155,6 +174,10 @@ class SparseCausalAttention(Attention):
 
     def forward(self, x, bias=None, train=False):
         b, f, l = x.shape[:3]
+        group = _col_group(self.to_q)
+        x = copy_to(x, group)
+        if bias is not None:  # each rank's heads give part of its gradient
+            bias = copy_to(bias, group)
         q, k, v = self.to_q(x), self.to_k(x), self.to_v(x)  # (B, F, L, inner)
         heads = self.local_heads()
         sp = _sp_size()
@@ -223,6 +246,7 @@ class TemporalAttentionUnrolled(Attention):
 
     def forward(self, x, train=False):
         b, f, l, _ = x.shape
+        x = copy_to(x, _col_group(self.to_q))
         q, k, v = self.to_q(x), self.to_k(x), self.to_v(x)
         heads = self.local_heads()
         if train:
@@ -285,12 +309,13 @@ class BasicTransformerBlock(nn.Module):
                              proj.bias, out.weight, out.bias, eps=1e-5)
         else:
             # this rank's GEGLU halves: the partial product without residual
-            # or bias, summed over tp, then x + bias once
-            part = feed_forward(x, self.norm3.weight, self.norm3.bias, proj.weight, proj.bias,
+            # or bias, summed over tp, then x + bias once; the LayerNorm's
+            # weights, whole on every rank, get partial gradients too
+            part = feed_forward(copy_to(x, group), copy_to(self.norm3.weight, group),
+                                copy_to(self.norm3.bias, group), proj.weight, proj.bias,
                                 out.weight, torch.zeros_like(out.bias), eps=1e-5,
                                 residual=False)
-            dist.all_reduce(part, group=group)
-            x = x + (part + out.bias)
+            x = x + (reduce_from(part, group) + out.bias)
         return x + self.attn_temp(self.norm_temp(x), train)
 
 

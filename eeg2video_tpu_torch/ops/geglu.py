@@ -84,9 +84,10 @@ def _gate_bwd(h2, dgated, inner, dtype):
     return torch.cat([dgated * gelu, dgated * h * dgelu], dim=-1).to(dtype)
 
 
-def ff_ln_bwd_plain(x, g, gamma, beta, wp, bp, wo, eps=1e-5):
+def ff_ln_bwd_plain(x, g, gamma, beta, wp, bp, wo, eps=1e-5, residual=True):
     """dx of ``ff_ln`` as a written-out formula (the kernel's steps in f32,
-    rounded where it rounds): everything recomputed from (x, g)."""
+    rounded where it rounds): everything recomputed from (x, g). Without the
+    residual's g (the LayerNorm path's alone) when ``residual`` is False."""
     inner = wo.shape[1]
     xf = x.float()
     xc = xf - xf.mean(dim=-1, keepdim=True)
@@ -98,7 +99,8 @@ def ff_ln_bwd_plain(x, g, gamma, beta, wp, bp, wo, eps=1e-5):
     dxn = (dh2.float() @ wp.float()) * gamma.float()
     m1 = dxn.mean(dim=-1, keepdim=True)
     m2 = (dxn * xhat).mean(dim=-1, keepdim=True)
-    return (g.float() + rstd * (dxn - m1 - xhat * m2)).to(x.dtype)
+    dx = rstd * (dxn - m1 - xhat * m2)
+    return (g.float() + dx if residual else dx).to(x.dtype)
 
 
 def geglu_out_bwd_plain(h2, g, w):
@@ -173,7 +175,7 @@ def _ff_bf16(kernel, x, gamma, beta, wp, bp, wo, bo, extra, eps, residual=True):
         rc = lib.e2v_ff_ln_bwd(rows[0].data_ptr(), rows[1].data_ptr(), ptr(vecs[0]),
                                ptr(vecs[1]), wp.data_ptr(), ptr(_aligned16(_f32(bp))),
                                wo.data_ptr(), out.data_ptr(), rows[0].shape[0], cp, c, inner,
-                               float(eps), _build.stream_of(x))
+                               float(eps), _build.stream_of(x), int(residual))
     _build.check(rc, kernel)
     _build.launches[kernel] += 1
     return (out if cp == c else out[:, :c]).reshape(x.shape)
@@ -207,7 +209,7 @@ def _ff_f32(kernel, x, gamma, beta, wp, bp, wo, bo, extra, eps, residual=True):
     else:
         rc = lib.e2v_ff_f32_bwd(ptr(rows[0]), ptr(rows[1]), ptr(gamma), ptr(beta), ptr(wp),
                                 ptr(bp), ptr(wo), ptr(out), ptr(work), t, c, inner, float(eps),
-                                _build.stream_of(x))
+                                _build.stream_of(x), int(residual))
     _build.check(rc, kernel)
     _build.launches[kernel] += 1
     return out.reshape(x.shape)
@@ -226,16 +228,17 @@ def ff_ln(x, gamma, beta, wp, bp, wo, bo, eps=1e-5, residual=True):
     return _ff_bf16("ff_ln", x, gamma, beta, wp, bp, wo, bo, (), eps, residual)
 
 
-def ff_ln_bwd(x, g, gamma, beta, wp, bp, wo, eps=1e-5):
-    """dx of ``ff_ln`` from its input x and the output's gradient g. A CUDA
-    tensor launches the kernel (same shape rules as ``ff_ln``; bf16
+def ff_ln_bwd(x, g, gamma, beta, wp, bp, wo, eps=1e-5, residual=True):
+    """dx of ``ff_ln`` from its input x and the output's gradient g (of the
+    block without its residual when ``residual`` is False: no g in dx). A
+    CUDA tensor launches the kernel (same shape rules as ``ff_ln``; bf16
     ``ff_ln_bwd``, f32 ``ff_ln_bwd_f32``); a CPU tensor takes
     ``ff_ln_bwd_plain``."""
     if not x.is_cuda:
-        return ff_ln_bwd_plain(x, g, gamma, beta, wp, bp, wo, eps)
+        return ff_ln_bwd_plain(x, g, gamma, beta, wp, bp, wo, eps, residual)
     if _kernel_dtype("ff_ln_bwd", x, g, wp, wo) == torch.float32:
-        return _ff_f32("ff_ln_bwd_f32", x, gamma, beta, wp, bp, wo, None, (g,), eps)
-    return _ff_bf16("ff_ln_bwd", x, gamma, beta, wp, bp, wo, None, (g,), eps)
+        return _ff_f32("ff_ln_bwd_f32", x, gamma, beta, wp, bp, wo, None, (g,), eps, residual)
+    return _ff_bf16("ff_ln_bwd", x, gamma, beta, wp, bp, wo, None, (g,), eps, residual)
 
 
 def geglu_out_l2_read_bytes(t, inner, c):
@@ -370,25 +373,25 @@ def geglu_out_bwd(h2, g, w):
 
 
 class _FFLn(torch.autograd.Function):
-    """``ff_ln`` with ``ff_ln_bwd`` behind for dx; its output is an ``ff_out``
-    residual of a recomputed block."""
+    """``ff_ln`` with ``ff_ln_bwd`` behind for dx (both with or without the
+    residual); its output is an ``ff_out`` residual of a recomputed block."""
 
     @staticmethod
-    def forward(ctx, x, gamma, beta, wp, bp, wo, bo, eps):
+    def forward(ctx, x, gamma, beta, wp, bp, wo, bo, eps, residual):
         ctx.save_for_backward(x, gamma, beta, wp, bp, wo, bo)
-        ctx.eps = eps
+        ctx.eps, ctx.residual = eps, residual
         return residuals.forward(residuals.FF_OUT, "ff_ln",
-                                 lambda: ff_ln(x, gamma, beta, wp, bp, wo, bo, eps))
+                                 lambda: ff_ln(x, gamma, beta, wp, bp, wo, bo, eps, residual))
 
     @staticmethod
     def backward(ctx, g):
         x, *params = ctx.saved_tensors
         dx = None
         if ctx.needs_input_grad[0]:
-            dx = ff_ln_bwd(x, g, *params[:-1], ctx.eps)
-        grads = _param_grads(lambda x_, *p: ff_ln_plain(x_, *p, ctx.eps), [x], params,
-                             ctx.needs_input_grad[1:7], g)
-        return (dx, *grads, None)
+            dx = ff_ln_bwd(x, g, *params[:-1], ctx.eps, ctx.residual)
+        grads = _param_grads(lambda x_, *p: ff_ln_plain(x_, *p, ctx.eps, ctx.residual), [x],
+                             params, ctx.needs_input_grad[1:7], g)
+        return (dx, *grads, None, None)
 
 
 class _GegluOut(torch.autograd.Function):
@@ -412,9 +415,9 @@ def _wants_grad(*tensors):
     return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
 
 
-def ff_ln_function(x, gamma, beta, wp, bp, wo, bo, eps=1e-5):
+def ff_ln_function(x, gamma, beta, wp, bp, wo, bo, eps=1e-5, residual=True):
     """Differentiable ``ff_ln``."""
-    return _FFLn.apply(x, gamma, beta, wp, bp, wo, bo, eps)
+    return _FFLn.apply(x, gamma, beta, wp, bp, wo, bo, eps, residual)
 
 
 def geglu_out_function(h2, w, b):
@@ -488,19 +491,16 @@ def feed_forward(x, gamma, beta, wp, bp, wo, bo, eps=1e-5, residual=True):
     their ``autograd.Function``s, with the backward kernels.
 
     ``residual`` False gives FF(LN(x)) alone on each route (the kernels
-    without their residual): the partial product of a tensor-parallel rank,
-    whose widths (I / tp) pick the route on the kernels' own limits
-    (``ff_route(..., shard=True)``). It is forward only."""
+    without their residual, forward and backward): the partial product of a
+    tensor-parallel rank, whose widths (I / tp) pick the route on the
+    kernels' own limits (``ff_route(..., shard=True)``)."""
     route = ff_route(x.shape[-1], wo.shape[1], shard=not residual)
     grad = _wants_grad(x, gamma, beta, wp, bp, wo, bo)
-    if not residual and grad:
-        raise RuntimeError("feed_forward(residual=False): the tensor-parallel feed-forward "
-                           "is forward only; its backward is not ported yet")
     if route == "ref":
         return ff_ref(x, gamma, beta, wp, bp, wo, bo, eps, residual)
     if route == "ff_ln":
         if grad:
-            return ff_ln_function(x, gamma, beta, wp, bp, wo, bo, eps)
+            return ff_ln_function(x, gamma, beta, wp, bp, wo, bo, eps, residual)
         return ff_ln(x, gamma, beta, wp, bp, wo, bo, eps, residual)
     xn = _layer_norm_f32(x, eps).to(x.dtype) * gamma + beta
     h2 = F.linear(xn, wp) + bp  # f32-accumulated GEMM, rounded to x.dtype

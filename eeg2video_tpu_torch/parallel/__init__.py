@@ -1,10 +1,12 @@
-"""Multi-GPU generation: the process group, the (dp, sp, tp) mesh and
-parameter sharding (counterpart of ``eeg2video_tpu/parallel``). One process
+"""Multi-GPU generation and training: the process group, the (dp, sp, tp)
+mesh, parameter sharding, the collectives that differentiate and fsdp's
+choice of dimension (counterpart of ``eeg2video_tpu/parallel``). One process
 per GPU; the collectives are explicit ``torch.distributed`` calls."""
 
 from .distributed import init_distributed, local_batch_slice
-from .mesh import (Mesh, gather_batch, is_host0, make_mesh, shard_batch,
-                   shard_params)
+from .mesh import (Mesh, copy_to, fsdp_spec, gather_batch, is_host0, make_mesh, reduce_from,
+                   shard_batch, shard_params, shard_params_fsdp, tp_spec)
 
-__all__ = ["Mesh", "gather_batch", "init_distributed", "is_host0", "local_batch_slice",
-           "make_mesh", "shard_batch", "shard_params"]
+__all__ = ["Mesh", "copy_to", "fsdp_spec", "gather_batch", "init_distributed", "is_host0",
+           "local_batch_slice", "make_mesh", "reduce_from", "shard_batch", "shard_params",
+           "shard_params_fsdp", "tp_spec"]

@@ -17,6 +17,10 @@ is the JAX package's, step for step:
   ``b1 * max|m_old| + (1 - b1) * max|g|`` (and its 4th-root analog for v),
   so no reduce runs over the new moment; a zero scale becomes 1;
 - a scalar parameter is one row of one element;
+- where a parameter's first axis is split over ranks (fsdp or a tp column
+  split: a shard holds some of its rows), the three maxima over that axis
+  are taken over the whole axis, by one all-reduce (MAX) over the groups
+  that split it (``Adam8bit.row_groups``), as GSPMD reduces JAX's;
 - bias correction is optax's ``scale_by_adam``'s;
 - AdamW adds ``weight_decay * p`` to the Adam update and then scales by
   ``-lr`` (optax's ``add_decayed_weights`` then ``scale_by_learning_rate``).
@@ -30,6 +34,7 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 # The JAX package's roundings, as XLA compiles its update: a constant divisor
 # becomes a multiply by its float32 reciprocal, (m / c1) / d becomes
@@ -85,6 +90,8 @@ class Adam8bit(torch.optim.Optimizer):
 
     def __init__(self, params, lr=1e-3, betas=(0.9, 0.999), eps=1e-8, weight_decay=0.0):
         super().__init__(params, dict(lr=lr, betas=betas, eps=eps, weight_decay=weight_decay))
+        # {parameter: process groups over which its first axis is split}
+        self.row_groups = {}
 
     @staticmethod
     def _init_state(p):
@@ -108,7 +115,7 @@ class Adam8bit(torch.optim.Optimizer):
                 st["count"] += 1
                 u, st["mq"], st["ms"], st["vq"], st["vs"] = adam8_update(
                     p.grad, st["mq"], st["ms"], st["vq"], st["vs"], st["count"], b1, b2,
-                    group["eps"])
+                    group["eps"], self.row_groups.get(p, ()))
                 if group["weight_decay"]:
                     u = u + group["weight_decay"] * p
                 p.add_(u * -group["lr"])
@@ -129,10 +136,25 @@ class Adam8bit(torch.optim.Optimizer):
                                  for k, v in saved[i].items()}
 
 
-def adam8_update(g, mq, ms, vq, vs, count, b1, b2, eps):
+def _row_maxima(g, mq, vq, groups):
+    """max |g|, max |mq| and max vq over the first axis (keepdim), each over
+    the whole axis where ``groups`` split it: one all-reduce (MAX) a group."""
+    maxima = [g.abs().amax(dim=0, keepdim=True), mq.float().abs().amax(dim=0, keepdim=True),
+              vq.float().amax(dim=0, keepdim=True)]
+    if not groups:
+        return maxima
+    stacked = torch.cat(maxima)
+    for group in groups:
+        dist.all_reduce(stacked, op=dist.ReduceOp.MAX, group=group)
+    return list(stacked.split(1))
+
+
+def adam8_update(g, mq, ms, vq, vs, count, b1, b2, eps, row_groups=()):
     """One leaf of ``scale_by_adam8bit.update`` (JAX optim.py:74-136), its
     rows along the first axis: returns the Adam update u (g's shape and
-    dtype) and the new (mq, ms, vq, vs)."""
+    dtype) and the new (mq, ms, vq, vs). ``row_groups``: the process groups
+    over which the leaf's first axis is split (its maxima are the whole
+    axis's)."""
     gf = g.float()
     shape = g.shape
     if not g.dim():  # a scalar leaf: one row of one element
@@ -145,13 +167,13 @@ def adam8_update(g, mq, ms, vq, vs, count, b1, b2, eps):
     vsq = vq4 * vq4
     v = torch.addcmul(b2 * vsq * vsq, (1.0 - b2) * gf, gf)
     u = m / (float(c1) * (_sqrt(true_div(v, float(c2))) + eps))
-    gmax = gf.abs().amax(dim=0, keepdim=True)
-    m_oldmax = torch.square(mq.float().abs().amax(dim=0, keepdim=True) * ms)
+    gmax, mqmax, vqmax = _row_maxima(gf, mq, vq, row_groups if g.dim() else ())
+    m_oldmax = torch.square(mqmax * ms)
     nms = _sqrt(torch.add(b1 * m_oldmax, gmax, alpha=1.0 - b1)) * _INV127
     nms = torch.where(nms == 0.0, 1.0, nms)
     nmq = torch.clamp(torch.round(torch.sign(m) * _sqrt(m.abs()) / nms),
                       -127.0, 127.0).to(torch.int8)
-    w_oldmax = vq.float().amax(dim=0, keepdim=True) * vs
+    w_oldmax = vqmax * vs
     v_oldmax = torch.square(torch.square(w_oldmax))
     nvs = _sqrt(_sqrt(torch.addcmul(b2 * v_oldmax, (1.0 - b2) * gmax, gmax))) * _INV127
     nvs = torch.where(nvs == 0.0, 1.0, nvs)

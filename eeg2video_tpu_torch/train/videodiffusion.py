@@ -1,5 +1,6 @@
 """Video-diffusion fine-tune trainer (reference
-EEG2Video_New/Generation/train_finetune_videodiffusion.py:66-397) on one GPU.
+EEG2Video_New/Generation/train_finetune_videodiffusion.py:66-397) on one GPU
+or on a (dp, sp, tp) mesh of GPUs.
 
 Counterpart of ``eeg2video_tpu/train/videodiffusion.py``:
 
@@ -18,13 +19,21 @@ Counterpart of ``eeg2video_tpu/train/videodiffusion.py``:
 - bf16 compute with f32 parameters (the reference's fp16 autocast, L99-102,
   L286): see ``TrainState``;
 - gradient checkpointing (reference L154-155): ``remat`` / ``remat_min_hw``
-  / ``remat_save_attn``, see ``models.unet3d``.
+  / ``remat_save_attn``, see ``models.unet3d``;
+- the reference's DDP (L99-102, L240-242) becomes JAX's mesh (:42-57,
+  :261-345): the batch split over dp, ring attention over sp
+  (``attention3d.sp_scope`` open around the forward and the backward),
+  Megatron tp, and fsdp of the masters and moments; see ``TrainState`` and
+  ``train_step``.
 
 Training math (reference L288-319): VAE-encode pixels (or take precomputed
 posteriors), sample the posterior x 0.18215, draw uniform timesteps and
 noise, DDPM q-sample, UNet eps-prediction, f32 MSE. Every random draw comes
 from a ``torch.Generator`` seeded from (seed, step), so a resumed run draws
-what the uninterrupted one would have; each draw can also be passed in.
+what the uninterrupted one would have; each draw can also be passed in. On a
+mesh the draws are the global batch's and each dp rank takes its slice, so
+dp = 2 draws what dp = 1 does (JAX's ``fold_in(key, step)`` over the global
+batch).
 """
 
 from __future__ import annotations
@@ -32,12 +41,16 @@ from __future__ import annotations
 import dataclasses
 
 import torch
+import torch.distributed as dist
 from torch import nn
 
 from ..diffusion.schedulers import DDPMSchedule
+from ..models.attention3d import sp_scope
 from ..models.vae import SD_VAE_SCALE
+from ..parallel.mesh import (all_gather, gather_pieces, shard_batch, shard_params_fsdp,
+                             split_piece, tp_spec)
 from ..utils.device import resolve_device
-from .optim import Adam8bit, true_div
+from .optim import Adam8bit, state_bytes, true_div
 
 
 def trainable(name: str) -> bool:
@@ -97,7 +110,8 @@ class VideoDiffusionTrainConfig:
 
 
 class TrainState:
-    """Parameters, optimizer and step of a fine-tune.
+    """Parameters, optimizer and step of a fine-tune, on one GPU or on a
+    (dp, sp, tp) mesh.
 
     f32 is the stored truth of every parameter. With ``compute_dtype``
     float32 the model's own parameters are that truth. Otherwise the model is
@@ -105,12 +119,40 @@ class TrainState:
     f32 originals are kept on the host, untouched, for checkpoints), and each
     trainable parameter has an f32 master on the device that the optimizer
     updates; the working copy is re-cast from it after every step and its
-    gradient is carried to the master in f32 (the cast's own backward)."""
+    gradient is carried to the master in f32 (the cast's own backward).
 
-    def __init__(self, unet: nn.Module, cfg: VideoDiffusionTrainConfig, device="cuda"):
+    On a ``mesh`` (``parallel.make_mesh``) the model's tp-split parameters
+    (``parallel.shard_params`` with ``unet_tp_rules``, before this state is
+    made) hold this rank's tp shard, and so do their masters, frozen
+    originals and optimizer moments. Trainable gradients are averaged over dp
+    (one flattened all-reduce) and never reduced over sp or tp: the ring's
+    and ``copy_to`` / ``reduce_from``'s backwards leave them whole or
+    disjoint there. The clip's norm is global (squares summed over the ranks
+    that split a tensor, a replicated one counted once).
+
+    With ``fsdp`` the masters (and the kept frozen originals) hold, besides,
+    only this rank's dp piece of every tensor that ``parallel.shard_params_fsdp``
+    splits, on JAX's dimension, and so do the optimizer's moments (AdamW's,
+    or the 8-bit codes and the scales that run along a split axis). The
+    working copy in the compute dtype stays whole on every dp rank and is
+    re-made from the master pieces by one all-gather after each update; JAX
+    gathers each weight at its use instead (a difference in memory only).
+
+    ``state_dict`` gathers whole tensors in the file layout of one GPU, and
+    ``load_state_dict`` slices them back, so a checkpoint moves between
+    meshes; on a mesh every rank calls both (they gather)."""
+
+    def __init__(self, unet: nn.Module, cfg: VideoDiffusionTrainConfig, device="cuda",
+                 mesh=None, fsdp=False):
+        if fsdp and mesh is None:
+            raise ValueError("fsdp needs a mesh")
+        if mesh is not None and mesh.size("tp") > 1 and getattr(unet, "mesh", None) is not mesh:
+            raise ValueError("tp > 1: slice the UNet on this mesh first (parallel.shard_params "
+                             "with train.unet_tp_rules)")
         self.cfg = cfg
         self.device = resolve_device(device)
         self.dtype = getattr(torch, cfg.compute_dtype)
+        self.mesh = mesh
         self.step = 0
         named = dict(unet.named_parameters())
         self.trainable_names = [n for n in named if cfg.train_all or trainable(n)]
@@ -120,14 +162,26 @@ class TrainState:
                 raise ValueError(f"{n}: the train state is built from f32 parameters, "
                                  f"got {p.dtype}")
             p.requires_grad_(n in chosen)
+        # how each stored f32 tensor is split: tp as the model's parameter
+        # (dim, axis, groups), fsdp's dp dim on top of that
+        self.tp_specs, self.dp_dims = {}, {}
+        if mesh is not None:
+            self.tp_specs = {n: spec for n in named
+                             if (spec := tp_spec(unet, n)) is not None and mesh.size(spec[1]) > 1}
+        keeps_frozen = self.dtype != torch.float32
         self.frozen_f32 = None
-        if self.dtype == torch.float32:
+        if self.dtype == torch.float32 and not fsdp:
             self.unet = unet.to(self.device)
             self.masters = {n: p for n, p in self.unet.named_parameters() if n in chosen}
-        else:
-            self.frozen_f32 = {n: p.detach().cpu() for n, p in named.items()
-                               if n not in chosen}
-            self.masters = {n: nn.Parameter(named[n].detach().to(self.device).clone())
+        else:  # the model's parameters hold their tp shards already
+            stored = {n: p.detach() for n, p in named.items() if n in chosen or keeps_frozen}
+            if fsdp:  # fsdp's pieces of them, and the dim of each split
+                split = shard_params_fsdp(stored, mesh, self.tp_specs.get)
+                stored = {n: piece for n, (piece, _) in split.items()}
+                self.dp_dims = {n: dim for n, (_, dim) in split.items() if dim is not None}
+            if keeps_frozen:
+                self.frozen_f32 = {n: t.cpu() for n, t in stored.items() if n not in chosen}
+            self.masters = {n: nn.Parameter(stored[n].to(self.device, copy=True))
                             for n in self.trainable_names}
             self.unet = unet.to(device=self.device, dtype=self.dtype)
         self.working = {n: p for n, p in self.unet.named_parameters() if n in chosen}
@@ -136,30 +190,137 @@ class TrainState:
             list(self.masters.values()), lr=cfg.learning_rate,
             betas=(cfg.adam_b1, cfg.adam_b2), eps=cfg.adam_eps,
             weight_decay=cfg.weight_decay)
+        if cfg.use_8bit_adam:  # the 8-bit scales' maxima run over a whole first axis
+            for n, master in self.masters.items():
+                groups = [self.mesh.group(axis) for axis, dim in self._splits(n) if dim == 0]
+                if groups:
+                    self.optimizer.row_groups[master] = groups
         # the running mean of the micro steps' gradients and how many it holds
         # (JAX wraps its optimizer in MultiSteps for k > 1 only)
         self.accum = ({n: torch.zeros_like(p) for n, p in self.masters.items()}
                       if cfg.gradient_accumulation_steps > 1 else None)
         self.mini_step = 0
 
+    # --- how the stored tensors are split over the mesh --------------------
+
+    def _splits(self, n):
+        """The live splits of stored tensor ``n``: [(axis, dim)], tp's first."""
+        out = []
+        if n in self.tp_specs:
+            out.append((self.tp_specs[n][1], self.tp_specs[n][0]))
+        if n in self.dp_dims and self.mesh.size("dp") > 1:
+            out.append(("dp", self.dp_dims[n]))
+        return out
+
+    def _dp_piece(self, n, t, rows=True):
+        """This rank's fsdp piece of ``t`` (parameter n's tp shard, or a
+        tensor shaped as it); ``rows`` False keeps a split of the first axis
+        out (the 8-bit scales, one a column of that axis)."""
+        dim = self.dp_dims.get(n)
+        if dim is None or (not rows and dim == 0):
+            return t
+        return split_piece(t, self.mesh.size("dp"), self.mesh.rank("dp"), dim)
+
+    def _piece(self, n, t, rows=True):
+        """This rank's stored piece of the whole tensor ``t`` of parameter n:
+        tp's slicing, then fsdp's (``rows`` as for ``_dp_piece``)."""
+        if self.mesh is None:
+            return t
+        spec = self.tp_specs.get(n)
+        if spec is not None and (rows or spec[0] != 0):
+            axis = spec[1]
+            t = split_piece(t, self.mesh.size(axis), self.mesh.rank(axis), spec[0], spec[2])
+        return self._dp_piece(n, t, rows)
+
+    def _whole(self, n, t, rows=True):
+        """The whole tensor from every rank's ``_piece`` (a collective over
+        the groups that split it; host tensors go through the device)."""
+        if self.mesh is None:
+            return t
+        dim = self.dp_dims.get(n)
+        if dim is not None and (rows or dim != 0) and self.mesh.size("dp") > 1:
+            t = gather_pieces(t.to(self.device), self.mesh.group("dp"), self.mesh.size("dp"), dim)
+        spec = self.tp_specs.get(n)
+        if spec is not None and (rows or spec[0] != 0):
+            axis = spec[1]
+            t = gather_pieces(t.to(self.device), self.mesh.group(axis), self.mesh.size(axis),
+                              spec[0], spec[2])
+        return t
+
+    # --- the step ------------------------------------------------------------
+
     def _sync_working(self):
-        if self.dtype != torch.float32:
-            with torch.no_grad():
-                for n, master in self.masters.items():
+        """Re-make the working copy from the masters: a cast where both are
+        whole, one all-gather of the compute-dtype pieces under fsdp."""
+        if all(self.working[n] is m for n, m in self.masters.items()):
+            return
+        with torch.no_grad():
+            split = [n for n in self.masters if self.dp_dims.get(n) is not None
+                     and self.mesh.size("dp") > 1]
+            for n, master in self.masters.items():
+                if n not in split:
                     self.working[n].copy_(master)
+            if not split:
+                return
+            dp = self.mesh.size("dp")
+            pieces = [self.masters[n].detach().to(self.dtype) for n in split]
+            flat = torch.cat([p.reshape(-1) for p in pieces])
+            every = all_gather(flat, self.mesh.group("dp"), dp).view(dp, -1)
+            sizes = [p.numel() for p in pieces]
+            per_rank = [row.split(sizes) for row in every]
+            for i, (n, p) in enumerate(zip(split, pieces)):
+                whole = torch.cat([per_rank[r][i].view(p.shape) for r in range(dp)],
+                                  dim=self.dp_dims[n])
+                self.working[n].copy_(whole)
+
+    def _clip_grad_norm(self):
+        """Clip the masters' gradients by their global norm: torch's
+        ``clip_grad_norm_`` where no master is split; else the squares of
+        each tensor's norm summed over the groups that split it, a
+        replicated tensor's counted once, and the same factor
+        ``max_norm / (norm + 1e-6)``, at most 1."""
+        masters = list(self.masters.values())
+        axes = [tuple(axis for axis, _ in self._splits(n)) for n in self.masters]
+        if not any(axes):
+            torch.nn.utils.clip_grad_norm_(masters, self.cfg.max_grad_norm)
+            return
+        sq = torch.stack([torch.linalg.vector_norm(m.grad, 2.0) for m in masters]) ** 2
+        total = torch.zeros((), dtype=sq.dtype, device=sq.device)
+        for key in sorted(set(axes)):  # the same order on every rank
+            part = sq[[i for i, a in enumerate(axes) if a == key]].sum()
+            for axis in key:
+                dist.all_reduce(part, group=self.mesh.group(axis))
+            total = total + part
+        coef = torch.clamp(self.cfg.max_grad_norm / (total.sqrt() + 1e-6), max=1.0)
+        for m in masters:
+            m.grad.mul_(coef)
 
     def apply_gradients(self):
-        """Take one micro step: clip the trainable gradients by their global
-        norm, take one AdamW step on the f32 masters and refresh the working
-        copy; with gradient accumulation, add the gradients to the running
-        mean instead and do that with the mean every k-th micro step."""
-        for n, master in self.masters.items():
+        """Take one micro step: average the trainable gradients over dp,
+        clip them by their global norm, take one AdamW step on the f32
+        masters and refresh the working copy; with gradient accumulation, add
+        the gradients to the running mean instead and do that with the mean
+        every k-th micro step."""
+        grads = []
+        for n in self.masters:
             w = self.working[n]
             if w.grad is None:
                 raise RuntimeError(f"{n}: trainable but received no gradient")
+            grads.append(w.grad)
+        dp_group = None if self.mesh is None else self.mesh.group("dp")
+        if dp_group is not None:  # one flattened all-reduce, then the mean
+            flat = torch.cat([g.reshape(-1).float() for g in grads])
+            dist.all_reduce(flat, group=dp_group)
+            flat = true_div(flat, float(self.mesh.size("dp")))
+            grads = [f.view(g.shape) for f, g in zip(flat.split([g.numel() for g in grads]),
+                                                    grads)]
+        for (n, master), g in zip(self.masters.items(), grads):
+            w = self.working[n]
             if master is not w:
-                master.grad = w.grad.float()
+                master.grad = self._dp_piece(n, g).float()
                 w.grad = None
+            else:
+                w.grad = g
         self.step += 1
         if self.accum is not None:
             with torch.no_grad():
@@ -172,7 +333,7 @@ class TrainState:
                 return
             for n, master in self.masters.items():
                 master.grad = self.accum[n]
-        torch.nn.utils.clip_grad_norm_(list(self.masters.values()), self.cfg.max_grad_norm)
+        self._clip_grad_norm()
         self.optimizer.step()
         self.optimizer.zero_grad(set_to_none=True)
         if self.accum is not None:
@@ -181,54 +342,90 @@ class TrainState:
             self.mini_step = 0
         self._sync_working()
 
+    # --- checkpoints ---------------------------------------------------------
+
     def params_f32(self):
         """The stored truth: ``{name: f32 tensor on the host}`` in the
-        model's key order, frozen entries bit-equal to what was loaded."""
+        model's key order, whole, frozen entries bit-equal to what was
+        loaded. On a mesh every rank calls it (it gathers)."""
         out = {}
         for n, p in self.unet.named_parameters():
             if n in self.masters:
-                out[n] = self.masters[n].detach().cpu()
+                t = self.masters[n].detach()
             elif self.frozen_f32 is not None:
-                out[n] = self.frozen_f32[n]
+                t = self.frozen_f32[n]
             else:
-                out[n] = p.detach().cpu()
+                t = p.detach()
+            out[n] = self._whole(n, t).cpu()
         return out
 
+    # state entries of an optimizer that are shaped as their parameter; the
+    # 8-bit scales run along its first axis; the rest are counts
+    _SHAPED, _SCALES = ("exp_avg", "exp_avg_sq", "max_exp_avg_sq", "mq", "vq"), ("ms", "vs")
+
+    def _map_opt_state(self, opt, convert):
+        """An optimizer state dict with ``convert(name, tensor, rows)`` applied
+        to each tensor shaped as its parameter (rows True) or its scales
+        (rows False)."""
+        names = list(self.masters)
+        return {"state": {i: {k: convert(names[i], v, k in self._SHAPED)
+                              if k in self._SHAPED + self._SCALES else v for k, v in st.items()}
+                          for i, st in opt["state"].items()},
+                "param_groups": opt["param_groups"]}
+
     def state_dict(self):
-        sd = {"params": self.params_f32(), "opt_state": self.optimizer.state_dict(),
-              "step": self.step, "trainable": list(self.trainable_names)}
+        opt = self.optimizer.state_dict()
+        if self.mesh is not None:
+            opt = self._map_opt_state(opt, lambda n, v, rows: self._whole(n, v, rows).cpu())
+        sd = {"params": self.params_f32(), "opt_state": opt, "step": self.step,
+              "trainable": list(self.trainable_names)}
         if self.accum is not None:
-            sd["accum"] = {n: a.detach().cpu() for n, a in self.accum.items()}
+            sd["accum"] = {n: self._whole(n, a.detach()).cpu() for n, a in self.accum.items()}
             sd["mini_step"] = self.mini_step
         return sd
 
     def load_state_dict(self, sd):
         """Restore the trainable parameters, the optimizer state and the
-        step. The frozen parameters of ``sd`` must be this state's own: a
-        fine-tune never changes them, so a difference means another model."""
+        step from a file of any mesh (whole tensors, sliced here). The frozen
+        parameters of ``sd`` must be this state's own: a fine-tune never
+        changes them, so a difference means another model."""
         if list(sd["trainable"]) != self.trainable_names:
             raise ValueError("the checkpoint was written under another freeze rule")
         ours = self.params_f32()
         with torch.no_grad():
             for n, p in sd["params"].items():
                 if n in self.masters:
-                    self.masters[n].copy_(p)
+                    self.masters[n].copy_(self._piece(n, p))
                 elif not torch.equal(ours[n], p):
                     raise ValueError(f"{n}: frozen weight differs from the checkpoint's")
-        self.optimizer.load_state_dict(sd["opt_state"])
+        opt = sd["opt_state"]
+        if self.mesh is not None:
+            opt = self._map_opt_state(opt, self._piece)
+        self.optimizer.load_state_dict(opt)
         self.step = int(sd["step"])
         if self.accum is not None:
             with torch.no_grad():
                 for n, a in sd.get("accum", {}).items():
-                    self.accum[n].copy_(a)
+                    self.accum[n].copy_(self._piece(n, a))
             self.mini_step = int(sd.get("mini_step", 0))
         self._sync_working()
 
 
-def init_video_train_state(unet, cfg=VideoDiffusionTrainConfig(), device="cuda"):
+    def resident_bytes(self):
+        """Bytes this rank holds of the f32 masters and the optimizer's state
+        (under fsdp about 1/dp of one GPU's)."""
+        return (sum(m.numel() * m.element_size() for m in self.masters.values())
+                + state_bytes(self.optimizer))
+
+
+def init_video_train_state(unet, cfg=VideoDiffusionTrainConfig(), device="cuda", mesh=None,
+                           fsdp=False):
     """Train state of ``unet`` (f32 parameters) on ``device``: the card
-    unless the caller names the CPU; raises where there is no card."""
-    return TrainState(unet, cfg, device)
+    unless the caller names the CPU; raises where there is no card. On a
+    ``mesh`` (every rank calls it, with the UNet sliced by
+    ``parallel.shard_params`` where tp > 1), with ``fsdp`` the masters and
+    moments split over dp: see ``TrainState``."""
+    return TrainState(unet, cfg, device, mesh=mesh, fsdp=fsdp)
 
 
 def step_generator(seed: int, step: int, device):
@@ -237,13 +434,15 @@ def step_generator(seed: int, step: int, device):
 
 
 def video_loss(unet, vae, pixels, context, cfg, *, generator=None, t=None, noise=None,
-               eps=None, ddpm=None):
+               eps=None, ddpm=None, dp=1, rank=0):
     """The fine-tune loss of one batch (videodiffusion.py:180-214 of the JAX
     package). ``pixels`` (B, F, H, W, 3) in [-1, 1], or precomputed
     posteriors (B, F, H/8, W/8, 8), mean || logvar on the channels (see
     ``encode_posteriors``); ``context`` (B, 77, cross_attention_dim).
-    ``t`` (B,), ``noise`` (latents' shape) and the posterior's ``eps``
-    (B*F, H/8, W/8, 4) are drawn from ``generator`` unless given."""
+    ``t``, ``noise`` and the posterior's ``eps`` are the global batch's, dp
+    times this one: (dp*B,), (dp*B, F, H/8, W/8, 4) and (dp*B*F, H/8, W/8, 4),
+    drawn from ``generator`` unless given, and the batch is slice ``rank`` of
+    them (dp 1: the batch is the global one)."""
     dtype = getattr(torch, cfg.compute_dtype)
     ddpm = ddpm or DDPMSchedule.create()
     b, f = pixels.shape[:2]
@@ -253,14 +452,17 @@ def video_loss(unet, vae, pixels, context, cfg, *, generator=None, t=None, noise
     else:
         with torch.no_grad():
             mean, logvar = vae.encode(pixels.flatten(0, 1).to(dtype))
+    lat = tuple(mean.shape[1:])
     if eps is None:
-        eps = torch.randn(mean.shape, generator=generator, device=dev)
-    z = mean.float() + torch.exp(0.5 * logvar.float()) * eps
-    latents = (z * SD_VAE_SCALE).reshape(b, f, *mean.shape[1:])
+        eps = torch.randn((dp * b * f, *lat), generator=generator, device=dev)
+    z = mean.float() + torch.exp(0.5 * logvar.float()) * eps[rank * b * f:(rank + 1) * b * f]
+    latents = (z * SD_VAE_SCALE).reshape(b, f, *lat)
     if t is None:
-        t = torch.randint(0, ddpm.num_train_timesteps, (b,), generator=generator, device=dev)
+        t = torch.randint(0, ddpm.num_train_timesteps, (dp * b,), generator=generator,
+                          device=dev)
     if noise is None:
-        noise = torch.randn(latents.shape, generator=generator, device=dev)
+        noise = torch.randn((dp * b, f, *lat), generator=generator, device=dev)
+    t, noise = t[rank * b:(rank + 1) * b], noise[rank * b:(rank + 1) * b]
     noisy = ddpm.add_noise(latents, noise, t)
     pred = unet(noisy.to(dtype), t, context.to(dtype), train=True, remat=cfg.remat,
                 remat_min_hw=cfg.remat_min_hw, remat_save_attn=cfg.remat_save_attn).float()
@@ -297,21 +499,38 @@ def train_step(state: TrainState, vae, pixels, context, seed, *, t=None, noise=N
     accumulate); returns the loss (a 0-d tensor on the device, not
     synchronized). The step's draws come from
     ``step_generator(seed, state.step)``, and ``state.step`` counts micro
-    steps, so each micro batch draws its own."""
+    steps, so each micro batch draws its own.
+
+    On the state's mesh every rank calls it with its dp slice of the batch
+    (``pixels``, ``context``); the draws, drawn or given, are the global
+    batch's, of which it takes its slice; the forward and the backward run
+    under ``sp_scope(mesh)``; the loss returned is the mean over dp."""
+    mesh = state.mesh
     gen = step_generator(seed, state.step, state.device)
-    loss = video_loss(state.unet, vae, pixels.to(state.device), context.to(state.device),
-                      state.cfg, generator=gen, t=t, noise=noise, eps=eps)
-    loss.backward()
+    pixels, context = pixels.to(state.device), context.to(state.device)
+    dp, rank = (1, 0) if mesh is None else (mesh.size("dp"), mesh.rank("dp"))
+    with sp_scope(mesh):  # a no-op without a mesh
+        loss = video_loss(state.unet, vae, pixels, context, state.cfg, generator=gen, t=t,
+                          noise=noise, eps=eps, dp=dp, rank=rank)
+        loss.backward()
     state.apply_gradients()
-    return loss.detach()
+    loss = loss.detach()
+    if mesh is not None and mesh.group("dp") is not None:
+        dist.all_reduce(loss, group=mesh.group("dp"))
+        loss = true_div(loss, float(mesh.size("dp")))
+    return loss
 
 
 def train_epoch(state: TrainState, vae, pixels_all, context_all, perm, seed, on_step=None):
     """One epoch over ``perm`` (steps, B) integer indices into the resident
     clip set; returns the mean loss (one host synchronization, at the end).
-    ``on_step(state, loss)`` is called after every (micro) step."""
+    ``on_step(state, loss)`` is called after every (micro) step. On a mesh
+    ``perm`` is the global one, and each rank gathers its dp slice of every
+    row."""
     losses = []
     for idx in torch.as_tensor(perm, device=pixels_all.device).long():
+        if state.mesh is not None:
+            idx = shard_batch(idx, state.mesh)
         losses.append(train_step(state, vae, pixels_all[idx], context_all[idx], seed))
         if on_step is not None:
             on_step(state, losses[-1])

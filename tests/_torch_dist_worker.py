@@ -1,6 +1,7 @@
 """Worker processes of the port's multi-process CPU tests
 (tests/test_torch_parallel.py, test_torch_ring.py,
-test_torch_sharded_generation.py).
+test_torch_sharded_generation.py, test_torch_ring_bwd.py,
+test_torch_sharded_training.py).
 
 ``start(case, world, inputs, tmp_path)`` starts ``world`` processes with the
 ``spawn`` start method (the pytest process holds JAX's runtime, which a fork
@@ -215,14 +216,13 @@ def parallel_cases(rank, world, inputs):
     with torch.no_grad():
         shard_params(blk, tp_mesh, unet_tp_rules)
         out["block"] = _np(blk(x, ctx))
-    out["block_grad"] = _raises(RuntimeError, lambda: blk(x.requires_grad_(), ctx))
     return out
 
 
 def ring_cases(rank, world, inputs):
     """Ring attention at world size 2: ring and replicated-KV mode with and
     without bias on a (1, 2, 1) mesh, sp = 1 on a (2, 1, 1) mesh against
-    flash_attention_plain, the divisibility errors, the gradient refusal."""
+    flash_attention_plain, the divisibility errors."""
     import torch
 
     from eeg2video_tpu_torch.ops.attention import flash_attention_plain
@@ -248,8 +248,6 @@ def ring_cases(rank, world, inputs):
         tp_mesh = make_mesh(dp=1, sp=1, tp=2, device="cpu", timeout=TIMEOUT)
         out["heads_error"] = _raises(ValueError, lambda: ring_attention_packed(
             q, k, v, 1, tp_mesh))
-    out["grad_error"] = _raises(RuntimeError, lambda: ring_attention_packed(
-        q.clone().requires_grad_(), k, v, heads, sp_mesh))
     return out
 
 
@@ -311,3 +309,218 @@ def generation_cases(rank, world, inputs):
     out["written"] = sorted(written)
     out["dir_made"] = os.path.isdir(inputs["cli_out"])
     return out
+
+
+# --- training: the ring's backward, the tp block, the step on a mesh ------------
+
+def _ring_grads(fn, operands, dout):
+    """(out, grads of every operand) of ``fn(*operands)`` against ``dout``."""
+    import torch
+
+    leaves = [None if t is None else t.clone().requires_grad_() for t in operands]
+    out = fn(*leaves)
+    wanted = [t for t in leaves if t is not None]
+    grads = torch.autograd.grad((out * dout).sum(), wanted)
+    return [_np(out)] + [_np(g) for g in grads]
+
+
+def ring_bwd_cases(rank, world, inputs):
+    """The ring's gradients at sp = 2 (world size 2): ring and replicated-KV
+    mode with and without bias through ring_attention_packed, and the local
+    shards' gradients through ring_attention_inner (the ring with bias)."""
+    import torch
+
+    from eeg2video_tpu_torch.ops.ring import ring_attention_inner, ring_attention_packed
+    from eeg2video_tpu_torch.parallel import make_mesh
+
+    heads = inputs["heads"]
+    t = {n: _t(inputs[n]) for n in ("q", "k", "v", "k77", "v77", "bias", "bias77", "dout")}
+    mesh = make_mesh(dp=1, sp=2, tp=1, device="cpu", timeout=TIMEOUT)
+    out = {}
+    for case, (k, v, b) in inputs["cases"].items():
+        out[case] = _ring_grads(
+            lambda q_, k_, v_, b_: ring_attention_packed(q_, k_, v_, heads, mesh, bias=b_),
+            [t["q"], t[k], t[v], None if b is None else t[b]], t["dout"])
+    lq = t["q"].shape[1] // 2
+    rows = slice(rank * lq, (rank + 1) * lq)
+    scale = (t["q"].shape[-1] // heads) ** -0.5
+    out["inner"] = _ring_grads(
+        lambda q_, k_, v_, b_: ring_attention_inner(q_, k_, v_, heads, scale, mesh.group("sp"),
+                                                    2, bias=b_),
+        [t["q"][:, rows], t["k"][:, rows], t["v"][:, rows], t["bias"][..., rows]],
+        t["dout"][:, rows])
+    return out
+
+
+def ring_bwd_sp_tp_cases(rank, world, inputs):
+    """The ring's gradients at sp = 2 x tp = 2 (world size 4), heads over
+    tp, with and without bias."""
+    from eeg2video_tpu_torch.ops.ring import ring_attention_packed
+    from eeg2video_tpu_torch.parallel import make_mesh
+
+    heads = inputs["heads"]
+    q, k, v, bias, dout = (_t(inputs[n]) for n in ("q", "k", "v", "bias", "dout"))
+    mesh = make_mesh(dp=1, sp=2, tp=2, device="cpu", timeout=TIMEOUT)
+    return {b: _ring_grads(lambda q_, k_, v_, b_: ring_attention_packed(
+        q_, k_, v_, heads, mesh, bias=b_, head_axis="tp"), [q, k, v, bias if b else None], dout)
+        for b in (False, True)}
+
+
+def _tp_block_grads(inputs):
+    """A transformer block at tp = 2 with train=True: its output, the
+    gradients of its input, context and attention bias, and every
+    parameter's gradient (this rank's shard)."""
+    import torch
+
+    from eeg2video_tpu_torch.models.attention3d import BasicTransformerBlock
+    from eeg2video_tpu_torch.parallel import make_mesh, shard_params
+    from eeg2video_tpu_torch.train import unet_tp_rules
+
+    mesh = make_mesh(dp=1, sp=1, tp=2, device="cpu", timeout=TIMEOUT)
+    blk = BasicTransformerBlock(64, 4, 16, 16)
+    blk.load_state_dict({k: torch.from_numpy(v) for k, v in inputs["block"].items()},
+                        strict=True)
+    shard_params(blk, mesh, unet_tp_rules)
+    x, ctx, bias = (_t(inputs[n]).requires_grad_() for n in ("x", "ctx_block", "bias"))
+    out = blk(x, ctx, bias, train=True)
+    (out * _t(inputs["dout"])).sum().backward()
+    return {"out": _np(out), "x": _np(x.grad), "ctx": _np(ctx.grad), "bias": _np(bias.grad),
+            "params": {n: _np(p.grad) for n, p in blk.named_parameters()}}
+
+
+def _micro_unet(inputs):
+    import torch
+
+    from eeg2video_tpu_torch.models.unet3d import UNet3DConditionModel, UNet3DConfig
+
+    unet = UNet3DConditionModel(UNet3DConfig(**inputs["ucfg"]))
+    unet.load_state_dict({k: torch.from_numpy(v) for k, v in inputs["unet"].items()},
+                         strict=True)
+    return unet
+
+
+def _mesh_state(inputs, mesh, fsdp, eight_bit, dtype):
+    import dataclasses
+
+    from eeg2video_tpu_torch.parallel import shard_params
+    from eeg2video_tpu_torch.train import init_video_train_state, unet_tp_rules
+    from eeg2video_tpu_torch.train.videodiffusion import VideoDiffusionTrainConfig
+
+    unet = _micro_unet(inputs)
+    if mesh.size("tp") > 1:
+        shard_params(unet, mesh, unet_tp_rules)
+    cfg = dataclasses.replace(VideoDiffusionTrainConfig(**inputs["tcfg"]),
+                              use_8bit_adam=eight_bit, compute_dtype=dtype)
+    return init_video_train_state(unet, cfg, "cpu", mesh=mesh, fsdp=fsdp)
+
+
+def _mesh_step(state, inputs, step):
+    """One train_step on this rank's dp slice of the batch, JAX's draws of
+    ``step`` (global) passed in."""
+    from eeg2video_tpu_torch.parallel import shard_batch
+    from eeg2video_tpu_torch.train import train_step
+
+    post, ctx = (shard_batch(_t(inputs[n]), state.mesh) for n in ("post", "ctx"))
+    t, noise, eps = (_t(a) for a in inputs["draws"][step])
+    return float(train_step(state, None, post, ctx, seed=0, t=t, noise=noise, eps=eps))
+
+
+def _opt_shapes(state):
+    return {n: {k: tuple(v.shape) for k, v in state.optimizer.state[m].items()
+                if hasattr(v, "shape") and v.dim()}
+            for n, m in state.masters.items()}
+
+
+def training_cases(rank, world, inputs):
+    """The fine-tune step on the micro UNet at each mesh of
+    ``inputs["layouts"][world]``, (dp, sp, tp, fsdp, 8-bit, compute dtype): the dp-mean
+    loss and, on rank 0, the parameters after it (whole). At world size 2
+    also the tp block's gradients; with fsdp or 8-bit Adam the masters' and
+    moments' shapes, the resident bytes, the checkpoint, and a second step's
+    loss and parameters. Then ``train_tuneavideo.main`` with each of
+    ``inputs["cli"][world]``'s lists of flags."""
+    out = {}
+    if world == 2:
+        out["block"] = _tp_block_grads(inputs)
+    from eeg2video_tpu_torch.parallel import make_mesh
+
+    for key in inputs["layouts"][world]:
+        dp, sp, tp, fsdp, eight, dtype = key
+        mesh = make_mesh(dp=dp, sp=sp, tp=tp, device="cpu", timeout=TIMEOUT)
+        state = _mesh_state(inputs, mesh, fsdp, eight, dtype)
+        res = {"loss": _mesh_step(state, inputs, 0),
+               "params": {n: _np(v) for n, v in state.params_f32().items()}}
+        if fsdp or eight:
+            res["masters"] = {n: tuple(m.shape) for n, m in state.masters.items()}
+            res["moments"] = _opt_shapes(state)
+            res["resident"] = state.resident_bytes()
+            res["ckpt"] = state.state_dict()
+            res["loss2"] = _mesh_step(state, inputs, 1)
+            res["params2"] = {n: _np(v) for n, v in state.params_f32().items()}
+        if rank:  # the gathers ran on every rank; rank 0 returns what they gave
+            res = {k: res[k] for k in ("loss", "loss2") if k in res}
+        out[key] = res
+    out["cli"] = [_train_cli(inputs, flags) for flags in inputs["cli"][world]]
+    if world == 2:
+        out["mesh_step"] = _mesh_step_lines()
+    return out
+
+
+def _mesh_step_lines():
+    """``utils.mesh_step`` on the micro UNet over this world (dp = 2): its
+    JSON lines (rank 0 prints them)."""
+    import contextlib
+    import io
+    import json
+
+    from eeg2video_tpu_torch.utils import mesh_step
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        mesh_step.main(["--device", "cpu", "--tiny", "--batch", "2", "--steps", "2",
+                        "--mesh", "2,1,1", "--mesh", "2,1,1,fsdp"])
+    return [json.loads(line) for line in buf.getvalue().splitlines()]
+
+
+class _Clips:
+    """A stand-in for VideoClipDataset: the clips of ``pixels``."""
+
+    def __init__(self, pixels):
+        self.pixels = pixels
+
+    def __call__(self, paths, ids):
+        return self
+
+    def __len__(self):
+        return len(self.pixels)
+
+    def load_all(self):
+        import numpy as np
+
+        return self.pixels, np.arange(len(self.pixels))
+
+
+def _train_cli(inputs, flags):
+    """``train_tuneavideo.main`` on the micro UNet, the tiny VAE and the
+    clips of ``inputs["clips"]``: the per-epoch losses and the last train
+    state (rank 0)."""
+    import json
+
+    import torch
+
+    from eeg2video_tpu_torch.cli import train_tuneavideo as cli
+    from eeg2video_tpu_torch.models.unet3d import UNet3DConfig
+
+    cli.UNet3DConfig = lambda: UNet3DConfig(**inputs["ucfg"])
+    cli.VideoClipDataset = _Clips(inputs["clips"])
+    out_dir = os.path.join(inputs["cli_dir"],
+                           f"w{torch.distributed.get_world_size()}_" + "_".join(flags))
+    assert cli.main([*inputs["cli_args"], "--output_dir", out_dir, *flags]) == 0
+    if torch.distributed.get_rank():
+        return None
+    with open(os.path.join(out_dir, "tuneavideo_metrics.jsonl")) as f:
+        losses = [json.loads(line)["train_loss"] for line in f]
+    saved = torch.load(os.path.join(out_dir, "ckpt", "train_state_1.pt"), weights_only=False)
+    return {"losses": losses, "params": {n: _np(v) for n, v in saved["params"].items()},
+            "step": saved["step"], "files": sorted(os.listdir(out_dir)),
+            "samples": sorted(os.listdir(os.path.join(out_dir, "samples")))}

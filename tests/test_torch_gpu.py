@@ -617,6 +617,78 @@ def test_ring_hops_match_one_whole_kv_call(gen, sp, lkv):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("dtype,bound", [(torch.bfloat16, BOUND), (torch.float32, F32_BOUND)])
+@pytest.mark.parametrize("t,c,tp", [(130, 64, 2), (37, 320, 4), (130, 640, 2)])
+def test_ff_ln_bwd_without_residual_matches_plain(gen, t, c, tp, dtype, bound):
+    """The gradient of a tensor-parallel rank's partial product (I / tp of
+    the weights): ``ff_ln_bwd`` and ``ff_ln_bwd_f32`` leave the residual's g
+    out of dx, and the differentiable residual-free ``feed_forward`` launches
+    the kernel once in its backward, with the same bits."""
+    i = 4 * c // tp
+    args = [_rand(gen, t, c, dtype=dtype), _rand(gen, t, c, dtype=dtype),
+            1.0 + 0.05 * _rand(gen, c, dtype=torch.float32),
+            0.02 * _rand(gen, c, dtype=torch.float32),
+            _rand(gen, 2 * i, c, scale=c ** -0.5, dtype=dtype),
+            0.02 * _rand(gen, 2 * i, dtype=torch.float32),
+            _rand(gen, c, i, scale=i ** -0.5, dtype=dtype)]
+    got = geglu.ff_ln_bwd(*args, residual=False)
+    assert _err(got, geglu.ff_ln_bwd_plain(*_f32(args), residual=False)) < bound
+    assert torch.equal(got, geglu.ff_ln_bwd(*args, residual=False))
+    kernel = "ff_ln_bwd" if dtype == torch.bfloat16 else "ff_ln_bwd_f32"
+    x = args[0].detach().requires_grad_()
+    before = _build.launches[kernel]
+    geglu.feed_forward(x, *args[2:], torch.zeros_like(args[2]), residual=False).backward(args[1])
+    assert _build.launches[kernel] - before == 1 and torch.equal(x.grad, got)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("sp", [2, 4])
+@pytest.mark.parametrize("lkv", [256, 77])
+def test_ring_backward_hops_match_the_plain_backward(gen, sp, lkv):
+    """``ring.ring_bwd_step`` over sp K/V blocks against the global (out,
+    lse) of the ring's forward, the rotating dk / dv / dbias accumulators
+    played by indexing them by block (replicated KV: one block, the ranks'
+    partials summed), against ``flash_attention_bwd_plain`` on the whole KV."""
+    from eeg2video_tpu_torch.ops import ring
+
+    heads, lq, scale = 2, 128, 40 ** -0.5
+    q, k, v, dout = (_rand(gen, 2, n, 80) for n in (lq, lkv, lkv, lq))
+    bias = _rand(gen, 2, 1, lkv, dtype=torch.float32)
+    out, lse = attention.flash_attention_plain(*_f32([q, k, v]), heads, bias0=bias,
+                                               return_lse=True)
+    want = attention.flash_attention_bwd_plain(*_f32([q, k, v]), heads, dout.float(), out, lse,
+                                               bias0=bias, need_dbias=True)
+    blocks = [(k, v, bias)]
+    if lkv % sp == 0:
+        w = lkv // sp
+        blocks = [(k[:, j * w:(j + 1) * w].contiguous(), v[:, j * w:(j + 1) * w].contiguous(),
+                   bias[..., j * w:(j + 1) * w].contiguous()) for j in range(sp)]
+    acc = [[torch.zeros(t.shape, device="cuda") for t in blk] for blk in blocks]
+    before = _build.launches["flash_attention_bwd"]
+    dqs = []
+    for r in range(sp):
+        rows = slice(r * lq // sp, (r + 1) * lq // sp)
+        qr, dr = q[:, rows].contiguous(), dout[:, rows].contiguous()
+        o = l_ = None
+        for kb, vb, bb in blocks[r:] + blocks[:r]:
+            o, l_ = ring.ring_step(o, l_, qr, kb, vb, bb, heads, scale)
+        dq = torch.zeros(qr.shape, device="cuda")
+        for t in range(len(blocks)):
+            j = (r + t) % len(blocks)
+            dq_p, *parts = ring.ring_bwd_step(qr, *blocks[j], dr, o.to(q.dtype), l_, heads,
+                                              scale)
+            dq += dq_p.float()
+            for a, p in zip(acc[j], parts):
+                a += p.float()
+        dqs.append(dq)
+    assert _build.launches["flash_attention_bwd"] - before == sp * len(blocks)
+    got = [torch.cat(dqs, dim=1), torch.cat([a[0] for a in acc], dim=1),
+           torch.cat([a[1] for a in acc], dim=1), torch.cat([a[2] for a in acc], dim=-1)]
+    for g, w in zip(got, (want[0], want[1], want[2], want[5])):
+        assert _err(g, w) < BOUND
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("t,i,c", [(50, 64, 40), (130, 256, 200)])
 def test_geglu_out_matches_plain(gen, t, i, c):
     args = [_rand(gen, t, 2 * i), _rand(gen, c, i, scale=i ** -0.5),

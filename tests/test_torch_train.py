@@ -471,17 +471,43 @@ def test_a_jax_command_line_with_captions_parses():
     args = cli.build_parser().parse_args(line)
     assert args.captions == "./data/BLIP/other.txt" and args.epochs == 3
     assert cli.build_parser().parse_args([]).captions == "./data/BLIP/1st_10min.txt"
-    with pytest.raises(SystemExit, match="--dp"):  # it parses: the refusal that follows runs
+    # it parses: the mesh that follows, before anything is read, does not fit a world of one
+    with pytest.raises(ValueError, match=r"dp\*sp\*tp = 2 != 1 devices"):
         cli.main(line + ["--dp=2", "--device", "cpu"])
 
 
+class _MeshReached(Exception):
+    pass
+
+
 @pytest.mark.parametrize("flag", ["--dp=2", "--tp=2", "--sp=2", "--fsdp"])
-def test_flags_that_wait_are_refused_by_name(flag):
-    name = flag.split("=")[0]
-    with pytest.raises(SystemExit, match=name):
+def test_flags_that_wait_are_refused_by_name(flag, monkeypatch):
+    """Each mesh flag of the JAX trainer reaches ``make_mesh`` (in ``main``
+    before anything is read, and in ``train``) with JAX's sizes: a mesh of 2
+    does not fit a world of one and raises make_mesh's error; ``--fsdp``
+    alone asks for a mesh of one (stopped here, so that no process group is
+    left behind)."""
+    name = flag.split("=")[0].lstrip("-")
+    want = {"dp": 2 if name == "dp" else 1, "tp": 2 if name == "tp" else 1,
+            "sp": 2 if name == "sp" else 1}
+    seen = []
+    real = cli.make_mesh
+
+    def spy(**kw):
+        seen.append({k: kw[k] for k in want})
+        if name == "fsdp":
+            raise _MeshReached
+        return real(**kw)
+
+    monkeypatch.setattr(cli, "make_mesh", spy)
+    err = _MeshReached if name == "fsdp" else ValueError
+    match = None if name == "fsdp" else r"dp\*sp\*tp = 2 != 1 devices"
+    with pytest.raises(err, match=match):
         cli.main([flag, "--device", "cpu"])
-    with pytest.raises(SystemExit, match=name):
+    with pytest.raises(err, match=match):
         cli.train(None, None, None, None, cli.build_parser().parse_args([flag, "--device", "cpu"]))
+    assert seen == [want, want]
+    assert not torch.distributed.is_initialized()
 
 
 def test_entry_points_default_to_the_card_and_raise_without_one(unet_params):
