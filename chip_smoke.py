@@ -174,6 +174,19 @@ printed on its own line; any failure prints ``FAIL ...`` and exits 1:
    ``train_tuneavideo.train`` on a ``--dp 1 --fsdp`` mesh at UNet3DConfig(),
    batch 10, three steps, its losses and masters bit-equal to the same call
    without a mesh.
+16. multi-GPU serving and the semantic trainer's meshes on one card, each
+   line beside the card's name and power limit: (a) ``cli.serve`` on a
+   ``--dp 1 --coalesce --max_batch 2 --semantic_int8`` mesh (a world of one
+   over NCCL; rank 0's dispatcher sends each dispatch over the control and
+   the mesh's groups) at UNet3DConfig() / VAEConfig(), a features request of
+   2 clips through the hidden=10000 int8 MLP, 4 DDIM steps, bit-equal to the
+   same server without a mesh, launches counted; then a torchrun launch of
+   ``serve --dp 1 --listen 127.0.0.1:0`` driven by a client over the socket
+   (ready line, one request, stats, shutdown, exit 0); (b) ``gpipe_apply`` at
+   pp = 1, n_micro = 8 on SemanticPredictor()'s hidden stack at batch 32:
+   loss and gradients against the unpipelined step, s/step of each; (c)
+   ``train_semantic`` through its tp branch at tp = 1, 8 steps at full
+   width, bit-equal to no mesh.
 
 The third-to-last line is a JSON object with one entry per kernel, then the
 ``nvidia-smi`` line; the last line is ``{"ok": true, "device": {...}}``.
@@ -4114,6 +4127,298 @@ def phase_section15(torch, build, card):
     return {"ring_bwd": ring_launches, "mesh_train": mesh_launches}
 
 
+# --- section 16: multi-GPU serving and the semantic trainer's meshes on one card ---
+
+SERVE_MESH_FEATURES = 2   # feature rows of (a)'s request: one int8 chunk on rank 0
+SERVE_MESH_CLIPS = 2      # and its clips, at --max_batch 2
+GPIPE_MICRO, GPIPE_BATCH, GPIPE_REPS = 8, 32, 3
+SEM_MESH_ROWS = 256       # (c): 8 steps at batch 32
+
+
+def _serve_stdin(serve_fn, lines):
+    """``serve_fn()`` with stdin the lines and stdout captured: (exit code,
+    the replies)."""
+    import io
+
+    real_in, real_out = sys.stdin, sys.stdout
+    sys.stdin, sys.stdout = io.StringIO("".join(line + "\n" for line in lines)), io.StringIO()
+    try:
+        rc = serve_fn()
+        printed = sys.stdout.getvalue()
+    finally:
+        sys.stdin, sys.stdout = real_in, real_out
+    return rc, [json.loads(line) for line in printed.splitlines() if line.strip()]
+
+
+def _int8_semantic(torch, dev, seed):
+    """The hidden=10000 MLP, each layer drawn and quantized on the card, as
+    the serve phase builds it; the request path's callable."""
+    from eeg2video_tpu_torch.models.semantic import HIDDEN, IN_DIM, Int8SemanticPredictor
+    from eeg2video_tpu_torch.ops.int8_dense import quantize_int8
+    from eeg2video_tpu_torch.serving.runtimes import make_semantic_predict
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    dims = [IN_DIM] + [HIDDEN] * 4 + [77 * 768]
+    layers = []
+    for k, n in zip(dims[:-1], dims[1:]):
+        w = torch.randn(k, n, generator=g, device=dev) * k ** -0.5
+        w_q, scale = quantize_int8(w)
+        del w
+        layers.append((w_q, scale, 0.02 * torch.randn(n, generator=g, device=dev), n))
+    return make_semantic_predict(Int8SemanticPredictor(layers), dev)
+
+
+def _phase_mesh_serve(torch, build, card, tmp, pipe):
+    """(a) ``serve --dp 1 --coalesce --max_batch 2 --semantic_int8`` in-process
+    on a world of one over NCCL (``serve_on_mesh``: rank 0's dispatcher sends
+    each dispatch over the control group and the mesh's group) against the
+    same server without a mesh: one features request of 2 clips through the
+    int8 MLP on rank 0, 4 DDIM steps, noise drawn on rank 0; the clips bit
+    for bit. Returns the mesh run's launches."""
+    import numpy as np
+    import torch.distributed as dist
+
+    from eeg2video_tpu_torch.cli import serve
+    from eeg2video_tpu_torch.parallel import make_mesh
+    from eeg2video_tpu_torch.serving.mesh import ControlPlane
+
+    dev = pipe.device
+    semantic = _int8_semantic(torch, dev, 43)
+    feats = os.path.join(tmp, "features.npy")
+    np.save(feats, np.random.default_rng(43).standard_normal(
+        (SERVE_MESH_FEATURES, 310)).astype(np.float32))
+    runs = {}
+    for tag in ("no mesh", "--dp 1"):
+        out = os.path.join(tmp, "served_" + tag.replace(" ", "").replace("-", ""))
+        args = serve.build_parser().parse_args([
+            "--device", "cuda", "--coalesce", "--max_batch", str(SERVE_MESH_CLIPS),
+            "--semantic_int8", "--num_inference_steps", str(STEPS), "--gif_encoder", "native",
+            "--out_dir", out, *(["--dp", "1"] if tag == "--dp 1" else [])])
+        lines = [json.dumps({"id": "r", "features": feats}), json.dumps({"cmd": "stats"}),
+                 json.dumps({"cmd": "shutdown"})]
+        if tag == "no mesh":
+            fn = lambda: serve.serve(pipe, args, semantic)  # noqa: E731
+        else:
+            mesh = make_mesh(dp=1, device=dev)
+            plane = ControlPlane(mesh)
+            pipe.shard(mesh)
+            fn = lambda: serve.serve_on_mesh(pipe, args, plane, semantic)  # noqa: E731
+        seen, restore = _record_videos()
+        build.reset_launches()
+        t0 = _sync_clock(torch)
+        try:
+            rc, replies = _serve_stdin(fn, lines)
+        finally:
+            restore()
+        secs = _sync_clock(torch) - t0
+        runs[tag] = (rc, replies, seen, dict(build.launches))
+        keep = ("id", "ok", "clips", "requests", "bye")
+        say(f"mesh serve (a) {tag}: exit {rc}, replies "
+            f"{[{k: r[k] for k in r if k in keep} for r in replies]}, {secs:.2f} s, launches "
+            f"{_nonzero(build.launches)} [{card}]")
+    pipe.mesh = None
+    (rc1, rep1, one, _), (rc2, rep2, dp1, launches) = runs["no mesh"], runs["--dp 1"]
+    backend, world = dist.get_backend(), dist.get_world_size()
+    same = sorted(one) == sorted(dp1) == [f"{i}.gif" for i in range(SERVE_MESH_CLIPS)] and all(
+        np.array_equal(one[n], dp1[n]) for n in one)
+    # one dispatch of 2 clips: STEPS UNet forwards; one 100-row chunk of the MLP
+    want = {**{k: n * STEPS for k, n in EXPECTED_PER_FORWARD.items()}, "int8_dense": 5}
+    got = {k: launches[k] for k in want}
+    ok = (rc1 == rc2 == 0 and same and all(r.get("ok") for r in rep2) and got == want
+          and backend == "nccl" and world == 1 and runs["no mesh"][3] == launches)
+    say(f"mesh serve (a): --dp 1 over {backend} (world {world}) against no mesh: clips "
+        f"bit-equal {same}, launches {got} (expected {want}, the same as without the mesh "
+        f"{runs['no mesh'][3] == launches}) {'ok' if ok else 'FAILED'} [{card}]")
+    if not ok:
+        fail("mesh serve (a): the --dp 1 server differs from the server without a mesh")
+    return launches
+
+
+def _read_line(stream, seconds):
+    """One line of ``stream`` within ``seconds``, or None."""
+    box = []
+    t = threading.Thread(target=lambda: box.append(stream.readline()), daemon=True)
+    t.start()
+    t.join(seconds)
+    return box[0] if box else None
+
+
+def _phase_serve_torchrun(torch, card, tmp):
+    """(a) ``torchrun --nproc_per_node 1 -m eeg2video_tpu_torch.cli.serve --dp 1
+    --listen 127.0.0.1:0`` on the saved weights, driven by a client over the
+    socket: the ready line, one request (noise drawn on rank 0), stats,
+    shutdown, exit 0. The process is killed if any step fails."""
+    emb = os.path.join(tmp, "embeddings.npy")
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node", "1",
+           "-m", "eeg2video_tpu_torch.cli.serve", "--dp", "1", "--listen", "127.0.0.1:0",
+           "--unet", os.path.join(tmp, "unet.pt"), "--vae", os.path.join(tmp, "vae.pt"),
+           "--num_inference_steps", str(STEPS), "--gif_encoder", "native",
+           "--out_dir", os.path.join(tmp, "served_torchrun")]
+    t0 = time.perf_counter()
+    with open(os.path.join(tmp, "serve_torchrun.err"), "w+") as err:
+        proc = subprocess.Popen(cmd, cwd=REPO, stdout=subprocess.PIPE, stderr=err, text=True)
+        replies, rc, ready, t_ready = [], None, {}, float("nan")
+        try:
+            line = _read_line(proc.stdout, TORCHRUN_TIMEOUT)
+            ready = json.loads(line)
+            t_ready = time.perf_counter() - t0
+            with socket.create_connection(("127.0.0.1", ready["port"]), timeout=120) as sock:
+                rfile = sock.makefile("r", encoding="utf-8")
+                replies.append(json.loads(rfile.readline()))
+                for req in ({"id": "r", "embeddings": emb, "indices": [0]}, {"cmd": "stats"},
+                            {"cmd": "shutdown"}):
+                    t1 = time.perf_counter()
+                    sock.sendall((json.dumps(req) + "\n").encode())
+                    replies.append(json.loads(rfile.readline()))
+                    replies[-1]["client_s"] = round(time.perf_counter() - t1, 3)
+            rc = proc.wait(timeout=120)
+        except Exception as e:  # noqa: BLE001 - reported below, the process killed
+            replies.append({"error": f"{type(e).__name__}: {e}"})
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        err.seek(0)
+        log = err.read().strip().splitlines()
+    ok = (rc == 0 and len(replies) == 4 and replies[1].get("ok") and replies[1].get("clips") == 1
+          and replies[2].get("requests") == 1 and replies[3].get("bye"))
+    say(f"mesh serve (a): torchrun --nproc_per_node 1 ... serve --dp 1 --listen: exit {rc}, "
+        f"ready after {t_ready:.1f} s (loading included), port {ready.get('port')}, replies "
+        f"{replies}; {log[-1:] if not ok else ''} {'ok' if ok else 'FAILED'} [{card}]")
+    if not ok:
+        fail("mesh serve (a): the torchrun launch of the server failed")
+
+
+def _phase_gpipe(torch, card):
+    """(b) ``gpipe_apply`` at pp = 1 (the world of one), n_micro = 8, on
+    SemanticPredictor()'s hidden stack at batch 32, fc0 before it and the
+    head after it: the loss and every gradient against the unpipelined step
+    (f32, within F32_KERNEL_BOUND of each gradient's max), and seconds a
+    step (forward and backward) of each."""
+    import torch.distributed as dist
+    import torch.nn.functional as F
+
+    from eeg2video_tpu_torch.models.init import lecun_init_
+    from eeg2video_tpu_torch.models.semantic import SemanticPredictor
+    from eeg2video_tpu_torch.parallel import gpipe_apply
+
+    dev = torch.device("cuda")
+    with torch.device("meta"):
+        model = SemanticPredictor()
+    model = lecun_init_(model.to_empty(device=dev), torch.Generator(device=dev).manual_seed(44))
+    g = torch.Generator(device=dev).manual_seed(45)
+    x = torch.randn(GPIPE_BATCH, 310, generator=g, device=dev)
+    y = 0.1 * torch.randn(GPIPE_BATCH, 77 * 768, generator=g, device=dev)
+    params = list(model.parameters())
+
+    def stage(layers, a):
+        for lin in layers:
+            a = F.relu(lin(a))
+        return a
+
+    def plain():
+        return model(x)
+
+    def piped():
+        h = F.relu(model.fc0(x))
+        h = gpipe_apply(stage, [model.fc1, model.fc2, model.fc3], h, dist.group.WORLD,
+                        GPIPE_MICRO)
+        return model.out(h)
+
+    res = {}
+    for tag, fwd in (("unpipelined", plain), ("gpipe_apply", piped)):
+        secs = []
+        for _ in range(GPIPE_REPS + 1):
+            t0 = _sync_clock(torch)
+            loss = torch.mean((fwd() - y) ** 2)
+            grads = torch.autograd.grad(loss, params)
+            secs.append(_sync_clock(torch) - t0)
+        res[tag] = (float(loss.detach()), grads, statistics.median(secs[1:]))
+    (l0, g0, s0), (l1, g1, s1) = res["unpipelined"], res["gpipe_apply"]
+    errs = [float((a - b).abs().max() / b.abs().max()) for a, b in zip(g1, g0)]
+    ok = abs(l1 - l0) <= F32_KERNEL_BOUND * abs(l0) and max(errs) <= F32_KERNEL_BOUND
+    say(f"gpipe (b): SemanticPredictor() at batch {GPIPE_BATCH}, pp = 1, n_micro = "
+        f"{GPIPE_MICRO} over {dist.get_backend()}: loss {l1!r} against {l0!r} unpipelined, "
+        f"gradients' largest error {max(errs):.3e} of their max (bound {F32_KERNEL_BOUND:g}); "
+        f"s/step (forward and backward, median of {GPIPE_REPS}) {s1:.4f} against {s0:.4f} "
+        f"{'ok' if ok else 'FAILED'} [{card}]")
+    if not ok:
+        fail("gpipe (b): the pipelined step differs from the unpipelined one")
+
+
+def _phase_semantic_tp1(torch, card):
+    """(c) ``train_semantic`` through its tp branch on a (dp 1, tp 1) mesh, a
+    world of one over NCCL, at SemanticPredictor(), 8 steps at batch 32,
+    against the same call without a mesh: losses and state dict bit for bit."""
+    import torch.distributed as dist
+
+    from eeg2video_tpu_torch.parallel import make_mesh
+    from eeg2video_tpu_torch.train import semantic as sem
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(46)
+    x = torch.randn(SEM_MESH_ROWS, 310, generator=g, device=dev)
+    w = torch.randn(310, 77 * 768, generator=g, device=dev) * (0.1 / 310 ** 0.5)
+    eeg, text = x.cpu().numpy(), (x @ w).cpu().numpy()
+    del x, w
+    cfg = sem.SemanticTrainConfig(epochs=1, batch_size=SEM_BATCH)
+    runs = {}
+    for tag in ("no mesh", "tp branch"):
+        mesh = make_mesh(dp=1, tp=1, device=dev) if tag == "tp branch" else None
+        torch.cuda.empty_cache()
+        t0 = _sync_clock(torch)
+        sd, losses = sem.train_semantic(eeg, text, cfg, seed=47, device=dev, mesh=mesh)
+        secs = _sync_clock(torch) - t0
+        runs[tag] = (sd, losses)
+        say(f"semantic (c) {tag}: losses {losses}, {secs:.2f} s for "
+            f"{SEM_MESH_ROWS // SEM_BATCH} steps with the model's init [{card}]")
+    (sd0, l0), (sd1, l1) = runs["no mesh"], runs["tp branch"]
+    same = l0 == l1 and sd0.keys() == sd1.keys() and all(torch.equal(sd0[k], sd1[k]) for k in sd0)
+    say(f"semantic (c): train_semantic's tp branch at tp = 1 over {dist.get_backend()} (world "
+        f"{dist.get_world_size()}) against no mesh: losses and {len(sd1)} tensors bit-equal "
+        f"{same} {'ok' if same else 'FAILED'} [{card}]")
+    if not same:
+        fail("semantic (c): the tp branch at tp = 1 differs from the trainer without a mesh")
+
+
+def phase_section16(torch, build, card):
+    """Section 16: multi-GPU serving and the semantic trainer's meshes on one
+    card. (a) the server on a --dp 1 mesh over NCCL against no mesh, and a
+    torchrun launch of it over --listen; (b) gpipe_apply at pp = 1; (c) the
+    semantic trainer's tp branch at tp = 1. Returns the launches of (a)'s
+    mesh run."""
+    import numpy as np
+    import torch.distributed as dist
+
+    from eeg2video_tpu_torch.diffusion.pipeline import EEG2VideoPipeline
+    from eeg2video_tpu_torch.models.init import random_init_
+    from eeg2video_tpu_torch.models.unet3d import UNet3DConfig
+    from eeg2video_tpu_torch.models.vae import VAEConfig
+
+    t_section = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="e2v_mesh_serve_") as tmp:
+        g = torch.Generator(device="cuda").manual_seed(42)
+        pipe = EEG2VideoPipeline.create(None, None, UNet3DConfig(), VAEConfig(),
+                                        dtype=torch.bfloat16, device="cuda")
+        random_init_(pipe.unet, g)
+        random_init_(pipe.vae, g)
+        torch.save(pipe.unet.state_dict(), os.path.join(tmp, "unet.pt"))
+        torch.save(pipe.vae.state_dict(), os.path.join(tmp, "vae.pt"))
+        np.save(os.path.join(tmp, "embeddings.npy"), np.random.default_rng(42).standard_normal(
+            (1, 77 * 768)).astype(np.float32))
+        launches = _phase_mesh_serve(torch, build, card, tmp, pipe)
+        del pipe
+        torch.cuda.empty_cache()
+        _phase_serve_torchrun(torch, card, tmp)
+    _phase_gpipe(torch, card)
+    torch.cuda.empty_cache()
+    _phase_semantic_tp1(torch, card)
+    dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    say(f"section 16: {time.perf_counter() - t_section:.1f} s")
+    return {"mesh_serve": launches}
+
+
 def _profile_step(torch, step, what="train: one step"):
     """One call of ``step`` under torch.profiler: where the device time goes,
     by the port's one grouping of its kernels (``utils.profiling``:
@@ -4189,6 +4494,8 @@ def main():
     recipe.update(phase_section14(torch, build, smi_line))
     torch.cuda.empty_cache()
     recipe.update(phase_section15(torch, build, smi_line))
+    torch.cuda.empty_cache()
+    recipe.update(phase_section16(torch, build, smi_line))
     leaked = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "jaxlib", "flax", "eeg2video_tpu"))
     if leaked:
@@ -4255,6 +4562,11 @@ def main():
             fail("launches: the ring's backward hops did not launch flash_attention_bwd")
         if name in _TRAIN_STEP and not per_path["launches_mesh_train_path"]:
             fail(f"launches: the --dp 1 --fsdp mesh's steps did not launch {name}")
+        # section 16: the server's --dp 1 mesh runs the generation kernels and,
+        # on rank 0's front half, int8_dense
+        if (name in EXPECTED_PER_FORWARD or name == "int8_dense") and not per_path[
+                "launches_mesh_serve_path"]:
+            fail(f"launches: the --dp 1 mesh server did not launch {name}")
         kernels.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
                         "launches": per_path[f"launches_{path}_path"], "launches_path": path,
                         **per_path,

@@ -72,6 +72,15 @@ replied to, and the process exits 0 once the queue runs dry.  A
 ``{"cmd": "shutdown"}`` from any client replies ``bye``, answers every line
 still queued behind it with the ``shutting_down`` refusal, and stops the
 server; client disconnects don't.  Ctrl-C (SIGINT) hard-stops.
+
+Across GPUs — ``--dp/--tp/--sp`` under ``torchrun``, one process a GPU, as
+JAX takes them: the mesh is the world's first dp*tp*sp ranks, the pipeline
+is ``pipe.shard(mesh, unet_tp_rules if tp > 1)``, and ranks past the mesh
+exit 0 at once. Rank 0 owns the transport and the front half and sends each
+dispatch to the other ranks of the mesh, which print nothing
+(``serving.mesh``: the control group, stopping, SIGTERM, and why an error
+inside the sharded forward ends every rank). ``--dp 1`` without a launcher
+runs the mesh path on one GPU.
 """
 
 import argparse
@@ -80,8 +89,12 @@ import sys
 import time
 
 import numpy as np
+import torch
 
+from ..parallel import init_distributed, make_mesh
+from ..parallel.distributed import rank, world_size
 from ..serving.batching import handle
+from ..serving.mesh import ControlPlane, MeshDispatcher, MeshFailure, follow
 from ..serving.runtimes import _load_semantic, _load_seq2seq
 from ..serving.transport import _Stats, _serve_coalesced, _serve_socket
 from ..utils import get_logger, resolve_device
@@ -212,16 +225,46 @@ def build_parser():
                         "(with --coalesce their clips batch into shared "
                         "dispatches), replies route per connection, port 0 "
                         "binds an ephemeral port (reported on stdout)")
-    for flag, default in (("dp", 0), ("tp", 1), ("sp", 1)):
-        p.add_argument(f"--{flag}", type=_not_ported_yet, default=default,
-                       help="(not ported yet: refused) a mesh of GPUs under the server")
+    p.add_argument("--dp", type=int, default=0,
+                   help="data-parallel serving over a device mesh: each "
+                        "--max_batch dispatch splits its clips across dp "
+                        "devices (requires --coalesce, whose padding keeps "
+                        "every dispatch exactly --max_batch, divisible by "
+                        "dp; 0 = single device)")
+    p.add_argument("--tp", type=int, default=1,
+                   help="tensor-parallel UNet sharding (Megatron rules + "
+                        "flash custom_partitioning; any --max_batch)")
+    p.add_argument("--sp", type=int, default=1,
+                   help="sequence-parallel (ring attention) sharding of "
+                        "the spatial attention (composes with --tp)")
     return p
 
 
-def _not_ported_yet(value):
-    raise argparse.ArgumentTypeError(
-        "multi-GPU serving is not ported yet (ROADMAP.md §1 item 7: rank 0's transport "
-        "broadcasting each dispatch to the other ranks); the server runs on one GPU")
+def mesh_dims(p, args):
+    """JAX's mesh block (:284-305): the (dp, tp, sp) the flags ask for, or
+    None for one GPU without a mesh. ``--dp 0`` takes the world size over
+    tp * sp only when the queue loop runs (``--coalesce`` or ``--listen``),
+    else 1, so ``--tp 2`` on the plain stdin path asks for nothing more; a
+    dp > 1 without the queue loop, or that does not divide --max_batch, is
+    refused with JAX's messages. Call it after ``init_distributed``."""
+    if not (args.dp or args.tp > 1 or args.sp > 1):
+        return None
+    queue = args.coalesce or args.listen is not None
+    if args.dp:
+        dp = args.dp
+    elif queue:
+        dp = max(1, world_size() // (args.tp * args.sp))
+    else:
+        dp = 1
+    if dp > 1 and not queue:
+        p.error("--dp needs --coalesce or --listen: the queue loop "
+                "pads every dispatch to exactly --max_batch clips, "
+                "which must divide across the dp devices (the plain "
+                "stdin path has variable-size tail dispatches)")
+    if dp > 1 and args.max_batch % dp:
+        p.error(f"--max_batch {args.max_batch} must be divisible by "
+                f"--dp {dp}")
+    return dp, args.tp, args.sp
 
 
 def warmup(pipe, args):
@@ -289,15 +332,36 @@ def serve(pipe, args, semantic_predict=None, on_ready=None, seq2seq_predict=None
                 resp["id"] = req["id"]
             print(json.dumps(resp), flush=True)
             continue
+        failure = None
         try:
             resp = handle(pipe, args, req)
         except Exception as e:  # keep serving on per-request failure
             resp = {"ok": False, "error": f"{type(e).__name__}: {e}"}
+            failure = e
         if "id" in req:
             resp["id"] = req["id"]
         stats.reply(resp)
         print(json.dumps(resp), flush=True)
+        if isinstance(failure, MeshFailure):  # the mesh is out of step: the server ends
+            raise failure
     return 0
+
+
+def serve_on_mesh(pipe, args, plane, semantic_predict=None, on_ready=None,
+                  seq2seq_predict=None):
+    """``serve`` on a mesh: every rank of the mesh calls it with its pipeline
+    sharded on ``plane.mesh`` (``pipe.shard``) and the ``ControlPlane`` that
+    every rank of the world built after the mesh. Rank 0 serves through a
+    ``MeshDispatcher`` and stops the others when it returns; the other ranks
+    follow its dispatches, print nothing and return 0 on its stop.
+    ``semantic_predict`` and ``seq2seq_predict`` are rank 0's."""
+    if rank() != 0:
+        return follow(pipe, plane)
+    dispatcher = MeshDispatcher(pipe, plane)
+    try:
+        return serve(dispatcher, args, semantic_predict, on_ready, seq2seq_predict)
+    finally:
+        dispatcher.stop()
 
 
 def main(argv=None):
@@ -305,9 +369,28 @@ def main(argv=None):
     args = p.parse_args(argv)
     if args.max_batch < 1:
         p.error(f"--max_batch must be >= 1, got {args.max_batch}")
-    resolve_device(args.device)  # fail before loading anything
+    init_distributed(args.device)  # a launcher's group, if any, before anything else
+    dims = mesh_dims(p, args)
+    device = resolve_device(args.device)  # fail before loading anything
+    mesh = None
+    if dims is not None:
+        dp, tp, sp = dims
+        mesh = make_mesh(dp=dp, tp=tp, sp=sp, device=device, leave_idle=True)
+        plane = ControlPlane(mesh)
+        if not mesh.active:  # past the mesh: nothing to do, nothing printed
+            return 0
+        log.info("%r on %s: process group %s, world size %d", mesh, mesh.device,
+                 torch.distributed.get_backend(), world_size())
+    elif rank() != 0:  # a launcher's world without a mesh: rank 0 serves alone
+        return 0
 
-    pipe = load_pipeline(args.unet, args.vae, dtype=args.dtype, device=args.device)
+    pipe = load_pipeline(args.unet, args.vae, dtype=args.dtype, device=device)
+    if mesh is not None:
+        from ..train import unet_tp_rules
+
+        pipe = pipe.shard(mesh, unet_tp_rules if args.tp > 1 else None)
+    if rank() != 0:
+        return serve_on_mesh(pipe, args, plane)
     semantic_predict = None
     if args.semantic_ckpt or args.torch_semantic:
         log.info("loading semantic predictor (hidden=%d%s)", args.hidden,
@@ -318,6 +401,9 @@ def main(argv=None):
         log.info("loading seq2seq predictor (frames=%d, latent=%s)",
                  args.seq2seq_frames, args.seq2seq_latent)
         seq2seq_predict = _load_seq2seq(args)
+    if mesh is not None:
+        return serve_on_mesh(pipe, args, plane, semantic_predict,
+                             seq2seq_predict=seq2seq_predict)
     return serve(pipe, args, semantic_predict, seq2seq_predict=seq2seq_predict)
 
 

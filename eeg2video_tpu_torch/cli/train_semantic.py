@@ -1,4 +1,4 @@
-"""CLI: train the semantic predictor (DE features -> CLIP text space) on one GPU.
+"""CLI: train the semantic predictor (DE features -> CLIP text space).
 
 Counterpart of ``eeg2video_tpu/cli/train_semantic.py``, the contract of
 reference EEG2Video_New/Semantic/eeg_text.py __main__ (L108-175): DE_1per2s
@@ -8,8 +8,11 @@ replicated), MSE, Adam 5e-4 cosine, 200 epochs, batch 32; ``--legacy`` takes
 DE_1per1s window means and one text_embeddings array. Writes
 ``<save_path>/semantic.pt`` (a state dict in the port's keys, what
 ``cli.serve --semantic_ckpt`` and ``cli.inference_semantic --ckpt`` read) and
-``<save_path>/scaler.npz``. ``--device`` defaults to ``cuda``; the JAX
-trainer's ``--tp/--pp/--n_micro`` (multi-GPU) are refused by name.
+``<save_path>/scaler.npz``. ``--device`` defaults to ``cuda``.
+
+Across GPUs, one process a GPU under ``torchrun``: ``--tp`` splits the MLP
+over the whole world, ``--pp`` pipelines its hidden stack over the first
+``--pp`` ranks (``train.semantic``); every rank trains, rank 0 writes.
 """
 
 import argparse
@@ -18,6 +21,8 @@ import os
 import torch
 
 from ..data.io import load_array
+from ..parallel import init_distributed, is_host0
+from ..parallel.distributed import world_size
 from ..train.semantic import (SemanticTrainConfig, prepare_semantic_data,
                               prepare_semantic_data_legacy, train_semantic)
 from ..utils import get_logger, resolve_device
@@ -41,10 +46,16 @@ def build_parser():
     p.add_argument("--batch_size", type=int, default=32)
     p.add_argument("--lr", type=float, default=5e-4)
     p.add_argument("--hidden", type=int, default=10000)
-    p.add_argument("--tp", type=int, default=1, help="(not ported: refused) multi-GPU")
-    p.add_argument("--pp", type=int, default=1, help="(not ported: refused) multi-GPU")
-    p.add_argument("--n_micro", type=int, default=1,
-                   help="(not ported: refused) microbatches of the pipelined form")
+    p.add_argument("--tp", type=int, default=1, help="tensor-parallel shards")
+    p.add_argument("--pp", type=int, default=1,
+                   help="pipeline-parallel stages: the 10000-wide hidden "
+                        "stack pipelines one stage per device (GPipe, "
+                        "parallel.pipeline) with the 591M-param out head "
+                        "column-sharded over the same axis; must divide the "
+                        "hidden-layer count (3)")
+    p.add_argument("--n_micro", type=int, default=8,
+                   help="(--pp) microbatches per step; bubble fraction is "
+                        "(pp-1)/(n_micro+pp-1)")
     p.add_argument("--use_8bit_adam", action="store_true",
                    help="int8 Adam moments: a quarter of the optimizer state's "
                         "bytes (train/optim.py)")
@@ -55,14 +66,27 @@ def build_parser():
     return p
 
 
+def _check_mesh_flags(p, args):
+    """The trainer's refusals of a mesh, made before anything is read: tp
+    with pp (JAX's ValueError), n_micro below 1 under pp, and a mesh the
+    world does not hold (tp takes the whole world, pp its first ranks)."""
+    world = world_size()
+    if args.tp > 1 and args.pp > 1:
+        p.error("tp and pp are alternative shardings; pick one")
+    if args.pp > 1 and args.n_micro < 1:
+        p.error(f"n_micro must be >= 1, got {args.n_micro}")
+    if args.pp > world:
+        p.error(f"--pp {args.pp} needs {args.pp} processes, one a GPU; the world has {world}")
+    if args.tp > 1 and args.tp != world:
+        p.error(f"--tp {args.tp} splits the MLP over the whole world, which has {world} "
+                "processes")
+
+
 def main(argv=None):
     p = build_parser()
     args = p.parse_args(argv)
-    for flag in ("tp", "pp", "n_micro"):
-        if getattr(args, flag) != 1:
-            p.error(f"--{flag}: the tensor-parallel and pipelined semantic trainers are "
-                    "multi-GPU and not ported yet (ROADMAP.md §1 item 7); this entry point "
-                    "runs on one GPU")
+    init_distributed(args.device)  # a launcher's group, if any, before anything else
+    _check_mesh_flags(p, args)
     device = resolve_device(args.device)  # fail before reading anything
 
     feats = load_array(args.features)
@@ -75,7 +99,10 @@ def main(argv=None):
     cfg = SemanticTrainConfig(epochs=args.epochs, batch_size=args.batch_size, lr=args.lr,
                               hidden=args.hidden, out_dim=text.shape[-1],
                               use_8bit_adam=args.use_8bit_adam)
-    sd, losses = train_semantic(eeg, text, cfg, seed=args.seed, device=device)
+    sd, losses = train_semantic(eeg, text, cfg, seed=args.seed, tp=args.tp, pp=args.pp,
+                                n_micro=args.n_micro, device=device)
+    if not is_host0():
+        return 0
     os.makedirs(args.save_path, exist_ok=True)
     path = os.path.join(args.save_path, "semantic.pt")
     torch.save({k: v.cpu() for k, v in sd.items()}, path)

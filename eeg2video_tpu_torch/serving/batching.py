@@ -22,6 +22,7 @@ import torch
 
 from ..data.video import AsyncVideoWriter, dispatch_ahead
 from ..utils import get_logger
+from .mesh import MeshFailure
 from .runtimes import _load_request
 
 log = get_logger(__name__)
@@ -267,3 +268,5 @@ def _process_group(pipe, args, group, emit):
                        if s >= next_emit[0] and s not in ready]
         for slot in missing:
             finish(slot, dict(err))
+        if isinstance(e, MeshFailure):  # the mesh is out of step: the server ends
+            raise

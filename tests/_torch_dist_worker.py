@@ -1,13 +1,14 @@
 """Worker processes of the port's multi-process CPU tests
 (tests/test_torch_parallel.py, test_torch_ring.py,
 test_torch_sharded_generation.py, test_torch_ring_bwd.py,
-test_torch_sharded_training.py).
+test_torch_sharded_training.py, test_torch_sharded_serving.py,
+test_torch_pipeline_parallel.py).
 
 ``start(case, world, inputs, tmp_path)`` starts ``world`` processes with the
 ``spawn`` start method (the pytest process holds JAX's runtime, which a fork
 would copy), each joins a gloo group on a file store in ``tmp_path`` with a
-60 s timeout and runs ``case(rank, world, inputs)`` from this module, which
-imports torch and the port only; the caller may compute JAX's side
+60 s timeout (``start``'s ``timeout``) and runs ``case(rank, world,
+inputs)`` from this module, which imports torch and the port only; the caller may compute JAX's side
 meanwhile. ``Spawn.join`` waits for them against one deadline (120 s from
 the start); past it they are killed and the test fails. A worker's exception
 fails the test with its traceback. It returns the case's result of every
@@ -21,6 +22,7 @@ import datetime
 import multiprocessing
 import os
 import pickle
+import sys
 import time
 import traceback
 
@@ -28,14 +30,14 @@ TIMEOUT = datetime.timedelta(seconds=60)
 DEADLINE = 120.0
 
 
-def _entry(rank, world, case, store, inputs_path, out_dir):
+def _entry(rank, world, case, store, inputs_path, out_dir, timeout):
     try:
         import torch
         import torch.distributed as dist
 
         torch.set_num_threads(1)
         dist.init_process_group("gloo", init_method=f"file://{store}", rank=rank,
-                                world_size=world, timeout=TIMEOUT)
+                                world_size=world, timeout=timeout)
         with open(inputs_path, "rb") as f:
             inputs = pickle.load(f)
         result = globals()[case](rank, world, inputs)
@@ -49,7 +51,7 @@ def _entry(rank, world, case, store, inputs_path, out_dir):
 
 
 class Spawn:
-    def __init__(self, case, world, inputs, tmp_path, deadline):
+    def __init__(self, case, world, inputs, tmp_path, deadline, timeout=TIMEOUT):
         self.case, self.world = case, world
         self.out_dir = os.path.join(os.fspath(tmp_path), f"spawn_{case}_{world}")
         os.makedirs(self.out_dir)
@@ -59,7 +61,8 @@ class Spawn:
         ctx = multiprocessing.get_context("spawn")
         store = os.path.join(self.out_dir, "store")
         self.procs = [ctx.Process(target=_entry, daemon=True,
-                                  args=(r, world, case, store, inputs_path, self.out_dir))
+                                  args=(r, world, case, store, inputs_path, self.out_dir,
+                                        timeout))
                       for r in range(world)]
         for p in self.procs:
             p.start()
@@ -97,8 +100,8 @@ class Spawn:
         return results
 
 
-def start(case, world, inputs, tmp_path, deadline=DEADLINE):
-    return Spawn(case, world, inputs, tmp_path, deadline)
+def start(case, world, inputs, tmp_path, deadline=DEADLINE, timeout=TIMEOUT):
+    return Spawn(case, world, inputs, tmp_path, deadline, timeout)
 
 
 def spawn(case, world, inputs, tmp_path, deadline=DEADLINE):
@@ -524,3 +527,251 @@ def _train_cli(inputs, flags):
     return {"losses": losses, "params": {n: _np(v) for n, v in saved["params"].items()},
             "step": saved["step"], "files": sorted(os.listdir(out_dir)),
             "samples": sorted(os.listdir(os.path.join(out_dir, "samples")))}
+
+
+# --- the pipeline and the semantic trainer on a mesh --------------------------
+
+def _block(p, a):
+    import torch
+
+    return torch.relu(a @ p[0] + p[1])
+
+
+def _gpipe_grads(inputs, world, n_micro, split):
+    """``gpipe_apply`` of the world's stages on ``inputs["x"]``: the output,
+    x's gradient and this stage's (w, b) gradients against the cotangent
+    ``inputs["cot"]``; with ``split`` each rank consumes only its columns of
+    the output (the column-split head)."""
+    import torch
+    import torch.distributed as dist
+
+    from eeg2video_tpu_torch.parallel import gpipe_apply
+
+    r = dist.get_rank()
+    x = _t(inputs["x"]).clone().requires_grad_()
+    w, b = (_t(inputs[n][r]).clone().requires_grad_() for n in ("w", "b"))
+    out = gpipe_apply(_block, (w, b), x, dist.group.WORLD, n_micro, out_split=split)
+    cot = _t(inputs["cot"])
+    if split:
+        out_r, cot = out.chunk(world, -1)[r], cot.chunk(world, -1)[r]
+        (out_r * cot).sum().backward()
+    else:
+        (out * cot).sum().backward()
+    return [_np(out), _np(x.grad), _np(w.grad), _np(b.grad)]
+
+
+def pipeline_cases(rank, world, inputs):
+    """gpipe_apply at pp = world for each n_micro of ``inputs["n_micro"][world]``,
+    its head replicated and split; the refusal of an indivisible batch."""
+    import torch
+    import torch.distributed as dist
+
+    from eeg2video_tpu_torch.parallel import gpipe_apply
+
+    out = {(nm, split): _gpipe_grads(inputs, world, nm, split)
+           for nm in inputs["n_micro"][world] for split in (False, True)}
+    with torch.no_grad():
+        out["no_grad"] = _np(gpipe_apply(_block, (_t(inputs["w"][rank]), _t(inputs["b"][rank])),
+                                         _t(inputs["x"]), dist.group.WORLD, 2))
+    out["batch_error"] = _raises(ValueError, lambda: gpipe_apply(
+        _block, (_t(inputs["w"][rank]), _t(inputs["b"][rank])), _t(inputs["x"])[:7],
+        dist.group.WORLD, 2))
+    return out
+
+
+def _semantic_model(inputs, out_dim):
+    import torch
+
+    from eeg2video_tpu_torch.models.semantic import SemanticPredictor
+
+    model = SemanticPredictor(hidden=inputs["hidden"], out_dim=out_dim)
+    model.load_state_dict({k: torch.from_numpy(v) for k, v in inputs["init"][out_dim].items()},
+                          strict=True)
+    return model
+
+
+def semantic_cases(rank, world, inputs):
+    """``train_semantic`` at each run of ``inputs["runs"][world]``, (tp, pp,
+    n_micro, 8-bit, out_dim): the losses, the returned state dict (None on an
+    idle rank) and, with 8-bit Adam, m's row scales of this rank's leaves
+    after the first step; then ``cli.train_semantic.main`` with ``inputs["cli"][world]``
+    and the files each rank wrote."""
+    import numpy as np
+    import torch
+
+    from eeg2video_tpu_torch.train import semantic as tsem
+
+    out = {}
+    for key in inputs["runs"][world]:
+        tp, pp, n_micro, eight, out_dim = key
+        cfg = tsem.SemanticTrainConfig(**{**inputs["cfg"], "out_dim": out_dim,
+                                          "use_8bit_adam": eight})
+        text = inputs["text"][:, :out_dim]
+        model = _semantic_model(inputs, out_dim)
+        scales = {}
+
+        def first_scales(step, loss, opt):
+            if step == 1 and eight:
+                scales.update({n: _np(opt.state[p]["ms"]) for n, p in model.named_parameters()
+                               if p in opt.state})
+
+        sd, losses = tsem.train_semantic(inputs["eeg"], text, cfg, seed=0, tp=tp, pp=pp,
+                                         n_micro=n_micro, model=model, device="cpu",
+                                         on_step=first_scales)
+        out[key] = (losses, None if sd is None else {k: _np(v) for k, v in sd.items()}, scales)
+    if inputs["cli"].get(world):
+        from eeg2video_tpu_torch.cli import train_semantic as cli
+
+        written = []
+        real = torch.save
+        torch.save = lambda obj, path, *a, **k: written.append(os.fspath(path)) or real(
+            obj, path, *a, **k)
+        real_np = np.savez
+        np.savez = lambda path, *a, **k: written.append(os.fspath(path)) or real_np(path, *a, **k)
+        try:
+            out["cli"] = cli.main(inputs["cli"][world])
+        finally:
+            torch.save, np.savez = real, real_np
+        out["written"] = written
+    return out
+
+
+# --- serving on a mesh -------------------------------------------------------
+
+class _Lines:
+    """rank 0's stdin: the lines, each after its pause in seconds; then, with
+    ``hold``, no end of input (a server that stays up until it is stopped)."""
+
+    def __init__(self, lines, pauses=None, hold=False):
+        self.lines, self.pauses, self.hold = lines, pauses or {}, hold
+
+    def __iter__(self):
+        import threading
+        import time
+
+        for i, line in enumerate(self.lines):
+            time.sleep(self.pauses.get(i, 0.0))
+            yield line + "\n"
+        if self.hold:
+            threading.Event().wait()
+
+
+class _NoStdin:
+    def __iter__(self):
+        raise AssertionError("a follower read stdin")
+
+
+def _listen_client(main, argv, lines):
+    """``main(argv + --listen)`` on a thread with stdout on a pipe; one
+    connection sends every line and reads one reply a line. Returns (rc,
+    [ready line] + replies)."""
+    import json
+    import socket
+    import threading
+
+    out_r, out_w = os.pipe()
+    out_file = os.fdopen(out_w, "w")
+    real = sys.stdout
+    sys.stdout = out_file
+    rc = []
+
+    def run():
+        try:
+            rc.append(main([*argv, "--listen", "127.0.0.1:0"]))
+        finally:
+            out_file.close()
+
+    t = threading.Thread(target=run, daemon=True)
+    t.start()
+    try:
+        with os.fdopen(out_r) as r:
+            ready = json.loads(r.readline())
+            sock = socket.create_connection(("127.0.0.1", ready["port"]), timeout=60)
+            rfile = sock.makefile("r", encoding="utf-8")
+            assert json.loads(rfile.readline())["ready"]
+            for line in lines:
+                sock.sendall((line + "\n").encode())
+            replies = [json.loads(rfile.readline()) for _ in lines]
+            t.join(timeout=60)
+            rest = r.read()
+        sock.close()
+    finally:
+        sys.stdout = real
+    assert rest == "", rest
+    return rc[0], [ready] + replies
+
+
+def _serve_main(inputs, run):
+    """``cli.serve.main`` on this rank with the tiny pipeline: rank 0 reads
+    ``run["lines"]`` from stdin (or over one connection with ``listen``).
+    Returns the exit code, what this rank printed (rank 0: its replies), the
+    arrays it handed to the GIF writer ({"<dir>/<gif>": array}) and the
+    pipeline calls it ran. ``run`` may also hold ``pauses`` and ``hold`` (of
+    ``_Lines``), ``sigterm_at`` (this process sends itself SIGTERM at that
+    pipeline call), ``fail_rank`` (that rank's UNet raises) and
+    ``mesh_timeout`` (seconds, the mesh groups' timeout)."""
+    import datetime
+    import io
+    import json
+    import signal
+
+    import numpy as np
+    import torch.distributed as dist
+
+    from eeg2video_tpu_torch.cli import serve
+    from eeg2video_tpu_torch.data import video
+    from eeg2video_tpu_torch.diffusion.pipeline import EEG2VideoPipeline
+
+    rank = dist.get_rank()
+    seen, calls = {}, []
+    real_save, real_call, real_mesh = video.save_videos_grid, EEG2VideoPipeline.__call__, \
+        serve.make_mesh
+
+    def record(videos, path, **kw):
+        seen[os.path.join(os.path.basename(os.path.dirname(path)), os.path.basename(path))] = \
+            np.array(videos, np.float32)
+        real_save(videos, path, **kw)
+
+    def counted(self, *a, **k):
+        calls.append(1)
+        if run.get("sigterm_at") == len(calls):
+            os.kill(os.getpid(), signal.SIGTERM)
+        return real_call(self, *a, **k)
+
+    def pipeline(*a, **k):
+        pipe = _tiny_pipeline(inputs)
+        if run.get("fail_rank") == rank:
+            def fail(*a, **k):
+                raise RuntimeError("a fault inside the sharded forward")
+            pipe.unet.forward = fail
+        return pipe
+
+    if "mesh_timeout" in run:
+        timeout = datetime.timedelta(seconds=run["mesh_timeout"])
+        serve.make_mesh = lambda *a, **k: real_mesh(*a, **k, timeout=timeout)
+    serve.load_pipeline = pipeline
+    video.save_videos_grid = record
+    EEG2VideoPipeline.__call__ = counted
+    real_in, real_out = sys.stdin, sys.stdout
+    out = io.StringIO()
+    sys.stdin = (_Lines(run["lines"], run.get("pauses"), run.get("hold")) if rank == 0
+                 else _NoStdin())
+    sys.stdout = out
+    try:
+        if run.get("listen") and rank == 0:
+            sys.stdout = real_out
+            rc, replies = _listen_client(serve.main, run["argv"], run["lines"])
+        else:
+            rc = serve.main(run["argv"])
+            replies = [json.loads(line) for line in out.getvalue().splitlines() if line.strip()]
+    finally:
+        sys.stdin, sys.stdout = real_in, real_out
+        video.save_videos_grid, EEG2VideoPipeline.__call__ = real_save, real_call
+        serve.make_mesh = real_mesh
+    return {"rc": rc, "printed": replies, "seen": seen, "calls": len(calls)}
+
+
+def serving_cases(rank, world, inputs):
+    """``cli.serve.main`` at each run of ``inputs["runs"][world]`` (name ->
+    run, see ``_serve_main``), every rank."""
+    return {name: _serve_main(inputs, run) for name, run in inputs["runs"][world].items()}

@@ -248,11 +248,18 @@ def test_raw_requests_get_a_not_ported_reply(monkeypatch, world):
     assert replies[4]["bye"]
 
 
-def test_parser_rejects_flags_of_modules_not_ported():
-    """The multi-GPU flags are refused; the raw-EEG flags parse with the JAX defaults."""
-    for flag in (["--dp", "2"], ["--tp", "2"], ["--sp", "2"]):
-        with pytest.raises(SystemExit):
-            serve.build_parser().parse_args(flag)
+def test_parser_rejects_flags_of_modules_not_ported(monkeypatch, capsys):
+    """Every flag of the JAX server parses now, the mesh flags with JAX's
+    defaults (dp 0, tp 1, sp 1); what is still refused is what JAX refuses,
+    --dp > 1 without the queue loop, before anything loads
+    (tests/test_torch_sharded_serving.py holds the rest). The raw-EEG flags
+    parse with the JAX defaults."""
+    args = serve.build_parser().parse_args(["--dp", "2", "--tp", "2", "--sp", "2"])
+    assert (args.dp, args.tp, args.sp) == (2, 2, 2)
+    monkeypatch.setattr(serve, "load_pipeline", lambda *a, **k: pytest.fail("loaded"))
+    with pytest.raises(SystemExit):
+        serve.main(["--dp", "2", "--device", "cpu"])
+    assert "--dp needs --coalesce or --listen" in capsys.readouterr().err
     # the raw-EEG flags are ported and parse
     args = serve.build_parser().parse_args(["--seq2seq_ckpt", "x", "--flow_scores", "y",
                                             "--dana_seed", "1"])
@@ -260,7 +267,7 @@ def test_parser_rejects_flags_of_modules_not_ported():
     jax_defaults = vars(SimpleNamespace(
         num_inference_steps=100, sampler="ddim", guidance_scale=12.5, height=288, width=512,
         video_length=6, seed=114514, gif_encoder="native", max_batch=1, max_queue=256,
-        coalesce_wait=0.0, hidden=10000, out_dir="./outputs/served"))
+        coalesce_wait=0.0, hidden=10000, out_dir="./outputs/served", dp=0, tp=1, sp=1))
     ours = vars(serve.build_parser().parse_args([]))
     assert {k: ours[k] for k in jax_defaults} == jax_defaults and ours["device"] == "cuda"
 
@@ -451,7 +458,10 @@ def test_no_module_of_the_port_imports_jax():
             "eeg2video_tpu_torch.cli.run_metrics",
             "eeg2video_tpu_torch.cli.extract_gif",
             "eeg2video_tpu_torch.parallel", "eeg2video_tpu_torch.parallel.distributed",
-            "eeg2video_tpu_torch.parallel.mesh", "eeg2video_tpu_torch.ops.ring"} <= set(names)
+            "eeg2video_tpu_torch.parallel.mesh", "eeg2video_tpu_torch.ops.ring",
+            "eeg2video_tpu_torch.parallel.pipeline", "eeg2video_tpu_torch.serving.mesh",
+            "eeg2video_tpu_torch.utils.mesh_serve",
+            "eeg2video_tpu_torch.utils.mesh_semantic"} <= set(names)
     code = "\n".join([
         "import importlib, sys",
         "before = set(sys.modules)",
