@@ -187,6 +187,17 @@ printed on its own line; any failure prints ``FAIL ...`` and exits 1:
    loss and gradients against the unpipelined step, s/step of each; (c)
    ``train_semantic`` through its tp branch at tp = 1, 8 steps at full
    width, bit-equal to no mesh.
+17. the last multi-GPU paths on one card, each line beside the card's name
+   and power limit: (a) ``train_glmnet.main --dp 1`` (a world of one over
+   NCCL) at section 11's subject shape (8400 windows, emb_dim 256, batch 256,
+   2 epochs), its checkpoint and losses bit-equal to no mesh, s/epoch; (b)
+   ``run_benchmark(fold_parallel=True)`` on a fold mesh of one rank, every
+   fold bit-equal to the batched path on a (7, 40, 5, 2, 62, 5) subject; (c)
+   ``train_tuneavideo.train`` on a ``--dp 1 --fsdp`` mesh through the
+   per-use gather at UNet3DConfig(), batch 10, three steps and a validation
+   sample, losses and masters bit-equal to section 15 (c)'s run without a
+   mesh, section 15's launches, peak memory; the kernels line gains
+   ``launches_fsdp_gather_path``.
 
 The third-to-last line is a JSON object with one entry per kernel, then the
 ``nvidia-smi`` line; the last line is ``{"ok": true, "device": {...}}``.
@@ -4038,8 +4049,10 @@ def _phase_tp_ff_bwd(torch, build, card):
 def _mesh_train_run(torch, build, tmp, post, contexts, flags):
     """``train_tuneavideo.train`` at UNet3DConfig() from the seeded weights,
     one epoch of TRAIN_STEPS steps at batch TRAIN_BATCH, a tiny VAE (the
-    posteriors are given; it is only written beside the checkpoint): per
-    step (seconds, loss, launches), the masters after it, and the launches."""
+    posteriors are given; it is only written beside the checkpoint and
+    decodes a validation sample where the flags ask for one): per step
+    (seconds, loss, launches), the masters after it, the mesh, and the
+    units' gathers under fsdp (None without)."""
     from eeg2video_tpu_torch.cli import train_tuneavideo
     from eeg2video_tpu_torch.models.vae import AutoencoderKL, VAEConfig
 
@@ -4061,10 +4074,21 @@ def _mesh_train_run(torch, build, tmp, post, contexts, flags):
     clock[0] = time.perf_counter()
     state, losses = train_tuneavideo.train(unet, vae, post, contexts, args, on_step=on_step)
     masters = {n: p.detach().clone() for n, p in state.masters.items()}
-    mesh = state.mesh
+    mesh, gathers = state.mesh, None if state.gather is None else state.gather.gathers
     del state, unet
     torch.cuda.empty_cache()
-    return steps, masters, mesh
+    return steps, masters, mesh, gathers
+
+
+def _mesh_train_data(torch):
+    """Section 15 (c)'s seeded posteriors and contexts, one epoch's worth."""
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(29)
+    n = MESH_TRAIN_CLIPS
+    post = torch.cat([torch.randn((n, 6, 36, 64, 4), generator=g, device=dev),
+                      -4.0 + 0.1 * torch.randn((n, 6, 36, 64, 4), generator=g, device=dev)],
+                     dim=-1)
+    return post, torch.randn((n, 77, 768), generator=g, device=dev)
 
 
 def _phase_mesh_train(torch, build, card):
@@ -4072,25 +4096,20 @@ def _phase_mesh_train(torch, build, card):
     one on a local store, NCCL) at UNet3DConfig(), batch 10, three optimizer
     steps, against the same call without a mesh: every loss and master bit
     for bit (every collective is over one rank), the train kernels launched
-    as the mesh-less step launches them. Returns the mesh run's launches."""
+    as the mesh-less step launches them. Returns the mesh run's launches and
+    the run without a mesh: its losses and its masters, on the host."""
     import torch.distributed as dist
 
-    dev = torch.device("cuda")
-    g = torch.Generator(device=dev).manual_seed(29)
-    n = MESH_TRAIN_CLIPS
-    post = torch.cat([torch.randn((n, 6, 36, 64, 4), generator=g, device=dev),
-                      -4.0 + 0.1 * torch.randn((n, 6, 36, 64, 4), generator=g, device=dev)],
-                     dim=-1)
-    contexts = torch.randn((n, 77, 768), generator=g, device=dev)
+    post, contexts = _mesh_train_data(torch)
     runs = {}
     for tag, flags in (("no mesh", []), ("--dp 1 --fsdp", ["--dp", "1", "--fsdp"])):
         with tempfile.TemporaryDirectory(prefix="e2v_mesh_train_") as tmp:
             runs[tag] = _mesh_train_run(torch, build, tmp, post, contexts, flags)
-        steps, _, mesh = runs[tag]
+        steps, _, mesh, _ = runs[tag]
         say(f"mesh train (c) {tag} ({mesh}): {len(steps)} steps, loss per step "
             f"{[s[1] for s in steps]}, seconds per step {[round(s[0], 3) for s in steps]} "
             f"(the first includes building the train state) [{card}]")
-    (base, base_m, _), (mesh_steps, mesh_m, mesh) = runs["no mesh"], runs["--dp 1 --fsdp"]
+    (base, base_m, _, _), (mesh_steps, mesh_m, mesh, _) = runs["no mesh"], runs["--dp 1 --fsdp"]
     backend, world = dist.get_backend(), dist.get_world_size()
     same_loss = [a[1] == b[1] for a, b in zip(base, mesh_steps)]
     same_m = [torch.equal(base_m[k], mesh_m[k]) for k in base_m]
@@ -4107,14 +4126,16 @@ def _phase_mesh_train(torch, build, card):
     if not ok:
         fail("mesh train (c): the --dp 1 --fsdp step differs from the step without a mesh")
     dist.destroy_process_group()
-    return {k: sum(l[k] for l in launched) for k in COUNTERS}
+    return ({k: sum(l[k] for l in launched) for k in COUNTERS},
+            ([s[1] for s in base], {k: v.cpu() for k, v in base_m.items()}))
 
 
 def phase_section15(torch, build, card):
     """Section 15: multi-GPU training on one card. (a) the ring's backward
     hops; (b) a tp rank's residual-free feed-forward backward; (c) the
     fine-tune on a --dp 1 --fsdp mesh over NCCL against no mesh. Returns the
-    launches of the ring's backward runs and of the mesh's steps."""
+    launches of the ring's backward runs and of the mesh's steps, and (c)'s
+    run without a mesh (losses, masters on the host)."""
     t_section = time.perf_counter()
     ring_launches = _phase_ring_bwd_hops(torch, build, card)
     if not ring_launches["flash_attention_bwd"]:
@@ -4122,9 +4143,9 @@ def phase_section15(torch, build, card):
     torch.cuda.empty_cache()
     _phase_tp_ff_bwd(torch, build, card)
     torch.cuda.empty_cache()
-    mesh_launches = _phase_mesh_train(torch, build, card)
+    mesh_launches, base = _phase_mesh_train(torch, build, card)
     say(f"section 15: {time.perf_counter() - t_section:.1f} s")
-    return {"ring_bwd": ring_launches, "mesh_train": mesh_launches}
+    return {"ring_bwd": ring_launches, "mesh_train": mesh_launches}, base
 
 
 # --- section 16: multi-GPU serving and the semantic trainer's meshes on one card ---
@@ -4419,6 +4440,165 @@ def phase_section16(torch, build, card):
     return {"mesh_serve": launches}
 
 
+# --- section 17: the last multi-GPU paths on one card ----------------------------
+GLMNET_DP_EPOCHS = 2
+
+
+def _phase_glmnet_dp1(torch, card, tmp):
+    """(a) ``train_glmnet.main --dp 1`` (a world of one on a local store,
+    NCCL) against the same command without a mesh, at section 11's subject
+    shape (seeded windows and DE features): the checkpoint and every epoch's
+    loss bit for bit, and s/epoch (the second epoch's, from the metrics'
+    stamps). cuDNN's deterministic algorithms are asked for while both run:
+    its default convolution backward sums in an order that varies between
+    two runs of one command."""
+    import numpy as np
+    import torch.distributed as dist
+
+    from eeg2video_tpu_torch.cli import train_glmnet
+
+    rng = np.random.default_rng(70)
+    for name, last in (("sw", 100), ("de", 5)):
+        os.makedirs(os.path.join(tmp, name))
+        np.save(os.path.join(tmp, name, "sub1.npy"),
+                rng.standard_normal((7, 40, 5, 7, 62, last)).astype(np.float32))
+    runs = {}
+    deterministic = torch.backends.cudnn.deterministic
+    for tag, extra in (("no mesh", []), ("--dp 1", ["--dp", "1"])):
+        out = os.path.join(tmp, tag.replace(" ", "_"))
+        torch.backends.cudnn.deterministic = True
+        try:
+            t0 = _sync_clock(torch)
+            acc = train_glmnet.main(["--raw_dir", os.path.join(tmp, "sw"), "--de_dir",
+                                     os.path.join(tmp, "de"), "--sub", "1", "--save_path", out,
+                                     "--epochs", str(GLMNET_DP_EPOCHS), "--batch_size", "256",
+                                     "--emb_dim", "256", *extra])
+            secs = _sync_clock(torch) - t0
+        finally:
+            torch.backends.cudnn.deterministic = deterministic
+        if tag == "--dp 1":
+            backend, world = dist.get_backend(), dist.get_world_size()
+            dist.destroy_process_group()
+            if backend != "nccl" or world != 1:
+                fail(f"section 17 (a): --dp 1 ran over {backend}, world {world}")
+        lines = [json.loads(s) for s in
+                 open(os.path.join(out, "glmnet_metrics.jsonl")).read().splitlines()]
+        sd = torch.load(os.path.join(out, "ckpt", f"train_state_{GLMNET_DP_EPOCHS}.pt"),
+                        weights_only=True)
+        runs[tag] = (acc, [ln["train_loss"] for ln in lines], sd,
+                     lines[-1]["time"] - lines[0]["time"], secs)
+    (acc0, loss0, sd0, ep0, s0), (acc1, loss1, sd1, ep1, s1) = runs["no mesh"], runs["--dp 1"]
+    same = (loss0 == loss1 and acc0 == acc1 and list(sd0) == list(sd1)
+            and all(torch.equal(sd0[k], sd1[k]) for k in sd0))
+    gap = max(float((sd0[k].double() - sd1[k].double()).abs().max()) for k in sd0)
+    say(f"section 17 (a): train_glmnet --dp 1 over NCCL (world 1) against no mesh at emb_dim "
+        f"256, 8400 windows, batch 256, {GLMNET_DP_EPOCHS} epochs: losses {loss1} (no mesh "
+        f"{loss0}), block-6 top-1 {acc1:.4f}, checkpoint and losses bit-equal {same} (largest "
+        f"gap {gap:.3e}); s/epoch (the second) "
+        f"{ep1:.3f} (no mesh {ep0:.3f}), {s1:.2f} s with loading ({s0:.2f}) [{card}] "
+        f"{'ok' if same else 'FAILED'}")
+    if not same:
+        fail("section 17 (a): train_glmnet --dp 1 differs from the run without a mesh")
+
+
+def _phase_fold_mesh1(torch, card):
+    """(b) ``run_benchmark(fold_parallel=True)`` on a fold mesh of one rank
+    (a world of one over NCCL) against the batched path without a mesh, on a
+    seeded (7, 40, 5, 2, 62, 5) subject: every fold's results bit for bit."""
+    import numpy as np
+    import torch.distributed as dist
+
+    from eeg2video_tpu_torch.data import meta
+    from eeg2video_tpu_torch.parallel import make_fold_mesh
+    from eeg2video_tpu_torch.train import eegvp
+
+    rng = np.random.default_rng(71)
+    feats = rng.standard_normal((7, 400, meta.N_CHANNELS, meta.N_BANDS)).astype(np.float32)
+    labels = meta.all_labels(10)
+    cfg = eegvp.EEGVPConfig(epochs=EEGVP_EPOCHS)
+    runs = {}
+    for tag in ("no mesh", "fold mesh of 1"):
+        mesh = make_fold_mesh(1, "cuda") if tag != "no mesh" else None
+        t0 = _sync_clock(torch)
+        res = eegvp.run_benchmark(feats, labels, cfg, seed=1, fold_parallel=True, mesh=mesh)
+        runs[tag] = (res, _sync_clock(torch) - t0)
+        if mesh is not None:
+            backend = dist.get_backend()
+            dist.destroy_process_group()
+            if backend != "nccl":
+                fail(f"section 17 (b): the fold mesh ran over {backend}")
+    (a, sa), (b, sb) = runs["no mesh"], runs["fold mesh of 1"]
+    same = all(fa["test_top1"] == fb["test_top1"] and fa["test_top5"] == fb["test_top5"]
+               and fa["val_top1"] == fb["val_top1"]
+               and np.array_equal(fa["predictions"], fb["predictions"])
+               and np.array_equal(fa["confusion"], fb["confusion"])
+               and np.array_equal(fa["losses"], fb["losses"])
+               and all(torch.equal(fa["params"][k], fb["params"][k]) for k in fa["params"])
+               for fa, fb in zip(a["folds"], b["folds"])) and len(b["folds"]) == 7
+    say(f"section 17 (b): run_benchmark --fold_parallel on a fold mesh of 1 (NCCL) against the "
+        f"batched path, {EEGVP_EPOCHS} epochs on a (7, 40, 5, 2, 62, 5) subject: {sb:.2f} s "
+        f"({sa:.2f} s without), top-1 by fold {[round(f['test_top1'], 4) for f in b['folds']]}, "
+        f"every fold bit-equal {same} [{card}] {'ok' if same else 'FAILED'}")
+    if not same:
+        fail("section 17 (b): the fold mesh of one differs from the batched path")
+
+
+def _phase_fsdp_gather1(torch, build, card, base):
+    """(c) ``train_tuneavideo.train`` on a ``--dp 1 --fsdp`` mesh at
+    UNet3DConfig(), batch 10, three steps, through the per-use gather (each
+    unit's gather and its gradient path to the masters, no collective at dp
+    1) and a validation sample after the epoch (the VAE brought from the
+    host): losses and masters bit-equal to section 15 (c)'s run without a
+    mesh, every step's launches section 15's, peak memory. Returns the
+    launches of the steps."""
+    import torch.distributed as dist
+
+    post, contexts = _mesh_train_data(torch)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    with tempfile.TemporaryDirectory(prefix="e2v_fsdp_gather_") as tmp:
+        steps, masters, mesh, gathers = _mesh_train_run(
+            torch, build, tmp, post, contexts,
+            ["--dp", "1", "--fsdp", "--validation_epochs", "1", "--validation_steps", "2"])
+        sampled = os.listdir(os.path.join(tmp, "samples"))
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    dist.destroy_process_group()
+    base_losses, base_masters = base
+    launched = [s[2] for s in steps]
+    same_loss = [s[1] for s in steps] == base_losses
+    same_m = list(masters) == list(base_masters) and all(
+        torch.equal(masters[k].cpu(), base_masters[k]) for k in base_masters)
+    ok = (same_loss and same_m and len(steps) == TRAIN_STEPS and gathers
+          and all(l == EXPECTED_PER_TRAIN_STEP for l in launched)
+          and sampled == ["sample-1.gif"])
+    say(f"section 17 (c): train --dp 1 --fsdp with the per-use gather ({mesh}): losses "
+        f"{[s[1] for s in steps]} bit-equal to no mesh {same_loss}, masters bit-equal {same_m}, "
+        f"seconds per step {[round(s[0], 3) for s in steps]} (the first includes building the "
+        f"train state), {gathers} unit gathers in {len(steps)} steps, per-step launches "
+        f"{_nonzero(launched[0])}, a validation sample {sampled}, peak {peak:.2f} GiB "
+        f"[{card}] {'ok' if ok else 'FAILED'}")
+    if not ok:
+        fail("section 17 (c): the --dp 1 --fsdp step with the per-use gather differs from no mesh")
+    return {k: sum(l[k] for l in launched) for k in COUNTERS}
+
+
+def phase_section17(torch, build, card, mesh_train_base):
+    """Section 17: the last multi-GPU paths on one card. (a) ``train_glmnet
+    --dp 1`` on the mesh path over NCCL bit-equal to no mesh; (b) EEG-VP's
+    fold mesh of one rank bit-equal to the batched path; (c) the ``--dp 1
+    --fsdp`` fine-tune through the per-use gather bit-equal to no mesh.
+    Returns (c)'s launches."""
+    t_section = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="e2v_glmnet_dp_") as tmp:
+        _phase_glmnet_dp1(torch, card, tmp)
+    torch.cuda.empty_cache()
+    _phase_fold_mesh1(torch, card)
+    torch.cuda.empty_cache()
+    launches = _phase_fsdp_gather1(torch, build, card, mesh_train_base)
+    say(f"section 17: {time.perf_counter() - t_section:.1f} s")
+    return {"fsdp_gather": launches}
+
+
 def _profile_step(torch, step, what="train: one step"):
     """One call of ``step`` under torch.profiler: where the device time goes,
     by the port's one grouping of its kernels (``utils.profiling``:
@@ -4493,9 +4673,12 @@ def main():
     torch.cuda.empty_cache()
     recipe.update(phase_section14(torch, build, smi_line))
     torch.cuda.empty_cache()
-    recipe.update(phase_section15(torch, build, smi_line))
+    section15, mesh_train_base = phase_section15(torch, build, smi_line)
+    recipe.update(section15)
     torch.cuda.empty_cache()
     recipe.update(phase_section16(torch, build, smi_line))
+    torch.cuda.empty_cache()
+    recipe.update(phase_section17(torch, build, smi_line, mesh_train_base))
     leaked = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "jaxlib", "flax", "eeg2video_tpu"))
     if leaked:
@@ -4562,6 +4745,9 @@ def main():
             fail("launches: the ring's backward hops did not launch flash_attention_bwd")
         if name in _TRAIN_STEP and not per_path["launches_mesh_train_path"]:
             fail(f"launches: the --dp 1 --fsdp mesh's steps did not launch {name}")
+        # section 17: the --dp 1 --fsdp steps through the per-use gather
+        if name in _TRAIN_STEP and not per_path["launches_fsdp_gather_path"]:
+            fail(f"launches: the per-use gather's steps did not launch {name}")
         # section 16: the server's --dp 1 mesh runs the generation kernels and,
         # on rank 0's front half, int8_dense
         if (name in EXPECTED_PER_FORWARD or name == "int8_dense") and not per_path[

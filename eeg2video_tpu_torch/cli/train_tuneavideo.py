@@ -20,9 +20,11 @@ Several GPUs, one process each (``torchrun --nproc_per_node N``; on the CPU,
 gloo): ``--dp/--tp/--sp/--fsdp`` make the JAX trainer's (dp, sp, tp) mesh
 (``parallel.make_mesh``; JAX :189-221): the batch split over dp, ring
 attention over sp, Megatron tp of the attention and feed-forward projections,
-and with ``--fsdp`` the f32 masters and the optimizer's moments split over
-dp (``train.videodiffusion.TrainState``). ``--dp`` defaults to the world size
-over tp * sp, clamped to a divisor of ``--train_batch_size``; the mesh is the
+and with ``--fsdp`` the f32 masters, the optimizer's moments and the working
+copy split over dp, each block's weights gathered where it runs
+(``train.videodiffusion.TrainState``); the VAE then waits on the host
+between its uses (the clip set's encoding, the validation samples).
+``--dp`` defaults to the world size over tp * sp, clamped to a divisor of ``--train_batch_size``; the mesh is the
 world's first dp*sp*tp ranks and the rest idle, as in JAX; ``--dp 1``
 without a launcher is a mesh of one. Rank 0 writes the metrics, checkpoints
 and validation GIFs; every rank joins the collectives of each step, of each
@@ -144,8 +146,9 @@ def build_parser():
                    help="tensor-parallel mesh size (Megatron-split attention and "
                         "feed-forward projections)")
     p.add_argument("--fsdp", action="store_true",
-                   help="split the f32 masters and the optimizer's moments over the dp "
-                        "axis (parallel.fsdp_spec); the working copy stays whole")
+                   help="split the f32 masters, the optimizer's moments and the working copy "
+                        "over the dp axis (parallel.fsdp_spec); each block gathers its "
+                        "weights where it runs")
     p.add_argument("--sp", type=int, default=1,
                    help="sequence-parallel mesh size: spatial attention, forward and "
                         "backward, through ring attention over an sp axis (ops.ring); "
@@ -244,6 +247,8 @@ def train(unet, vae, data, contexts, args, cfg=None, on_step=None, mesh=None):
         post_all = data.float().to(device)
     else:
         post_all = encode_posteriors(vae, data)
+    if args.fsdp:  # the steps do not read it: it waits on the host (JAX splits it over dp)
+        vae.to("cpu")
     context_all = torch.as_tensor(contexts).float().to(device)
     n = post_all.shape[0]
     bsz = args.train_batch_size
@@ -296,15 +301,24 @@ def _validate(state, vae, context_all, args, epoch, path, latent_fhw):
     """Sample the first two clips' captions with the current weights
     (reference L343-369), at the training clips' length and size, and write
     them as one grid GIF. On a mesh every rank samples the same two clips
-    (the tp and sp collectives of the UNet need every rank), rank 0 writes."""
-    pipe = EEG2VideoPipeline(unet=state.unet, vae=vae, dtype=state.dtype)
-    emb = context_all[:2].reshape(min(2, context_all.shape[0]), -1)
-    gen = torch.Generator(device=state.device).manual_seed(args.seed + 10_000 + epoch)
-    frames, h8, w8 = latent_fhw
-    with sp_scope(state.mesh):
-        vids = pipe(emb, emb.mean(dim=0), generator=gen, video_length=frames, height=8 * h8,
-                    width=8 * w8, num_inference_steps=args.validation_steps,
-                    guidance_scale=12.5)
+    (the tp and sp collectives of the UNet need every rank), rank 0 writes.
+    A VAE waiting on the host comes to the device for the sample and goes
+    back."""
+    on_host = state.device.type != next(vae.parameters()).device.type
+    if on_host:
+        vae.to(state.device)
+    try:
+        pipe = EEG2VideoPipeline(unet=state.unet, vae=vae, dtype=state.dtype)
+        emb = context_all[:2].reshape(min(2, context_all.shape[0]), -1)
+        gen = torch.Generator(device=state.device).manual_seed(args.seed + 10_000 + epoch)
+        frames, h8, w8 = latent_fhw
+        with sp_scope(state.mesh):
+            vids = pipe(emb, emb.mean(dim=0), generator=gen, video_length=frames,
+                        height=8 * h8, width=8 * w8, num_inference_steps=args.validation_steps,
+                        guidance_scale=12.5)
+    finally:
+        if on_host:
+            vae.to("cpu")
     if is_host0():
         save_videos_grid(vids.cpu().numpy(), path, encoder=args.gif_encoder)
 

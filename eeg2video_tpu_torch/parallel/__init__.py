@@ -5,11 +5,10 @@ choice of dimension and the GPipe schedule (counterpart of
 explicit ``torch.distributed`` calls."""
 
 from .distributed import init_distributed, local_batch_slice
-from .mesh import (Mesh, copy_to, fsdp_spec, gather_batch, is_host0, make_mesh, reduce_from,
-                   shard_batch, shard_params, shard_params_fsdp, tp_spec)
+from .mesh import (Mesh, copy_to, fsdp_spec, gather_batch, is_host0, make_fold_mesh, make_mesh,
+                   reduce_from, shard_batch, shard_params, shard_params_fsdp, tp_spec)
 from .pipeline import gpipe_apply
 
 __all__ = ["Mesh", "copy_to", "fsdp_spec", "gather_batch", "gpipe_apply",
-           "init_distributed", "is_host0",
-           "local_batch_slice", "make_mesh", "reduce_from", "shard_batch", "shard_params",
-           "shard_params_fsdp", "tp_spec"]
+           "init_distributed", "is_host0", "local_batch_slice", "make_fold_mesh", "make_mesh",
+           "reduce_from", "shard_batch", "shard_params", "shard_params_fsdp", "tp_spec"]

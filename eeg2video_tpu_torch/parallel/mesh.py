@@ -22,10 +22,14 @@ projection's hidden and gate halves).
 ``fsdp_spec`` picks the dimension that fsdp splits over dp as JAX picks it
 (mesh.py:62-81): on the flax layout of the leaf, whose order differs from
 torch's (``jax_dim_order``), so that a tie goes to JAX's first dimension.
+``PerUseGather`` keeps a module's parameters as those dp pieces and gathers
+each unit's weights whole where the unit runs, as GSPMD gathers a weight at
+its use.
 """
 
 from __future__ import annotations
 
+import weakref
 from datetime import timedelta
 from typing import Optional
 
@@ -120,6 +124,15 @@ def make_mesh(dp: int = 1, tp: int = 1, sp: int = 1, device="cuda",
     return Mesh(dp, sp, tp, device, groups, members)
 
 
+def make_fold_mesh(size: int = 7, device="cuda", timeout: Optional[timedelta] = None) -> Mesh:
+    """EEG-VP's fold mesh (JAX's ``Mesh(devices[:7], ("fold",))``,
+    cli/eegvp_train_test.py:37-49 there): the world's first ``size`` ranks
+    along one axis, the mesh's dp, over which ``train.eegvp.run_benchmark``
+    splits the stacked folds as a batch; the ranks past them are not
+    ``active``. Every process of the world calls it."""
+    return make_mesh(dp=size, device=device, timeout=timeout, leave_idle=True)
+
+
 def shard_batch(x, mesh: Mesh):
     """This rank's dp slice of a global batch (JAX's ``batch_sharding``)."""
     dp = mesh.size("dp")
@@ -139,6 +152,21 @@ def gather_batch(x, mesh: Mesh):
     """The global batch from every dp rank's slice, whole on every rank."""
     dp = mesh.size("dp")
     return x if dp == 1 else all_gather(x, mesh.group("dp"), dp)
+
+
+def _true_div(x, divisor: float):
+    """``x / divisor`` rounded as a true division on every device
+    (``train.optim.true_div``)."""
+    return x / torch.full((), divisor, dtype=x.dtype, device=x.device)
+
+
+def mean_over(tensors, group, size: int):
+    """Each tensor's mean over the group's ``size`` ranks, in f32, from one
+    flattened all-reduce."""
+    flat = torch.cat([t.reshape(-1).float() for t in tensors])
+    dist.all_reduce(flat, group=group)
+    flat = _true_div(flat, float(size))
+    return [f.view(t.shape) for f, t in zip(flat.split([t.numel() for t in tensors]), tensors)]
 
 
 def gather_cat(x, group, size: int, dim: int):
@@ -254,6 +282,201 @@ def shard_params_fsdp(params, mesh: Mesh, base_rules=None):
         dim = fsdp_spec(tuple(t.shape), None if base is None else base[0], dp)
         out[name] = (t if dim is None else split_piece(t, dp, r, dim), dim)
     return out
+
+
+def gather_wholes(pieces, dims, group, size: int):
+    """The whole tensors from every rank's ``split_piece`` of each, piece i
+    along ``dims[i]``, in one all-gather, each a fresh contiguous tensor
+    (``group`` None: the pieces)."""
+    if group is None:
+        return list(pieces)
+    flat = torch.cat([p.reshape(-1) for p in pieces])
+    every = torch.empty((size, flat.numel()), dtype=flat.dtype, device=flat.device)
+    dist.all_gather_into_tensor(every.view(-1), flat, group=group)
+    wholes, at = [], 0
+    for p, dim in zip(pieces, dims):
+        shape = list(p.shape)
+        shape[dim] *= size
+        parts = every[:, at:at + p.numel()].view(size, *p.shape)
+        wholes.append(parts.movedim(0, dim).reshape(shape).contiguous())
+        at += p.numel()
+    return wholes
+
+
+def scatter_means(grads, dims, group, size: int):
+    """This rank's pieces of the means over the group of every rank's whole
+    ``grads`` (grad i split along ``dims[i]``), in f32, in one
+    reduce-scatter (``group`` None: the grads in f32)."""
+    grads = [g.float() for g in grads]
+    if group is None:
+        return grads
+    rows = [g.movedim(dim, 0).reshape(size, -1) for g, dim in zip(grads, dims)]
+    src = torch.cat(rows, dim=1)
+    out = torch.empty(src.shape[1], dtype=src.dtype, device=src.device)
+    dist.reduce_scatter_tensor(out, src.view(-1), group=group)
+    out = _true_div(out, float(size))
+    pieces = []
+    for g, dim, part in zip(grads, dims, out.split([r.shape[1] for r in rows])):
+        moved = g.movedim(dim, 0).shape
+        pieces.append(part.view(moved[0] // size, *moved[1:]).movedim(0, dim).contiguous())
+    return pieces
+
+
+class _GatherForUse(torch.autograd.Function):
+    """A unit's whole tensors from every dp rank's compute-dtype pieces
+    forward (``gather_wholes``); backward the whole gradients reduce-scattered
+    in f32 and averaged over dp (``scatter_means``) as the gradients of the
+    ``masters`` (each trainable piece's f32 master, whose value the forward
+    does not read; None for a frozen one, whose whole takes no gradient)."""
+
+    @staticmethod
+    def forward(ctx, spec, *tensors):
+        group, size, dims = spec
+        n = len(dims)
+        masters, pieces = tensors[:n], tensors[n:]
+        wholes = gather_wholes(pieces, dims, group, size)
+        ctx.spec, ctx.trained = spec, [i for i, m in enumerate(masters) if m is not None]
+        ctx.mark_non_differentiable(*(w for w, m in zip(wholes, masters) if m is None))
+        return tuple(wholes)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        group, size, dims = ctx.spec
+        out = [None] * (2 * len(dims))
+        means = scatter_means([grads[i] for i in ctx.trained], [dims[i] for i in ctx.trained],
+                              group, size)
+        for i, g in zip(ctx.trained, means):
+            out[i] = g
+        return (None, *out)
+
+
+class _Piece:
+    """A parameter that holds its dp piece: where it sits, along which dim,
+    its f32 master (None: frozen), the last whole gathered from it."""
+
+    def __init__(self, owner, pname, dim, master):
+        self.owner, self.pname, self.dim, self.master = owner, pname, dim, master
+        self.param = owner._parameters[pname]
+        self.whole = None  # weakref
+
+
+class _Regather:
+    """A saved view of a gathered whole weight, kept as where to gather it
+    again: its unit, its place there, and the view's geometry on the whole."""
+
+    def __init__(self, gather, unit, index, view):
+        self.gather, self.unit, self.index = gather, unit, index
+        self.geometry = (view.size(), view.stride(), view.storage_offset())
+
+    def get(self):
+        return self.gather._regathered(self.unit)[self.index].as_strided(*self.geometry)
+
+
+class PerUseGather:
+    """fsdp's per-use gather (JAX's GSPMD gathers each weight where it is
+    used): the parameters named in ``pieces`` (``{name: (dim, master or
+    None)}``) hold this rank's dp piece, and each of ``units`` (modules that
+    do not nest), and ``model`` itself for the parameters no unit holds,
+    gathers its pieces into whole, contiguous tensors over ``group`` in one
+    all-gather when it is called, and puts the pieces back when it returns,
+    so that its whole weights live only while it runs.
+
+    - The gather differentiates where a piece has an f32 ``master``: the
+      backward reduce-scatters the unit's whole gradients over dp, averaged,
+      in f32, in one call, onto the masters (``master.grad``).
+    - A recomputed unit (``torch.utils.checkpoint``) gathers again in its
+      recomputation. Elsewhere, while ``model`` runs, a saved-tensor hook
+      keeps each saved view of a whole weight as where to gather it again
+      (``_Regather``); the backward gathers the unit again when it first
+      reads one and holds that one unit's wholes until it reads another's
+      or ``release`` is called.
+    - ``group`` None (dp = 1): the pieces are whole and nothing is gathered,
+      but the gradients still reach the masters through the gather.
+
+    ``gathers`` counts the units' gathers (one all-gather each where dp > 1);
+    ``live_wholes()`` the gathered whole tensors still alive."""
+
+    def __init__(self, model, units, pieces, group, size):
+        self.group, self.size = group, size
+        self.gathers = 0
+        self.live = {}  # storage of a whole weight -> (unit, index), while its unit runs
+        self._held = None  # (unit, wholes) the backward gathered last
+        self._contexts = []
+        chosen = set(units)
+        prefixes = {name: unit for name, unit in model.named_modules() if unit in chosen}
+        self.by_unit = {unit: [] for unit in [model, *units]}
+        for name, (dim, master) in pieces.items():
+            owner_name, _, pname = name.rpartition(".")
+            unit = next((u for prefix, u in prefixes.items()
+                         if name.startswith(prefix + ".")), model)
+            self.by_unit[unit].append(_Piece(model.get_submodule(owner_name), pname, dim, master))
+        self.root = model
+        for unit, items in self.by_unit.items():
+            if items or unit is model:
+                unit.register_forward_pre_hook(self._enter)
+                unit.register_forward_hook(self._exit, always_call=True)
+
+    def _gather(self, unit, grad):
+        items = self.by_unit[unit]
+        spec = (self.group, self.size, [p.dim for p in items])
+        data = [p.param.detach() for p in items]
+        masters = [p.master for p in items]
+        self.gathers += 1
+        if grad and torch.is_grad_enabled() and any(m is not None for m in masters):
+            wholes = _GatherForUse.apply(spec, *masters, *data)
+        else:
+            wholes = gather_wholes(data, spec[2], self.group, self.size)
+        if self.group is not None:
+            for p, w in zip(items, wholes):
+                p.whole = weakref.ref(w)
+        return wholes
+
+    def _regathered(self, unit):
+        if self._held is None or self._held[0] is not unit:
+            self._held = None
+            self._held = (unit, self._gather(unit, grad=False))
+        return self._held[1]
+
+    def release(self):
+        """Drop the wholes the backward gathered last."""
+        self._held = None
+
+    def _enter(self, unit, args):
+        if unit is self.root:
+            self.release()
+            if self.group is not None:
+                ctx = torch.autograd.graph.saved_tensors_hooks(self._pack, self._unpack)
+                ctx.__enter__()
+                self._contexts.append(ctx)
+        items = self.by_unit[unit]
+        if not items:
+            return
+        for i, (p, whole) in enumerate(zip(items, self._gather(unit, grad=True))):
+            p.owner._parameters[p.pname] = whole
+            if self.group is not None:
+                self.live[whole.untyped_storage().data_ptr()] = (unit, i)
+
+    def _exit(self, unit, args, out):
+        for p in self.by_unit[unit]:
+            whole = p.owner._parameters[p.pname]
+            p.owner._parameters[p.pname] = p.param
+            self.live.pop(whole.untyped_storage().data_ptr(), None)
+        if unit is self.root and self._contexts:
+            self._contexts.pop().__exit__(None, None, None)
+
+    def _pack(self, t):
+        where = self.live.get(t.untyped_storage().data_ptr()) if self.live else None
+        return t if where is None else _Regather(self, *where, t)
+
+    @staticmethod
+    def _unpack(x):
+        return x.get() if isinstance(x, _Regather) else x
+
+    def live_wholes(self, root=True):
+        """The gathered whole tensors alive now (of ``model``'s own pieces
+        too unless ``root`` is False)."""
+        return sum(1 for unit, items in self.by_unit.items() if root or unit is not self.root
+                   for p in items if p.whole is not None and p.whole() is not None)
 
 
 def shard_params(module, mesh: Mesh, rules=None):

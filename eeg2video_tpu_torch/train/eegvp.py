@@ -20,12 +20,18 @@ Draws: a fold's initial parameters come from a ``torch.Generator`` keyed by
 the JAX package draws from ``jax.random`` keys (ROADMAP §3). ``train_fold``
 takes ``init_params`` and ``perms`` from a caller that wants other draws.
 
+A fold mesh (``parallel.make_fold_mesh``: JAX's ``("fold",)`` mesh,
+train/eegvp.py:246-290 there) of k ranks, k dividing 7, gives rank r the
+folds [r*7/k, (r+1)*7/k) as the same batched program on its own GPU, with the
+serial path's draws; nothing crosses ranks until the end, when each rank's
+results are gathered so that every rank of the mesh holds all seven folds,
+as JAX returns them on every process.
+
 The only encoder JAX's ``run_benchmark`` runs is ``glfnet_mlp``: its
 ``make_encoder(cfg.encoder, out_dim=..., emb_dim=...)`` gives every other
 class an ``emb_dim`` it does not take, or (``glfnet``, ``glmnet``) inputs of
 the wrong rank or count, and its step applies ``{"params": p}`` with no
-mutable ``batch_stats``. Other encoders are refused by name before any step,
-as is a ``mesh`` (more than one device: ROADMAP §1 item 10).
+mutable ``batch_stats``. Other encoders are refused by name before any step.
 """
 
 from __future__ import annotations
@@ -40,6 +46,7 @@ from torch.func import functional_call, grad_and_value, vmap
 from ..data import meta
 from ..models import make_encoder
 from ..models.init import lecun_init_
+from ..parallel.mesh import all_gather
 from ..utils import StandardScaler, resolve_device
 
 RUNNABLE_ENCODERS = ("glfnet_mlp",)
@@ -91,9 +98,11 @@ def _fold_arrays(features, labels, test_block):
 
 def _refuse(cfg: EEGVPConfig, mesh=None):
     if mesh is not None:
-        raise ValueError("mesh: the fold-parallel benchmark across devices is multi-GPU and "
-                         "not ported yet (ROADMAP.md §1 item 7); fold_parallel=True batches "
-                         "the folds on one GPU")
+        k = mesh.size("dp") * mesh.size("sp") * mesh.size("tp")
+        if mesh.size("dp") != k or meta.N_BLOCKS % k:
+            raise ValueError(f"mesh: a fold mesh of {k} ranks ({mesh}) does not split the "
+                             f"{meta.N_BLOCKS} folds; its size must divide {meta.N_BLOCKS} "
+                             "(parallel.make_fold_mesh)")
     if cfg.encoder not in RUNNABLE_ENCODERS:
         raise ValueError(
             f"encoder '{cfg.encoder}': the EEG-VP trainer runs {list(RUNNABLE_ENCODERS)}, the "
@@ -192,16 +201,24 @@ def _train_program(model, cfg, params, perms, x_all, y_all, xv, yv, batched: boo
 
 
 def _eval(model, params, x, y, n_classes):
-    """top-1, top-5, predictions and the confusion matrix (``_eval_fold`` :111)."""
+    """top-1, top-5, predictions and the confusion matrix (``_eval_fold``
+    :111), as tensors on x's device."""
     with torch.no_grad():
         logits = functional_call(model, params, (x,))
     preds = logits.argmax(-1)
     top5 = (logits.topk(5, dim=-1).indices == y[:, None]).any(dim=1).float().mean()
     conf = torch.zeros((n_classes, n_classes), dtype=torch.int64, device=x.device)
     conf.index_put_((y.long(), preds), torch.ones_like(preds), accumulate=True)
-    # int32, as the JAX package's argmax and confusion give them
-    return (float(_top1(logits, y)), float(top5), preds.cpu().numpy().astype(np.int32),
-            conf.cpu().numpy().astype(np.int32))
+    return _top1(logits, y), top5, preds, conf
+
+
+def _fold_result(top1, top5, val, preds, conf, params, losses, vals):
+    """One fold's dict; predictions and confusion int32, as the JAX
+    package's argmax and confusion give them."""
+    return {"test_top1": float(top1), "test_top5": float(top5), "val_top1": float(val),
+            "predictions": preds.cpu().numpy().astype(np.int32),
+            "confusion": conf.cpu().numpy().astype(np.int32), "params": params,
+            "losses": losses.cpu().numpy(), "val_curve": vals.cpu().numpy()}
 
 
 def _fold_perms(n: int, epochs: int, seed: int, fold: int, device):
@@ -236,52 +253,99 @@ def train_fold(features: np.ndarray, labels: np.ndarray, test_block: int,
             print(f"  epoch {epoch + 1}: loss={float(losses[epoch]):.4f} "
                   f"val_top1={float(vals[epoch]):.3f}")
     top1, top5, preds, conf = _eval(model, best, xt, yt, cfg.out_dim)
-    return {"test_top1": top1, "test_top5": top5, "val_top1": float(best_val),
-            "predictions": preds, "confusion": conf, "params": best,
-            "losses": losses.cpu().numpy(), "val_curve": vals.cpu().numpy()}
+    return _fold_result(top1, top5, best_val, preds, conf, best, losses, vals)
 
 
-def _run_benchmark_parallel(features, labels, cfg, seed, device):
-    """All 7 folds as one batched program on one device (``_train_program``
-    under ``vmap``); per-fold draws and data as in the serial path."""
+def _train_folds(features, labels, cfg, seed, device, folds, draws=None):
+    """The folds ``folds`` as one batched program on ``device``
+    (``_train_program`` under ``vmap``), each with the serial path's draws
+    (or fold b's of ``draws``) and data. Returns a dict of tensors stacked along the fold axis: the
+    best parameters ({name: tensor}) and each fold's test top-1, top-5,
+    predictions, confusion, best validation top-1, losses and validation
+    curve."""
     model = _model(cfg, features.shape[-2]).to(device)
-    datas = [_fold_arrays(features, labels, tb) for tb in range(meta.N_BLOCKS)]
+    datas = [_fold_arrays(features, labels, tb) for tb in folds]
     stack = lambda split, i: torch.as_tensor(np.stack([d[split][i] for d in datas]),
                                              device=device)
     x_all, y_all = stack("train", 0), stack("train", 1)
     xv, yv, xt, yt = stack("val", 0), stack("val", 1), stack("test", 0), stack("test", 1)
-    inits = [init_fold_params(cfg, features.shape[-2], seed + tb, tb, device)
-             for tb in range(meta.N_BLOCKS)]
+    if draws is None:
+        inits = [init_fold_params(cfg, features.shape[-2], seed + tb, tb, device)
+                 for tb in folds]
+        perms = torch.stack([_fold_perms(x_all.shape[1], cfg.epochs, seed + tb, tb, device)
+                             for tb in folds])
+    else:
+        inits = [{k: torch.as_tensor(v).to(device, torch.float32) for k, v in draws[0][tb].items()}
+                 for tb in folds]
+        perms = torch.as_tensor(np.stack([np.asarray(draws[1][tb]) for tb in folds]),
+                                device=device)
     params = {k: torch.stack([p[k] for p in inits]) for k in inits[0]}
-    perms = torch.stack([_fold_perms(x_all.shape[1], cfg.epochs, seed + tb, tb, device)
-                         for tb in range(meta.N_BLOCKS)])
     best, best_vals, losses, vals = _train_program(model, cfg, params, perms, x_all, y_all, xv,
                                                    yv, batched=True)
-    folds = []
-    for tb in range(meta.N_BLOCKS):
-        p = {k: v[tb] for k, v in best.items()}
-        top1, top5, preds, conf = _eval(model, p, xt[tb], yt[tb], cfg.out_dim)
-        folds.append({"test_top1": top1, "test_top5": top5, "val_top1": float(best_vals[tb]),
-                      "predictions": preds, "confusion": conf, "params": p,
-                      "losses": losses[tb].cpu().numpy(), "val_curve": vals[tb].cpu().numpy()})
-    return folds
+    evals = [_eval(model, {k: v[i] for k, v in best.items()}, xt[i], yt[i], cfg.out_dim)
+             for i in range(len(folds))]
+    out = dict(zip(("top1", "top5", "preds", "conf"), (torch.stack(e) for e in zip(*evals))))
+    return {**out, "val": best_vals, "losses": losses, "vals": vals, "params": best}
+
+
+def _gather_folds(part, mesh):
+    """Every rank's stacked folds, in rank order, whole on every rank of the
+    fold mesh (a fold mesh of one: ``part`` itself)."""
+    group, k = mesh.group("dp"), mesh.size("dp")
+    if group is None:
+        return part
+    take = lambda t: all_gather(t, group, k)
+    return {key: ({n: take(v) for n, v in t.items()} if key == "params" else take(t))
+            for key, t in part.items()}
+
+
+def _run_benchmark_parallel(features, labels, cfg, seed, device, mesh=None, draws=None):
+    """All 7 folds as one batched program on one device; on a fold ``mesh``
+    of k ranks this rank's 7 / k of them, the others' gathered after."""
+    folds = range(meta.N_BLOCKS)
+    if mesh is not None:
+        per = meta.N_BLOCKS // mesh.size("dp")
+        folds = range(mesh.rank("dp") * per, (mesh.rank("dp") + 1) * per)
+    out = _train_folds(features, labels, cfg, seed, device, folds, draws)
+    if mesh is not None:
+        out = _gather_folds(out, mesh)
+    return [_fold_result(out["top1"][tb], out["top5"][tb], out["val"][tb], out["preds"][tb],
+                         out["conf"][tb], {k: v[tb] for k, v in out["params"].items()},
+                         out["losses"][tb], out["vals"][tb]) for tb in range(meta.N_BLOCKS)]
 
 
 def run_benchmark(features, labels, cfg: EEGVPConfig = EEGVPConfig(), seed=0, verbose=False,
-                  fold_parallel=False, mesh=None, device="cuda"):
+                  fold_parallel=False, mesh=None, device="cuda", draws=None):
     """Full 7-fold leave-one-block-out benchmark (reference L238-362): fold b
     is keyed by (seed + b, b), as JAX seeds fold b with seed + b. Returns the
     per-fold results + a mean/std summary.
 
     ``fold_parallel``: all 7 folds as one batched program on ``device``, the
-    same results per fold as the serial path."""
+    same results per fold as the serial path; with a fold ``mesh``
+    (``parallel.make_fold_mesh``, every rank of the world calls this) each
+    rank trains its share of the folds on its own GPU and every rank of the
+    mesh returns all seven; a rank past the mesh returns None at once. A
+    mesh whose size does not divide 7 is refused by name before any step.
+    Without ``fold_parallel`` a mesh is not used, as in JAX.
+
+    ``draws`` (``(inits, perms)``: 7 initial state dicts and the 7 folds'
+    (epochs, n_train) permutations) replace the draws keyed by (seed + b,
+    b)."""
+    mesh = mesh if fold_parallel else None
     _refuse(cfg, mesh)
     device = resolve_device(device)
+    if mesh is not None:
+        if not mesh.active:
+            return None
+        device = mesh.device
     if fold_parallel:
-        folds = _run_benchmark_parallel(features, labels, cfg, seed, device)
+        folds = _run_benchmark_parallel(features, labels, cfg, seed, device, mesh, draws)
     else:
         folds = [train_fold(features, labels, tb, cfg, seed=seed + tb, verbose=verbose,
-                            device=device) for tb in range(meta.N_BLOCKS)]
+                            device=device,
+                            **({} if draws is None else {"init_params": draws[0][tb],
+                                                         "perms": draws[1][tb]}))
+                 for tb in range(meta.N_BLOCKS)]
     if verbose:
         for tb, r in enumerate(folds):
             print(f"fold test_block={tb}: top1={r['test_top1']:.3f} top5={r['test_top5']:.3f}")

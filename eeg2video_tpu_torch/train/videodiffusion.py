@@ -23,7 +23,8 @@ Counterpart of ``eeg2video_tpu/train/videodiffusion.py``:
 - the reference's DDP (L99-102, L240-242) becomes JAX's mesh (:42-57,
   :261-345): the batch split over dp, ring attention over sp
   (``attention3d.sp_scope`` open around the forward and the backward),
-  Megatron tp, and fsdp of the masters and moments; see ``TrainState`` and
+  Megatron tp, and fsdp of the masters, moments and working copy, each
+  unit's weights gathered at its use; see ``TrainState`` and
   ``train_step``.
 
 Training math (reference L288-319): VAE-encode pixels (or take precomputed
@@ -45,10 +46,11 @@ import torch.distributed as dist
 from torch import nn
 
 from ..diffusion.schedulers import DDPMSchedule
-from ..models.attention3d import sp_scope
+from ..models.attention3d import Transformer3DModel, sp_scope
+from ..models.resnet3d import Downsample3D, ResnetBlock3D, Upsample3D
 from ..models.vae import SD_VAE_SCALE
-from ..parallel.mesh import (all_gather, gather_pieces, shard_batch, shard_params_fsdp,
-                             split_piece, tp_spec)
+from ..parallel.mesh import (PerUseGather, gather_pieces, mean_over, shard_batch,
+                             shard_params_fsdp, split_piece, tp_spec)
 from ..utils.device import resolve_device
 from .optim import Adam8bit, state_bytes, true_div
 
@@ -61,6 +63,14 @@ def trainable(name: str) -> bool:
     if "attn_temp" in parts:
         return True
     return ("attn1" in parts or "attn2" in parts) and "to_q" in parts
+
+
+def unet_fsdp_units(unet):
+    """The modules whose weights fsdp gathers together where they run: every
+    resnet block, transformer and down- or up-sampler; the UNet itself
+    gathers the rest (the stem, the time embedding and the head)."""
+    kinds = (ResnetBlock3D, Transformer3DModel, Downsample3D, Upsample3D)
+    return [m for m in unet.modules() if isinstance(m, kinds)]
 
 
 def unet_tp_rules(name: str):
@@ -132,11 +142,16 @@ class TrainState:
 
     With ``fsdp`` the masters (and the kept frozen originals) hold, besides,
     only this rank's dp piece of every tensor that ``parallel.shard_params_fsdp``
-    splits, on JAX's dimension, and so do the optimizer's moments (AdamW's,
-    or the 8-bit codes and the scales that run along a split axis). The
-    working copy in the compute dtype stays whole on every dp rank and is
-    re-made from the master pieces by one all-gather after each update; JAX
-    gathers each weight at its use instead (a difference in memory only).
+    splits, on JAX's dimension (on top of tp's shard), and so do the
+    optimizer's moments (AdamW's, or the 8-bit codes and the scales that run
+    along a split axis) and the model's own parameters, the working copy in
+    the compute dtype, trainable and frozen alike. Each unit
+    (``unet_fsdp_units``) gathers its pieces into whole tensors over dp where
+    it runs, again in its recomputation or where the backward reads them, and
+    frees them after (``parallel.PerUseGather``); a trainable piece's
+    gradient is reduce-scattered over dp, averaged, onto its master, and the
+    update casts the master pieces into the working pieces. At dp 1 the
+    pieces are whole and the same code runs without a collective.
 
     ``state_dict`` gathers whole tensors in the file layout of one GPU, and
     ``load_state_dict`` slices them back, so a checkpoint moves between
@@ -170,20 +185,37 @@ class TrainState:
                              if (spec := tp_spec(unet, n)) is not None and mesh.size(spec[1]) > 1}
         keeps_frozen = self.dtype != torch.float32
         self.frozen_f32 = None
+        self.gather = None
         if self.dtype == torch.float32 and not fsdp:
             self.unet = unet.to(self.device)
             self.masters = {n: p for n, p in self.unet.named_parameters() if n in chosen}
         else:  # the model's parameters hold their tp shards already
-            stored = {n: p.detach() for n, p in named.items() if n in chosen or keeps_frozen}
+            stored = {n: p.detach() for n, p in named.items()}
             if fsdp:  # fsdp's pieces of them, and the dim of each split
                 split = shard_params_fsdp(stored, mesh, self.tp_specs.get)
                 stored = {n: piece for n, (piece, _) in split.items()}
                 self.dp_dims = {n: dim for n, (_, dim) in split.items() if dim is not None}
+                for n in self.dp_dims:  # the working copy holds the pieces too
+                    named[n].data = stored[n]
             if keeps_frozen:
                 self.frozen_f32 = {n: t.cpu() for n, t in stored.items() if n not in chosen}
             self.masters = {n: nn.Parameter(stored[n].to(self.device, copy=True))
                             for n in self.trainable_names}
             self.unet = unet.to(device=self.device, dtype=self.dtype)
+        if fsdp:
+            pieces = {}
+            for n, p in self.unet.named_parameters():
+                if n not in self.dp_dims:
+                    continue
+                master = self.masters.get(n)
+                if master is not None:
+                    p.requires_grad_(False)  # its gradient lands on the master
+                    if self.dtype == torch.float32:
+                        p.data = master.detach()  # the working piece is the master
+                pieces[n] = (self.dp_dims[n], master)
+            dp = mesh.size("dp")
+            self.gather = PerUseGather(self.unet, unet_fsdp_units(self.unet), pieces,
+                                       mesh.group("dp") if dp > 1 else None, dp)
         self.working = {n: p for n, p in self.unet.named_parameters() if n in chosen}
         adamw = Adam8bit if cfg.use_8bit_adam else torch.optim.AdamW
         self.optimizer = adamw(
@@ -211,6 +243,11 @@ class TrainState:
         if n in self.dp_dims and self.mesh.size("dp") > 1:
             out.append(("dp", self.dp_dims[n]))
         return out
+
+    def _gathered(self, n):
+        """Whether parameter n's gradient reaches its master through the
+        per-use gather (fsdp), not through the working copy's ``grad``."""
+        return self.gather is not None and n in self.dp_dims
 
     def _dp_piece(self, n, t, rows=True):
         """This rank's fsdp piece of ``t`` (parameter n's tp shard, or a
@@ -250,28 +287,14 @@ class TrainState:
     # --- the step ------------------------------------------------------------
 
     def _sync_working(self):
-        """Re-make the working copy from the masters: a cast where both are
-        whole, one all-gather of the compute-dtype pieces under fsdp."""
-        if all(self.working[n] is m for n, m in self.masters.items()):
-            return
+        """Re-make the working copy from the masters: a cast of each master
+        into its working tensor, both whole or both this rank's fsdp piece
+        (nothing where they are one tensor)."""
         with torch.no_grad():
-            split = [n for n in self.masters if self.dp_dims.get(n) is not None
-                     and self.mesh.size("dp") > 1]
             for n, master in self.masters.items():
-                if n not in split:
-                    self.working[n].copy_(master)
-            if not split:
-                return
-            dp = self.mesh.size("dp")
-            pieces = [self.masters[n].detach().to(self.dtype) for n in split]
-            flat = torch.cat([p.reshape(-1) for p in pieces])
-            every = all_gather(flat, self.mesh.group("dp"), dp).view(dp, -1)
-            sizes = [p.numel() for p in pieces]
-            per_rank = [row.split(sizes) for row in every]
-            for i, (n, p) in enumerate(zip(split, pieces)):
-                whole = torch.cat([per_rank[r][i].view(p.shape) for r in range(dp)],
-                                  dim=self.dp_dims[n])
-                self.working[n].copy_(whole)
+                w = self.working[n]
+                if w is not master and w.data_ptr() != master.data_ptr():
+                    w.copy_(master)
 
     def _clip_grad_norm(self):
         """Clip the masters' gradients by their global norm: torch's
@@ -301,21 +324,19 @@ class TrainState:
         masters and refresh the working copy; with gradient accumulation, add
         the gradients to the running mean instead and do that with the mean
         every k-th micro step."""
-        grads = []
-        for n in self.masters:
-            w = self.working[n]
-            if w.grad is None:
+        if self.gather is not None:
+            self.gather.release()
+        for n, master in self.masters.items():
+            if (master if self._gathered(n) else self.working[n]).grad is None:
                 raise RuntimeError(f"{n}: trainable but received no gradient")
-            grads.append(w.grad)
+        # the gathered ones are on their masters, reduce-scattered over dp already
+        whole = [n for n in self.masters if not self._gathered(n)]
+        grads = [self.working[n].grad for n in whole]
         dp_group = None if self.mesh is None else self.mesh.group("dp")
-        if dp_group is not None:  # one flattened all-reduce, then the mean
-            flat = torch.cat([g.reshape(-1).float() for g in grads])
-            dist.all_reduce(flat, group=dp_group)
-            flat = true_div(flat, float(self.mesh.size("dp")))
-            grads = [f.view(g.shape) for f, g in zip(flat.split([g.numel() for g in grads]),
-                                                    grads)]
-        for (n, master), g in zip(self.masters.items(), grads):
-            w = self.working[n]
+        if dp_group is not None and grads:
+            grads = mean_over(grads, dp_group, self.mesh.size("dp"))
+        for n, g in zip(whole, grads):
+            master, w = self.masters[n], self.working[n]
             if master is not w:
                 master.grad = self._dp_piece(n, g).float()
                 w.grad = None

@@ -18,9 +18,11 @@ Rank 0 prints one JSON line per run: the mesh, the loss of each step and its
 largest relative gap to the reference's, the seconds of each step on the
 host clock between two synchronizations (the first step includes the first
 calls' set-up) and the median of the later ones, and, as the largest over the
-ranks, the peak device memory of the steps and the bytes of the f32 masters
-and the optimizer's state; with the card's name and power limit. ``--device
-cpu --tiny`` rehearses it over gloo with the micro UNet at 8 x 8 latents.
+ranks, the peak device memory of the steps, the bytes of the f32 masters
+and the optimizer's state, and the bytes of the model's own parameters (the
+compute-dtype working copy: this rank's fsdp pieces under fsdp); with the
+card's name and power limit. ``--device cpu --tiny`` rehearses it over gloo
+with the micro UNet at 8 x 8 latents.
 """
 
 from __future__ import annotations
@@ -72,7 +74,8 @@ def _data(torch, dev, batch, tiny):
 
 
 def _run(torch, args, dev, spec):
-    """One run: (losses, seconds, peak bytes, resident bytes) on this rank."""
+    """One run: (losses, seconds, peak bytes, resident bytes, working-copy
+    bytes) on this rank."""
     from ..models.attention3d import check_tp_heads
     from ..parallel import make_mesh, shard_batch, shard_params
     from ..train import videodiffusion as vd
@@ -103,7 +106,8 @@ def _run(torch, args, dev, spec):
         sync()
         secs.append(time.perf_counter() - t0)
     peak = torch.cuda.max_memory_allocated() if dev.type == "cuda" else 0
-    return losses, secs, peak, state.resident_bytes()
+    working = sum(p.numel() * p.element_size() for p in state.unet.parameters())
+    return losses, secs, peak, state.resident_bytes(), working
 
 
 def main(argv=None):
@@ -134,11 +138,11 @@ def main(argv=None):
     card = _card() if dev.type == "cuda" else "cpu"
     reference = None
     for spec in [None, *args.mesh]:
-        losses, secs, peak, resident = _run(torch, args, dev, spec)
+        losses, secs, peak, resident, working = _run(torch, args, dev, spec)
         if dist.is_initialized() and dist.get_world_size() > 1:
             every = [None] * dist.get_world_size()
-            dist.all_gather_object(every, (peak, resident))
-            peak, resident = (max(x[i] for x in every) for i in (0, 1))
+            dist.all_gather_object(every, (peak, resident, working))
+            peak, resident, working = (max(x[i] for x in every) for i in (0, 1, 2))
         if reference is None:
             reference = losses
         if is_host0():
@@ -150,7 +154,8 @@ def main(argv=None):
                                               for a, b in zip(losses, reference)),
                 "seconds": secs, "median_after_first": statistics.median(secs[1:] or secs),
                 "peak_gib_max_rank": peak / 2**30, "masters_and_optimizer_bytes_max_rank":
-                    resident, "card": card}), flush=True)
+                    resident, "working_copy_bytes_max_rank": working, "card": card}),
+                  flush=True)
         if dev.type == "cuda":
             torch.cuda.empty_cache()
     if owned and dist.is_initialized():

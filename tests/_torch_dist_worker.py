@@ -2,7 +2,8 @@
 (tests/test_torch_parallel.py, test_torch_ring.py,
 test_torch_sharded_generation.py, test_torch_ring_bwd.py,
 test_torch_sharded_training.py, test_torch_sharded_serving.py,
-test_torch_pipeline_parallel.py).
+test_torch_pipeline_parallel.py, test_torch_fold_mesh.py,
+test_torch_glmnet_dp.py, test_torch_fsdp_gather.py).
 
 ``start(case, world, inputs, tmp_path)`` starts ``world`` processes with the
 ``spawn`` start method (the pytest process holds JAX's runtime, which a fork
@@ -775,3 +776,136 @@ def serving_cases(rank, world, inputs):
     """``cli.serve.main`` at each run of ``inputs["runs"][world]`` (name ->
     run, see ``_serve_main``), every rank."""
     return {name: _serve_main(inputs, run) for name, run in inputs["runs"][world].items()}
+
+
+# --- EEG-VP's fold mesh -----------------------------------------------------------
+
+def _folds(res):
+    """A run_benchmark result as numpy (None on a rank past the mesh)."""
+    if res is None:
+        return None
+    return [{k: ({n: _np(v) for n, v in f["params"].items()} if k == "params" else f[k])
+             for k in f} for f in res["folds"]]
+
+
+def fold_mesh_cases(rank, world, inputs):
+    """``run_benchmark(fold_parallel=True)`` on a 7-rank fold mesh of this
+    world (the port's draws, then JAX's passed in); at world 7 also the
+    refusal of a fold mesh of 2 and ``eegvp_train_test.main --fold_parallel``
+    (the files are compared by the caller)."""
+    from eeg2video_tpu_torch.cli import eegvp_train_test
+    from eeg2video_tpu_torch.parallel import make_fold_mesh
+    from eeg2video_tpu_torch.train import eegvp
+
+    cfg = eegvp.EEGVPConfig(**inputs["cfg"])
+    feats, labels = inputs["feats"], inputs["labels"]
+    mesh = make_fold_mesh(7, "cpu", timeout=TIMEOUT)
+    run = lambda m, **k: eegvp.run_benchmark(feats, labels, cfg, seed=inputs["seed"],
+                                             fold_parallel=True, mesh=m, device="cpu", **k)
+    out = {"active": mesh.active, "own": _folds(run(mesh)),
+           "jax_draws": _folds(run(mesh, draws=inputs["draws"]))}
+    if world == 7:
+        two = make_fold_mesh(2, "cpu", timeout=TIMEOUT)
+        out["refused"] = _raises(ValueError, lambda: run(two))
+        eegvp_train_test.main(inputs["cli_args"])
+    return out
+
+
+# --- train_glmnet --dp --------------------------------------------------------------
+
+def _glmnet_run(inputs, mesh, **kw):
+    """``train_glmnet`` on the mesh: (the state dict, the epochs' losses)."""
+    from eeg2video_tpu_torch.cli import train_glmnet
+
+    model, losses = train_glmnet.train_glmnet(inputs["train"], device="cpu", mesh=mesh,
+                                              **inputs["train_kw"], **kw)
+    return {k: _np(v) for k, v in model.state_dict().items()}, losses
+
+
+def _glmnet_main(argv):
+    """``train_glmnet.main(argv)``: (its return value or the SystemExit's code,
+    what it wrote to stderr)."""
+    import contextlib
+    import io
+
+    from eeg2video_tpu_torch.cli import train_glmnet
+
+    err = io.StringIO()
+    with contextlib.redirect_stderr(err):
+        try:
+            ret = train_glmnet.main(argv)
+        except SystemExit as e:
+            ret = ("exit", e.code)
+    return ret, err.getvalue()
+
+
+def glmnet_dp_cases(rank, world, inputs):
+    """``train_glmnet`` with dropout on at dp = world (the port's own draws),
+    and with dropout off given JAX's draws at dp = 2 (world 2); then the CLI:
+    ``--dp`` over the whole world, ``--dp world - 1`` (the last rank idle, the
+    batch rounded down) and ``--dp world + 1`` (refused)."""
+    from eeg2video_tpu_torch.models.layers import Dropout
+    from eeg2video_tpu_torch.parallel import make_mesh
+
+    mesh = make_mesh(dp=world, device="cpu", timeout=TIMEOUT)
+    out = {"dropout": _glmnet_run(inputs, mesh)}
+    if world == 2:
+        forward = Dropout.forward
+        Dropout.forward = lambda self, x: x
+        try:
+            out["jax_draws"] = _glmnet_run(inputs, mesh, init_params=inputs["jax_init"],
+                                           perms=inputs["jax_perms"])
+        finally:
+            Dropout.forward = forward
+    args = inputs["cli_args"]
+    out["cli"] = {dp: _glmnet_main(args + ["--dp", str(dp), "--save_path",
+                                           os.path.join(inputs["cli_dir"], f"w{world}_dp{dp}")])
+                  for dp in (world, world - 1, world + 1)}
+    return out
+
+
+# --- fsdp's per-use gather ----------------------------------------------------------
+
+def _working_bytes(state):
+    return sum(p.numel() * p.element_size() for p in state.unet.parameters())
+
+
+def fsdp_gather_cases(rank, world, inputs):
+    """The fine-tune step with fsdp at each (dp, sp, tp) of
+    ``inputs["fsdp_layouts"][world]``: the dp-mean loss, the model's
+    parameter shapes and bytes between steps, the gathered whole weights
+    still alive at each unit's exit and after the step, the gathers, and on
+    rank 0 the parameters after the step and the checkpoint; a second step's
+    loss and parameters. Then ``train_tuneavideo.main`` with each of
+    ``inputs["cli"][world]``'s lists of flags."""
+    from eeg2video_tpu_torch.parallel import make_mesh
+
+    out = {}
+    for dp, sp, tp in inputs["fsdp_layouts"][world]:
+        mesh = make_mesh(dp=dp, sp=sp, tp=tp, device="cpu", timeout=TIMEOUT)
+        state = _mesh_state(inputs, mesh, True, False, "float32")
+        gather = state.gather
+        at_exit = []
+        for unit, items in gather.by_unit.items():
+            if unit is not gather.root and items:
+                unit.register_forward_hook(
+                    lambda m, a, o: at_exit.append(gather.live_wholes(root=False)))
+        res = {"shapes": {n: tuple(p.shape) for n, p in state.unet.named_parameters()},
+               "bytes": _working_bytes(state)}
+        res["loss"] = _mesh_step(state, inputs, 0)
+        res.update(at_exit=list(at_exit), after=gather.live_wholes(), gathers=gather.gathers,
+                   n_units=sum(1 for u, items in gather.by_unit.items()
+                               if u is not gather.root and items),
+                   n_pieces=sum(len(items) for items in gather.by_unit.values()),
+                   n_gathering=sum(1 for items in gather.by_unit.values() if items),
+                   bytes_after=_working_bytes(state),
+                   grad_free=all(p.grad is None for p in state.unet.parameters()))
+        res["params"] = {n: _np(v) for n, v in state.params_f32().items()}
+        res["ckpt"] = state.state_dict()
+        res["loss2"] = _mesh_step(state, inputs, 1)
+        res["params2"] = {n: _np(v) for n, v in state.params_f32().items()}
+        if rank:
+            res = {k: v for k, v in res.items() if k not in ("params", "params2", "ckpt")}
+        out[(dp, sp, tp)] = res
+    out["cli"] = [_train_cli(inputs, flags) for flags in inputs["cli"].get(world, [])]
+    return out

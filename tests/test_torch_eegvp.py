@@ -160,13 +160,6 @@ def test_jax_fails_on_the_refused_encoders_too(name):
         jv.train_fold(feats, labels, 0, jv.EEGVPConfig(epochs=1, batch_size=64, encoder=name))
 
 
-def test_a_mesh_is_refused_by_name():
-    feats, labels = _separable(4)
-    with pytest.raises(ValueError, match="mesh"):
-        tv.run_benchmark(feats, labels, tv.EEGVPConfig(epochs=1), fold_parallel=True,
-                         mesh=object(), device="cpu")
-
-
 @pytest.mark.parametrize("fold_parallel", [False, True])
 def test_cli_writes_the_jax_cli_outputs(tmp_path, fold_parallel):
     """Per subject: sub{n}_top1 (7,), _preds (7, 400), _confusion (7, 40, 40),

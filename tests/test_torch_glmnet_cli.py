@@ -114,10 +114,13 @@ def test_embeddings_from_a_jax_checkpoint_match_jax_inference(tiny_subject):
 
 
 def test_dp_is_refused_by_name(tiny_subject, capsys):
+    """``--dp 2`` in a world of one process (no launcher) is refused by name
+    before anything is read: the mesh would need two ranks."""
     with pytest.raises(SystemExit):
         ttrain.main(["--raw_dir", str(tiny_subject / "raw"), "--de_dir", str(tiny_subject / "de"),
                      "--sub", "2", "--dp", "2", "--device", "cpu"])
-    assert "--dp" in capsys.readouterr().err
+    err = capsys.readouterr().err
+    assert "--dp 2" in err and "world holds 1 rank" in err
 
 
 def test_the_card_is_the_default(tiny_subject):
